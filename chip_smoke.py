@@ -1,0 +1,523 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch / CUDA port (tinysql_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (any mismatch raises, and the script exits nonzero without a
+result line):
+
+1. the card's name and power limit (nvidia-smi) and the build of the four
+   hand-written kernels (HK1-HK4) from tinysql_tpu_torch/csrc;
+2. each kernel against its plain torch version on the card, at the shapes
+   the main path gives it at TPC-H SF=1 plus edge cases: integers, counts,
+   NULL masks and row order exactly, float sums within 1e-6 relative; each
+   kernel runs twice and must give the same bytes.  Median CUDA-event
+   times of the kernel, its plain version and, where one exists, the
+   single PyTorch call computing the same function, beside the bound (the
+   bytes each input read once and each output written once take at
+   3.35 TB/s, or the operations at the card's peak, whichever is larger).
+   Calls that compute only part of a kernel's function are timed too and
+   printed under names that say which part, never as library_ms;
+3. the main path: new_session() on cuda, tpch.load at SF=1 (seed 7), then
+   TPC-H Q1, Q3 and Q6 through SQL with tidb_use_tpu=1.  The rows must
+   equal the port's own CPU tier (tidb_use_tpu=0) under tpch.canon_rows,
+   each wrapper's launch counter (one count per launching wrapper call)
+   must rise on the queries that use it, and no plain version may run;
+4. one JSON line listing the kernels ({"kernels": [...]}), then the
+   result line {"ok": true, "device": {...}}.
+
+Needs one CUDA card and the CUDA toolkit (nvcc); no network.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+MEM_BPS = 3.35e12   # H100 SXM HBM3 memory rate
+OPS_PS = 67e12      # H100 SXM non-tensor-core float32 peak
+SF = 1.0
+SEED = 7
+FLOAT_RTOL = 1e-6   # the reference's own bound (executor/devpipe.py)
+
+KERNELS = {
+    "masked_reduce": ("tinysql_tpu_torch/csrc/masked_reduce.cu",
+                      "tinysql_tpu/ops/kernels.py:1388"),
+    "segment_reduce": ("tinysql_tpu_torch/csrc/segment_reduce.cu",
+                       "tinysql_tpu/ops/kernels.py:1007"),
+    "present_compact": ("tinysql_tpu_torch/csrc/segment_reduce.cu",
+                        "tinysql_tpu/ops/kernels.py:954"),
+    "equi_join": ("tinysql_tpu_torch/csrc/equi_join.cu",
+                  "tinysql_tpu/ops/kernels.py:1803"),
+    "lex_order": ("tinysql_tpu_torch/csrc/lex_order.cu",
+                  "tinysql_tpu/ops/kernels.py:2165"),
+}
+# which kernels each query of the main path must launch
+USES = {"Q1": ("segment_reduce", "lex_order"),
+        "Q3": ("equi_join", "segment_reduce", "present_compact",
+               "lex_order"),
+        "Q6": ("masked_reduce",)}
+
+
+class Mismatch(AssertionError):
+    pass
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def same_bytes(a, b, what: str) -> None:
+    """Every kernel output is an int64 tensor (float results as bits), so
+    torch.equal compares bytes."""
+    import torch
+    a = a if isinstance(a, (tuple, list)) else (a,)
+    b = b if isinstance(b, (tuple, list)) else (b,)
+    for x, y in zip(a, b):
+        if x.shape != y.shape or not torch.equal(x, y):
+            raise Mismatch(f"{what}: two runs of the kernel differ")
+
+
+def check_table(k, p, float_rows, what: str) -> float:
+    """k/p: int64 tables (rows x n).  Rows in float_rows hold float64 bits
+    of sums (1e-6 relative); every other row must match exactly.
+    Returns the max absolute difference of the float rows."""
+    import torch
+    if k.shape != p.shape:
+        raise Mismatch(f"{what}: shape {tuple(k.shape)} vs {tuple(p.shape)}")
+    err = 0.0
+    for r in range(k.shape[0]):
+        if r in float_rows:
+            kv, pv = k[r].view(torch.float64), p[r].view(torch.float64)
+            if not torch.allclose(kv, pv, rtol=FLOAT_RTOL, atol=1e-9,
+                                  equal_nan=True):
+                raise Mismatch(f"{what}: float row {r} beyond 1e-6 rel")
+            fin = torch.isfinite(kv) & torch.isfinite(pv)
+            if fin.any():
+                err = max(err, float((kv[fin] - pv[fin]).abs().max()))
+        elif not torch.equal(k[r], p[r]):
+            bad = int((k[r] != p[r]).nonzero()[0])
+            raise Mismatch(f"{what}: row {r} differs at {bad}: "
+                           f"{int(k[r][bad])} vs {int(p[r][bad])}")
+    return err
+
+
+def lane_float_rows(lanes, head: int):
+    import torch
+    return {head + 2 * j for j, (v, _m, op) in enumerate(lanes)
+            if v is not None and v.dtype == torch.float64 and op == "sum"}
+
+
+# ---- phase 2 -------------------------------------------------------------
+
+def phase_kernels(K, dev):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    rec = {}
+    I64_MAX, I64_MIN = (1 << 63) - 1, -(1 << 63)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype).to(dev)
+
+    def rnd_f(n):
+        return t(np.round(rng.uniform(900.0, 105000.0, n), 2))
+
+    def rnd_null(n, p):
+        return t(rng.random(n) < p)
+
+    # -- HK1 masked_reduce: Q6 (2^23 rows, one float64 SUM lane) ---------
+    def hk1_case(n, lanes, valid, what):
+        k1 = K.masked_reduce(valid, lanes)
+        k2 = K.masked_reduce(valid, lanes)
+        same_bytes(k1, k2, what)
+        p = K.masked_reduce_plain(valid, K._norm_lanes(lanes, n, dev, what))
+        return check_table(k1.reshape(-1, 1), p.reshape(-1, 1),
+                           lane_float_rows(lanes, 2), what)
+
+    n = 1 << 23
+    valid = t(rng.random(n) < 0.02)  # Q6 keeps ~2% of lineitem
+    q6 = [(rnd_f(n), t(np.zeros(n, bool)), "sum")]
+    err = hk1_case(n, q6, valid, "masked_reduce Q6")
+    rec["masked_reduce"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: K.masked_reduce(valid, q6)),
+        "plain_ms": cuda_ms(lambda: K.masked_reduce_plain(valid, q6)),
+        "library_ms": None,
+        "bytes": n * (1 + 8 + 1) + 8 * 4, "ops": 2 * n,
+        "shape": "n=2^23, 1 float64 SUM lane (Q6)"}
+    # edge cases: all-invalid, all-NULL lane, int64 extremes, min/max
+    ne = 4096
+    vi = t(rng.integers(-5, 5, ne), torch.int64)
+    vi[:4] = t([I64_MAX, I64_MIN, I64_MAX, I64_MIN], torch.int64)
+    vf = t(rng.normal(size=ne))
+    lanes_e = [(vi, rnd_null(ne, 0.3), "sum"), (vi, None, "min"),
+               (vi, None, "max"), (vf, t(np.ones(ne, bool)), "sum"),
+               (vf, rnd_null(ne, 0.5), "min"), (vf, None, "max"),
+               (None, rnd_null(ne, 0.5), "count")]
+    hk1_case(ne, lanes_e, t(rng.random(ne) < 0.6), "masked_reduce edges")
+    hk1_case(ne, lanes_e, t(np.zeros(ne, bool)), "masked_reduce empty")
+    hk1_case(16, [(vi[:16], None, "sum")], t(np.ones(16, bool)),
+             "masked_reduce n=16")
+
+    # -- HK2 segment_reduce: Q1 (6 groups, 10 lanes), Q3 (2^21 segs) ----
+    def hk2_case(gid, valid, ns, lanes, what):
+        nn = int(valid.shape[0])
+        k1 = K.segment_reduce(gid, valid, ns, lanes)
+        k2 = K.segment_reduce(gid, valid, ns, lanes)
+        same_bytes(k1, k2, what)
+        p = K.segment_reduce_plain(gid, valid, ns,
+                                   K._norm_lanes(lanes, nn, dev, what))
+        err = check_table(k1, p, lane_float_rows(lanes, 2), what)
+        npk, pk = K.present_compact(k1, ns)
+        npp, pp = K.present_compact_plain(k1, ns)
+        if npk != npp:
+            raise Mismatch(f"{what}: present count {npk} vs {npp}")
+        same_bytes(pk, pp, f"{what} present compaction")
+        return err
+
+    gid1 = t(rng.integers(0, 12, n), torch.int64)
+    valid1 = t(rng.random(n) < 0.98)
+    q1 = []
+    for j in range(10):
+        if j in (5, 7, 9):
+            q1.append((None, t(np.zeros(n, bool)), "count"))
+        else:
+            q1.append((rnd_f(n), t(np.zeros(n, bool)), "sum"))
+    hk2_case(gid1, valid1, 16, q1, "segment_reduce Q1")
+    q1_ms = cuda_ms(lambda: K.segment_reduce(gid1, valid1, 16, q1))
+    ns3 = 1 << 21
+    gid3 = t(np.concatenate([np.repeat(np.arange(1_500_000), 4),
+                             np.zeros(n - 6_000_000, np.int64)]),
+             torch.int64)
+    valid3 = t(np.concatenate([rng.random(6_000_000) < 0.54,
+                               np.zeros(n - 6_000_000, bool)]))
+    q3 = [(rnd_f(n), t(np.zeros(n, bool)), "sum")]
+    err = hk2_case(gid3, valid3, ns3, q3, "segment_reduce Q3")
+    g_all = torch.where(valid3, gid3, torch.full_like(gid3, ns3))
+    x3 = q3[0][0]
+    # skew: one group holds 90% of the rows (a low-cardinality key through
+    # the sort-based GROUP BY, which always asks for ns = the row bucket)
+    gid_sk = t(np.where(rng.random(n) < 0.9, 0,
+                        rng.integers(0, ns3, n)), torch.int64)
+    valid_sk = t(rng.random(n) < 0.98)
+    hk2_case(gid_sk, valid_sk, ns3, q3, "segment_reduce skew")
+    rec["segment_reduce"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: K.segment_reduce(gid3, valid3, ns3, q3)),
+        "plain_ms": cuda_ms(lambda: K.segment_reduce_plain(
+            gid3, valid3, ns3, q3)),
+        "library_ms": None,
+        "bytes": n * (8 + 1 + 8 + 1) + 4 * 8 * ns3, "ops": 2 * n,
+        "shape": "n=2^23, 2^21 segments, 1 float64 SUM lane (Q3)",
+        "q1_ms": q1_ms,
+        "sum_lane_only_scatter_reduce_ms": cuda_ms(lambda: torch.zeros(
+            ns3 + 1, dtype=torch.float64, device=dev).scatter_reduce_(
+                0, g_all, x3, "sum")),
+        "skew90_ms": cuda_ms(lambda: K.segment_reduce(
+            gid_sk, valid_sk, ns3, q3)),
+        "skew90_plain_ms": cuda_ms(lambda: K.segment_reduce_plain(
+            gid_sk, valid_sk, ns3, q3))}
+    # present-segment compaction of the Q3 table (~1.43M of 2^21 present)
+    tab3 = K.segment_reduce(gid3, valid3, ns3, q3)
+    np3, _ = K.present_compact(tab3, ns3)
+    ob3 = min(K.bucket(max(np3, 1)), ns3)
+    rec["present_compact"] = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: K.present_compact(tab3, ns3)),
+        "plain_ms": cuda_ms(lambda: K.present_compact_plain(tab3, ns3)),
+        "library_ms": None,
+        "bytes": 8 * ns3 + 8 * int(tab3.shape[0]) * np3
+        + 8 * (1 + int(tab3.shape[0])) * ob3, "ops": ns3,
+        "shape": f"2^21 segments, {np3} present, {int(tab3.shape[0])} rows"
+                 " (Q3)"}
+    # edge cases: all-NULL groups, empty input, int64 extremes, min/max
+    for ns_e in (16, 64, 1024):
+        gid_e = t(rng.integers(-1, ns_e + 1, ne), torch.int64)
+        nul = rnd_null(ne, 0.2)
+        nul = nul | (gid_e == 3)  # segment 3 is all-NULL in lane 0
+        lanes_s = [(vf, nul, "sum"), (vi, None, "sum"), (vi, nul, "min"),
+                   (vi, None, "max"), (vf, nul, "min"), (vf, None, "max"),
+                   (None, nul, "count")]
+        hk2_case(gid_e, t(rng.random(ne) < 0.7), ns_e, lanes_s,
+                 f"segment_reduce edges ns={ns_e}")
+        hk2_case(gid_e, t(np.zeros(ne, bool)), ns_e, lanes_s,
+                 f"segment_reduce empty ns={ns_e}")
+
+    # -- HK3 equi_join: Q3's joins ---------------------------------------
+    def hk3_case(lk, ln, lv, rk, rn, rv, outer, what, mult=False):
+        f = K.equi_join_mult if mult else K.equi_join_unique
+        fp = K.equi_join_mult_plain if mult else K.equi_join_unique_plain
+        a = f(lk, ln, lv, rk, rn, rv, outer=outer)
+        b = f(lk, ln, lv, rk, rn, rv, outer=outer)
+        same_bytes(a, b, what)
+        c = fp(lk, ln, lv, rk, rn, rv, outer=outer)
+        for x, y, nm in ((a[0], c[0], "li"), (a[1], c[1], "ri")):
+            if x.shape != y.shape or not torch.equal(x, y):
+                raise Mismatch(f"{what}: {nm} differs")
+        return int(a[0].shape[0])
+
+    # join 1: orders (2^20 bucket, ~729k valid) probe customer (2^15
+    # bucket, ~30k BUILDING) on c_custkey = o_custkey
+    nl, nr = 1 << 20, 1 << 15
+    lk = t(rng.integers(1, 150_001, nl), torch.int64)
+    lv = t(np.arange(nl) < 1_500_000) & t(rng.random(nl) < 0.486)
+    rk = t(np.arange(1, nr + 1) * 5, torch.int64)
+    rv = t(rng.random(nr) < 0.91)
+    z_l, z_r = t(np.zeros(nl, bool)), t(np.zeros(nr, bool))
+    n_out = hk3_case(lk, z_l, lv, rk, z_r, rv, False, "equi_join Q3 join1")
+    rec["equi_join"] = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: K.equi_join_unique(lk, z_l, lv, rk, z_r, rv)),
+        "plain_ms": cuda_ms(lambda: K.equi_join_unique_plain(
+            lk, z_l, lv, rk, z_r, rv)),
+        "library_ms": None,
+        "bytes": nl * 10 + nr * 10 + n_out * 16, "ops": nl + nr,
+        "shape": f"probe 2^20, build 2^15, {n_out} pairs (Q3 join 1)"}
+    # join 2 shape: 2^18 probe against a 2^20 aggregate output
+    lk2 = t(rng.integers(1, 1_500_001, 1 << 18), torch.int64)
+    rk2 = t(np.arange(1 << 20) + 1, torch.int64)
+    hk3_case(lk2, t(np.zeros(1 << 18, bool)), t(rng.random(1 << 18) < 0.55),
+             rk2, t(rng.random(1 << 20) < 0.2), t(np.arange(1 << 20) < 827_499),
+             False, "equi_join Q3 join2")
+    # edges: int64 max/min keys (sentinel collision), R4 range at the top
+    # of int64 (dense), a wide range (hash), outer, multiplicity, empties
+    for lo, hi in ((I64_MAX - 5000, I64_MAX), (I64_MIN, I64_MIN + 5000),
+                   (I64_MIN, I64_MAX), (-100, 100)):
+        lke = t(rng.integers(lo, hi, ne, endpoint=True), torch.int64)
+        rke = t(rng.integers(lo, hi, ne // 2, endpoint=True), torch.int64)
+        lke[:3] = t([I64_MAX, I64_MIN, 0], torch.int64)
+        rke[:2] = t([I64_MAX, I64_MIN], torch.int64)
+        args = (lke, rnd_null(ne, 0.1), t(rng.random(ne) < 0.9), rke,
+                rnd_null(ne // 2, 0.1), t(rng.random(ne // 2) < 0.9))
+        for outer in (False, True):
+            hk3_case(*args, outer, f"equi_join edges [{lo},{hi}] {outer}")
+            hk3_case(*args, outer, f"equi_join mult [{lo},{hi}] {outer}",
+                     mult=True)
+    e16 = t(np.zeros(16, bool))
+    k16 = t(np.arange(16), torch.int64)
+    hk3_case(k16, e16, t(np.ones(16, bool)), k16, e16, e16, True,
+             "equi_join empty build")
+    hk3_case(k16, e16, e16, k16, e16, t(np.ones(16, bool)), False,
+             "equi_join empty probe")
+
+    # -- HK4 lex_order: Q3 top 10 of ~11k, Q1's full sort ----------------
+    def hk4_case(lanes, nn, k, what):
+        a = K.lex_order(lanes, nn, k)
+        b = K.lex_order(lanes, nn, k)
+        same_bytes(a, b, what)
+        c = K.lex_order_plain(lanes, nn)[:a.shape[0]]
+        if not torch.equal(a, c):
+            raise Mismatch(f"{what}: order differs")
+
+    nq = 1 << 14
+    rev = t(np.round(rng.uniform(1e3, 5e5, nq), 2))
+    rev[11423:] = 0.0
+    date = t(rng.integers(0, 2406, nq), torch.int64)
+    validq = t(np.arange(nq) < 11423)
+    nul0 = t(np.zeros(nq, bool))
+    lanes_q3 = K.sort_lanes([(rev, nul0), (date, nul0)], [True, False],
+                            validq)
+    hk4_case(lanes_q3, nq, 10, "lex_order Q3 top-10")
+    key8 = K.sort_lanes([(t(rng.integers(0, 1 << 62, n), torch.int64),
+                          t(np.zeros(n, bool)))], [False],
+                        t(np.ones(n, bool)))
+    hk4_case(key8, n, None, "lex_order full sort 2^23")
+    rec["lex_order"] = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: K.lex_order(lanes_q3, nq, 10)),
+        "plain_ms": cuda_ms(lambda: K.lex_order_plain(lanes_q3, nq)[:10]),
+        "library_ms": None,
+        "one_lane_topk_ms": cuda_ms(lambda: torch.topk(lanes_q3[1], 10,
+                                                       largest=False)),
+        "bytes": 4 * 8 * nq + 8 * 10, "ops": nq * 14,
+        "shape": "4 lanes, n=2^14, k=10 (Q3 TopN)",
+        "sort_2e23_ms": cuda_ms(lambda: K.lex_order(key8, n), reps=3,
+                                warm=1),
+        "one_lane_torch_sort_2e23_ms": cuda_ms(lambda: torch.sort(
+            key8[1], stable=True), reps=3, warm=1)}
+    # edges: NULLs first/last, DESC, int64 extremes, floats with NaN/-0.0,
+    # ties (row index decides), invalid rows last, >8 lanes, k > n
+    ints = t(rng.integers(-3, 3, ne), torch.int64)
+    ints[:4] = t([I64_MAX, I64_MIN, I64_MAX, I64_MIN], torch.int64)
+    flts = t(rng.integers(-2, 3, ne).astype(np.float64))
+    flts[:4] = t([float("nan"), -0.0, 0.0, float("-inf")])
+    for descs in ((False, False), (True, False), (True, True)):
+        lanes_e = K.sort_lanes([(ints, rnd_null(ne, 0.2)),
+                                (flts, rnd_null(ne, 0.2))], list(descs),
+                               t(rng.random(ne) < 0.9))
+        hk4_case(lanes_e, ne, None, f"lex_order edges {descs}")
+        hk4_case(lanes_e, ne, 7, f"lex_order top-7 {descs}")
+    five = [(t(rng.integers(0, 3, ne), torch.int64), rnd_null(ne, 0.1))
+            for _ in range(5)]
+    hk4_case(K.sort_lanes(five, [False, True, False, True, False],
+                          t(np.ones(ne, bool))), ne, None,
+             "lex_order 10 lanes")
+    hk4_case(lanes_q3, nq, nq + 5, "lex_order k > n")
+    return rec
+
+
+# ---- phase 3 -------------------------------------------------------------
+
+def _sync(torch) -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def phase_main_path(K, kinfo, device=None):
+    import math
+    import torch
+    from tinysql_tpu_torch.bench import tpch
+    from tinysql_tpu_torch.session import new_session
+    t0 = time.perf_counter()
+    sess = new_session(device=device)
+    if device is None and sess.device.type != "cuda":
+        raise Mismatch(f"new_session() chose {sess.device}")
+    counts = tpch.load(sess, sf=SF, seed=SEED)
+    print(f"[main] tpch.load sf={SF} seed={SEED}: {counts} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    sess.execute("set tidb_use_tpu=1")
+    K.reset_kernel_counts()
+    rows = {}
+    per_query = {}
+    for q, sql in tpch.QUERIES.items():
+        before = K.kernel_counts()["launches"]
+        t1 = time.perf_counter()
+        rows[q] = sess.query(sql).rows
+        _sync(torch)
+        first_s = time.perf_counter() - t1
+        warm = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            again = sess.query(sql).rows
+            _sync(torch)
+            warm.append(time.perf_counter() - t1)
+            if tpch.canon_rows(again) != tpch.canon_rows(rows[q]):
+                raise Mismatch(f"{q}: warm run rows differ from the first")
+        after = K.kernel_counts()["launches"]
+        used = {k: after[k] - before[k] for k in after}
+        for k in USES[q]:
+            if used[k] <= 0:
+                raise Mismatch(f"{q}: kernel {k} was not launched")
+        per_query[q] = used
+        print(f"[main] {q}: {len(rows[q])} rows, first run {first_s:.4f} s,"
+              f" warm best of 3 {min(warm):.4f} s, launches {used}",
+              flush=True)
+    counts_after = K.kernel_counts()
+    if any(counts_after["plain_calls"].values()):
+        raise Mismatch(f"plain versions ran on the main path: "
+                       f"{counts_after['plain_calls']}")
+    for k, v in counts_after["launches"].items():
+        kinfo[k]["launches"] = v
+        if v <= 0:
+            raise Mismatch(f"kernel {k} never launched on the main path")
+    # the port's own CPU tier is the reference for the rows
+    sess.execute("set tidb_use_tpu=0")
+    expect_rows = {"Q1": 6, "Q3": 10, "Q6": 1}
+    for q, sql in tpch.QUERIES.items():
+        t1 = time.perf_counter()
+        cpu_rows = sess.query(sql).rows
+        cpu_s = time.perf_counter() - t1
+        if tpch.canon_rows(cpu_rows) != tpch.canon_rows(rows[q]):
+            raise Mismatch(f"{q}: GPU rows differ from the CPU tier:\n"
+                           f"gpu {rows[q][:3]}\ncpu {cpu_rows[:3]}")
+        if len(rows[q]) != expect_rows[q]:
+            raise Mismatch(f"{q}: only {len(rows[q])} rows")
+        for r in rows[q]:
+            for v in r:
+                if isinstance(v, float) and not math.isfinite(v):
+                    raise Mismatch(f"{q}: non-finite value {v}")
+        print(f"[main] {q}: equal to the CPU tier ({cpu_s:.3f} s there)",
+              flush=True)
+    return per_query
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "tinysql_tpu_torch", "csrc")):
+        print("chip_smoke: tinysql_tpu_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from tinysql_tpu_torch.ops import _ext, kernels as K
+
+    # phase 1
+    card = card_line()
+    print(f"[card] {card}", flush=True)
+    t0 = time.perf_counter()
+    _ext.build()
+    for name in _ext.SOURCES:
+        _ext.lib(name)
+    print(f"[build] {len(_ext.SOURCES)} kernels in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc "
+          f"{' '.join(_ext.NVCC_FLAGS)})", flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    # phase 2
+    with K.use_device(dev):
+        rec = phase_kernels(K, dev)
+    torch.cuda.synchronize()
+    kinfo = {}
+    for name, r in rec.items():
+        bound_s = max(r["bytes"] / MEM_BPS, r["ops"] / OPS_PS)
+        by = "bytes" if r["bytes"] / MEM_BPS >= r["ops"] / OPS_PS \
+            else "operations"
+        src, repl = KERNELS[name]
+        kinfo[name] = {
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bound_s * 1e3,
+            "bound_by": by, "library_ms": r["library_ms"]}
+        extra = {k: v for k, v in r.items()
+                 if k not in ("max_abs_err", "ms", "plain_ms", "library_ms")}
+        print(f"[kernel] {name}: ms {r['ms']:.4f}, plain {r['plain_ms']:.4f},"
+              f" library {r['library_ms']}, bound {bound_s * 1e3:.5f} ms "
+              f"({by}), max_abs_err {r['max_abs_err']:.3g}, {extra}",
+              flush=True)
+    # phase 3
+    phase_main_path(K, kinfo)
+
+    # phase 4
+    print(json.dumps({"kernels": list(kinfo.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,975 @@
+"""Builtin function registry: scalar + vectorized (numpy) implementations.
+
+Capability parity with reference expression/builtin*.go families —
+arithmetic, compare (+<=>), logic (3-valued), control (if/ifnull/case),
+is-null/truth, like, in, string builtins (incl. the vectorized string
+builtin the course stubs at builtin_string_vec.go:90) — with MySQL null
+semantics throughout.  The vectorized form works on (np values, np null)
+pairs; the same registry drives the JAX lowering in ops/exprjit.py.
+
+`new_function(name, args)` is the typed constructor: it infers the return
+type (reference: expression/scalar_function.go type-inference) and inserts
+implicit casts, mirroring how the reference picks a `builtinFunc` per eval
+type in builtin.go:396.
+"""
+from __future__ import annotations
+
+import re
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..mytypes import (Datum, EvalType, FieldType, new_int_type,
+                       new_real_type, new_string_type, to_bool, to_int,
+                       to_real, to_string, wrap_i64)
+from .core import Column, Constant, Expression, ScalarFunction
+
+VV = Tuple[np.ndarray, np.ndarray]  # (values, null mask)
+
+_I64 = np.int64
+_F64 = np.float64
+
+
+# ===== helpers ==============================================================
+
+def _ints(n: int) -> np.ndarray:
+    return np.zeros(n, dtype=_I64)
+
+
+def _cast_vv_to_real(a: VV, unsigned: bool = False) -> VV:
+    v, nl = a
+    if v.dtype == object or v.dtype.kind == "U":  # strings -> numeric prefix
+        out = np.empty(len(v), dtype=_F64)
+        for i, s in enumerate(v):
+            out[i] = to_real(s) if not nl[i] else 0.0
+        return out, nl
+    r = v.astype(_F64)
+    if unsigned and v.dtype == _I64:
+        # unsigned values live two's-complement-wrapped in int64 buffers
+        r = np.where(v < 0, r + 2.0**64, r)
+    return r, nl
+
+
+def _uns_flags(args: List[Expression]):
+    """Per-arg flag: INT-typed expression whose values are wrapped uint64."""
+    return tuple(a.eval_type is EvalType.INT and a.ret_type.is_unsigned
+                 for a in args)
+
+
+def _int_lt_eq(a, ua: bool, b, ub: bool):
+    """(lt, eq) masks over two int64 arrays with per-side unsignedness
+    (reference: types/compare.go CompareInt with mysql.UnsignedFlag)."""
+    if ua == ub:
+        if ua:  # XOR the sign bit: maps unsigned order onto signed order
+            a = a ^ np.int64(-2**63)
+            b = b ^ np.int64(-2**63)
+        return a < b, a == b
+    if ua:  # a unsigned (actual in [0, 2^64)), b signed
+        ok = (a >= 0) & (b >= 0)
+        return ok & (a < b), ok & (a == b)
+    # a signed, b unsigned
+    ok = (a >= 0) & (b >= 0)
+    return (a < 0) | (b < 0) | (a < b), ok & (a == b)
+
+
+def _cast_vv_to_int(a: VV) -> VV:
+    v, nl = a
+    if v.dtype == object:
+        out = np.empty(len(v), dtype=_I64)
+        for i, s in enumerate(v):
+            out[i] = to_int(s) if not nl[i] else 0
+        return out, nl
+    if v.dtype == _F64:
+        with np.errstate(invalid="ignore"):
+            r = np.where(v >= 0, np.floor(v + 0.5), -np.floor(-v + 0.5))
+            r = np.clip(r, -2.0**63, 2.0**63 - 1)
+        return r.astype(_I64), nl
+    return v.astype(_I64), nl
+
+
+def _cast_vv_to_str(a: VV) -> VV:
+    v, nl = a
+    if v.dtype == object or v.dtype.kind == "U":
+        return v, nl
+    out = np.empty(len(v), dtype=object)
+    for i in range(len(v)):
+        out[i] = "" if nl[i] else to_string(v[i].item())
+    return out, nl
+
+
+def _truthy(a: VV) -> Tuple[np.ndarray, np.ndarray]:
+    """SQL boolean of a value vector: (bool array, null mask)."""
+    v, nl = a
+    if v.dtype == object or v.dtype.kind == "U":
+        # strings: MySQL numeric-prefix coercion ('0' and 'x' are falsy)
+        b = np.empty(len(v), dtype=bool)
+        for i, s in enumerate(v):
+            b[i] = bool(to_bool(s)) if not nl[i] else False
+        return b, nl
+    return v != 0, nl
+
+
+# ===== arithmetic ===========================================================
+
+def _arith_ret_type(name: str, args: List[Expression]) -> FieldType:
+    if name == "div":
+        return new_int_type(
+            unsigned=any(a.eval_type is EvalType.INT and a.ret_type.is_unsigned
+                         for a in args))
+    if name == "/":
+        return new_real_type()
+    ets = [a.eval_type for a in args]
+    if all(e is EvalType.INT for e in ets):
+        # MySQL: int arithmetic is unsigned if EITHER operand is unsigned
+        unsigned = any(a.ret_type.is_unsigned for a in args)
+        return new_int_type(unsigned=unsigned)
+    return new_real_type()
+
+
+def _make_arith(name: str, et: EvalType,
+                uns: Tuple[bool, bool] = (False, False)):
+    is_int = et is EvalType.INT
+
+    def scalar(vals: List[Datum]) -> Datum:
+        a, b = vals
+        if a is None or b is None:
+            return None
+        if is_int:
+            a, b = int(a), int(b)
+            if name == "+":
+                return wrap_i64(a + b)
+            if name == "-":
+                return wrap_i64(a - b)
+            if name == "*":
+                return wrap_i64(a * b)
+            if name in ("div", "%"):
+                if b == 0:
+                    return None
+                # MySQL integer div/mod truncate toward zero
+                q = abs(a) // abs(b)
+                if (a < 0) != (b < 0):
+                    q = -q
+                if name == "div":
+                    return wrap_i64(q)
+                return wrap_i64(a - b * q)
+            raise AssertionError(name)
+        a, b = to_real(a), to_real(b)
+        if name == "+":
+            return a + b
+        if name == "-":
+            return a - b
+        if name == "*":
+            return a * b
+        if name == "/":
+            return None if b == 0.0 else a / b
+        if name == "div":
+            # real-family DIV: divide exactly, then truncate toward zero
+            # into the int64 result (ret type is always int)
+            return None if b == 0.0 else wrap_i64(int(a / b))
+        if name == "%":
+            return None if b == 0.0 else float(np.fmod(a, b))
+        raise AssertionError(name)
+
+    def vec(args: List[VV], chk) -> VV:
+        if is_int and name != "/":
+            (a, na), (b, nb) = _cast_vv_to_int(args[0]), _cast_vv_to_int(args[1])
+        else:
+            (a, na) = _cast_vv_to_real(args[0], uns[0])
+            (b, nb) = _cast_vv_to_real(args[1], uns[1])
+        null = na | nb
+        with np.errstate(all="ignore"):
+            if name == "+":
+                v = a + b  # int: wrap-correct mod 2^64 for any signedness
+            elif name == "-":
+                v = a - b
+            elif name == "*":
+                v = a * b
+            elif name == "/":
+                v = np.where(b != 0, a / np.where(b != 0, b, 1), 0.0)
+                null = null | (b == 0)
+            elif name == "div":
+                if is_int:
+                    v = _int_divmod(a, b, uns)[0]
+                else:
+                    v = np.where(b != 0, np.trunc(a / np.where(b != 0, b, 1)), 0)
+                null = null | (b == 0)
+            elif name == "%":
+                if is_int:
+                    v = _int_divmod(a, b, uns)[1]
+                else:
+                    v = np.fmod(a, np.where(b != 0, b, 1))
+                null = null | (b == 0)
+            else:
+                raise AssertionError(name)
+        if name == "div" and not is_int:
+            v = v.astype(_I64)
+        return v, null
+
+    return scalar, vec
+
+
+def _int_divmod(a: np.ndarray, b: np.ndarray, uns: Tuple[bool, bool]):
+    """Truncating int64 div/mod honoring per-side unsignedness.  Same-sign
+    pairs run exactly (uint64 views when unsigned); the mixed case lifts the
+    unsigned side into float128 (64-bit mantissa: exact for all uint64)."""
+    safe = np.where(b != 0, b, 1)
+    if uns == (False, False):
+        q = np.abs(a) // np.abs(safe)
+        q = np.where((a < 0) != (b < 0), -q, q)
+        return q, a - b * q
+    if uns == (True, True):
+        ua, ub = a.view(np.uint64), np.where(b != 0, b, 1).view(np.uint64)
+        q = ua // ub
+        return (q).view(_I64), (ua - ub * q).view(_I64)
+    # mixed signedness: rare — exact via python bigints
+    qs = np.empty(len(a), dtype=_I64)
+    rs = np.empty(len(a), dtype=_I64)
+    for i in range(len(a)):
+        av = int(a[i]) + ((1 << 64) if uns[0] and a[i] < 0 else 0)
+        bv = int(safe[i]) + ((1 << 64) if uns[1] and safe[i] < 0 else 0)
+        q = abs(av) // abs(bv)
+        if (av < 0) != (bv < 0):
+            q = -q
+        qs[i] = wrap_i64(q)
+        rs[i] = wrap_i64(av - bv * q)
+    return qs, rs
+
+
+def _make_unary_minus(et: EvalType):
+    is_int = et is EvalType.INT
+
+    def scalar(vals):
+        (a,) = vals
+        if a is None:
+            return None
+        return wrap_i64(-int(a)) if is_int else -to_real(a)
+
+    def vec(args, chk):
+        cast = _cast_vv_to_int if is_int else _cast_vv_to_real
+        v, nl = cast(args[0])
+        with np.errstate(all="ignore"):
+            return -v, nl
+
+    return scalar, vec
+
+
+# ===== comparison ===========================================================
+
+def _cmp_family(args: List[Expression]) -> EvalType:
+    ets = [a.eval_type for a in args]
+    if all(e is EvalType.INT for e in ets):
+        return EvalType.INT
+    if all(e is EvalType.STRING for e in ets):
+        return EvalType.STRING
+    return EvalType.REAL
+
+
+_CMP_NP = {
+    "=": lambda a, b: a == b, "!=": lambda a, b: a != b,
+    "<": lambda a, b: a < b, "<=": lambda a, b: a <= b,
+    ">": lambda a, b: a > b, ">=": lambda a, b: a >= b,
+}
+
+
+def _make_compare(op: str, family: EvalType,
+                  uns: Tuple[bool, bool] = (False, False)):
+    null_safe = op == "<=>"
+    base_op = "=" if null_safe else op
+
+    def coerce_scalar(a, b):
+        if family is EvalType.INT:
+            # scalar values are already semantic python ints (unsigned
+            # arrives unwrapped, e.g. 2^64-1) — python int compare is
+            # arbitrary-precision, so do NOT wrap_i64 here
+            return ((int(a) if not isinstance(a, str) else to_int(a)),
+                    (int(b) if not isinstance(b, str) else to_int(b)))
+        if family is EvalType.STRING:
+            return to_string(a), to_string(b)
+        return to_real(a), to_real(b)
+
+    def scalar(vals):
+        a, b = vals
+        if a is None or b is None:
+            if null_safe:
+                return 1 if (a is None) == (b is None) else 0
+            return None
+        a, b = coerce_scalar(a, b)
+        r = {"=": a == b, "!=": a != b, "<": a < b,
+             "<=": a <= b, ">": a > b, ">=": a >= b}[base_op]
+        return int(r)
+
+    def cast(a: VV, unsigned: bool) -> VV:
+        if family is EvalType.INT:
+            return _cast_vv_to_int(a)
+        if family is EvalType.STRING:
+            return _cast_vv_to_str(a)
+        return _cast_vv_to_real(a, unsigned)
+
+    def vec(args: List[VV], chk) -> VV:
+        (a, na), (b, nb) = cast(args[0], uns[0]), cast(args[1], uns[1])
+        if family is EvalType.STRING:
+            # fixed-width numpy string arrays compare vectorized in C
+            # (the columnar replica stores <U dtype); object arrays of
+            # python strs also vectorize through numpy's richcompare
+            if a.dtype.kind != "U" and b.dtype.kind == "U":
+                a = a.astype(str)
+            if b.dtype.kind != "U" and a.dtype.kind == "U":
+                b = b.astype(str)
+            r = _CMP_NP[base_op](a, b)
+            if r.dtype != bool:  # object-array compare returns object
+                r = r.astype(bool)
+        elif family is EvalType.INT and (uns[0] or uns[1]):
+            lt, eq = _int_lt_eq(a, uns[0], b, uns[1])
+            r = {"=": eq, "!=": ~eq, "<": lt, "<=": lt | eq,
+                 ">": ~(lt | eq), ">=": ~lt}[base_op]
+        else:
+            with np.errstate(invalid="ignore"):
+                r = _CMP_NP[base_op](a, b)
+        if null_safe:
+            both_null = na & nb
+            v = np.where(na | nb, both_null, r).astype(_I64)
+            return v, np.zeros(len(v), dtype=bool)
+        return r.astype(_I64), na | nb
+
+    return scalar, vec
+
+
+# ===== logic (3-valued) =====================================================
+
+def _logic_and_scalar(vals):
+    a, b = (to_bool(v) for v in vals)
+    if a == 0 or b == 0:
+        return 0
+    if a is None or b is None:
+        return None
+    return 1
+
+
+def _logic_and_vec(args, chk):
+    (a, na), (b, nb) = _truthy(args[0]), _truthy(args[1])
+    false_a, false_b = (~a) & ~na, (~b) & ~nb
+    v = (a & b).astype(_I64)
+    null = (na | nb) & ~(false_a | false_b)
+    v = np.where(null, 0, v)
+    v = np.where(false_a | false_b, 0, v)
+    return v, null
+
+
+def _logic_or_scalar(vals):
+    a, b = (to_bool(v) for v in vals)
+    if a == 1 or b == 1:
+        return 1
+    if a is None or b is None:
+        return None
+    return 0
+
+
+def _logic_or_vec(args, chk):
+    (a, na), (b, nb) = _truthy(args[0]), _truthy(args[1])
+    true_a, true_b = a & ~na, b & ~nb
+    v = (true_a | true_b).astype(_I64)
+    null = (na | nb) & ~(true_a | true_b)
+    return v, null
+
+
+def _logic_xor_scalar(vals):
+    a, b = (to_bool(v) for v in vals)
+    if a is None or b is None:
+        return None
+    return int(a != b)
+
+
+def _logic_xor_vec(args, chk):
+    (a, na), (b, nb) = _truthy(args[0]), _truthy(args[1])
+    return (a != b).astype(_I64), na | nb
+
+
+def _unary_not_scalar(vals):
+    a = to_bool(vals[0])
+    return None if a is None else int(not a)
+
+
+def _unary_not_vec(args, chk):
+    a, na = _truthy(args[0])
+    return (~a).astype(_I64), na
+
+
+# ===== null / truth tests ===================================================
+
+def _is_null_scalar(vals):
+    return int(vals[0] is None)
+
+
+def _is_null_vec(args, chk):
+    v, nl = args[0]
+    return nl.astype(_I64), np.zeros(len(nl), dtype=bool)
+
+
+def _make_is_truth(truth: bool):
+    def scalar(vals):
+        b = to_bool(vals[0])
+        if b is None:
+            return 0  # IS TRUE/FALSE never returns NULL
+        return int(bool(b) == truth)
+
+    def vec(args, chk):
+        b, nl = _truthy(args[0])
+        v = np.where(nl, False, b == truth).astype(_I64)
+        return v, np.zeros(len(v), dtype=bool)
+
+    return scalar, vec
+
+
+# ===== control ==============================================================
+
+def _if_scalar(vals):
+    c, a, b = vals
+    return a if to_bool(c) == 1 else b
+
+
+def _if_vec(args, chk):
+    c, nc = _truthy(args[0])
+    take_a = c & ~nc
+    (a, na), (b, nb) = args[1], args[2]
+    return np.where(take_a, a, b), np.where(take_a, na, nb)
+
+
+def _ifnull_scalar(vals):
+    a, b = vals
+    return a if a is not None else b
+
+
+def _ifnull_vec(args, chk):
+    (a, na), (b, nb) = args
+    v = np.where(na, b, a)
+    return v, na & nb
+
+
+def _case_scalar(vals):
+    # [cond1, res1, cond2, res2, ..., else?]
+    n = len(vals)
+    i = 0
+    while i + 1 < n:
+        if to_bool(vals[i]) == 1:
+            return vals[i + 1]
+        i += 2
+    if n % 2 == 1:
+        return vals[-1]
+    return None
+
+
+def _case_vec(args, chk):
+    nrows = len(args[0][0])
+    has_else = len(args) % 2 == 1
+    pairs = (len(args) - 1) // 2 if has_else else len(args) // 2
+    # result dtype from first result arm
+    proto = args[1][0]
+    v = np.zeros(nrows, dtype=proto.dtype) if proto.dtype != object \
+        else np.empty(nrows, dtype=object)
+    null = np.ones(nrows, dtype=bool)
+    decided = np.zeros(nrows, dtype=bool)
+    for p in range(pairs):
+        c, nc = _truthy(args[2 * p])
+        take = c & ~nc & ~decided
+        rv, rn = args[2 * p + 1]
+        v = np.where(take, rv, v)
+        null = np.where(take, rn, null)
+        decided |= take
+    if has_else:
+        rv, rn = args[-1]
+        rest = ~decided
+        v = np.where(rest, rv, v)
+        null = np.where(rest, rn, null)
+    return v, null
+
+
+# ===== LIKE / IN ============================================================
+
+def like_to_regex(pattern: str, escape: str = "\\") -> "re.Pattern":
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if c == "%":
+            out.append(".*")
+        elif c == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(c))
+        i += 1
+    # byte-wise case-SENSITIVE, matching the engine's binary collation
+    # (reference: builtin_like.go builtinLikeSig over binary strings)
+    return re.compile("^" + "".join(out) + "$", re.DOTALL)
+
+
+def _make_like(escape: str):
+    cache: dict = {}
+
+    def get_re(p: str):
+        r = cache.get(p)
+        if r is None:
+            r = cache[p] = like_to_regex(p, escape)
+        return r
+
+    def scalar(vals):
+        s, p = vals
+        if s is None or p is None:
+            return None
+        return int(bool(get_re(to_string(p)).match(to_string(s))))
+
+    def vec(args, chk):
+        (s, ns), (p, np_) = _cast_vv_to_str(args[0]), _cast_vv_to_str(args[1])
+        n = len(s)
+        v = _ints(n)
+        null = ns | np_
+        for i in range(n):
+            if not null[i]:
+                v[i] = 1 if get_re(p[i]).match(s[i]) else 0
+        return v, null
+
+    return scalar, vec
+
+
+def _make_in(family: EvalType, uns: Sequence[bool] = ()):
+    eq_scalar, eq_default = _make_compare("=", family)
+    # per-item equality with the target's/item's own unsignedness
+    x_uns = uns[0] if uns else False
+    eq_vecs = [_make_compare("=", family, (x_uns, u))[1]
+               for u in (uns[1:] if uns else [])]
+
+    def scalar(vals):
+        x = vals[0]
+        if x is None:
+            return None
+        saw_null = False
+        for item in vals[1:]:
+            r = eq_scalar([x, item])
+            if r == 1:
+                return 1
+            if r is None:
+                saw_null = True
+        return None if saw_null else 0
+
+    def vec(args, chk):
+        x = args[0]
+        n = len(x[0])
+        hit = np.zeros(n, dtype=bool)
+        saw_null = np.zeros(n, dtype=bool)
+        for k, item in enumerate(args[1:]):
+            ev = eq_vecs[k] if k < len(eq_vecs) else eq_default
+            r, rn = ev([x, item], chk)
+            hit |= (r == 1) & ~rn
+            saw_null |= rn
+        v = hit.astype(_I64)
+        null = ~hit & (saw_null | x[1])
+        return v, null
+
+    return scalar, vec
+
+
+# ===== string builtins ======================================================
+
+def _str1(fn):
+    def scalar(vals):
+        s = vals[0]
+        return None if s is None else fn(to_string(s))
+
+    return scalar
+
+
+def _vec_str1(fn, out_dtype=object):
+    def vec(args, chk):
+        s, ns = _cast_vv_to_str(args[0])
+        n = len(s)
+        v = np.empty(n, dtype=out_dtype) if out_dtype == object else np.zeros(n, dtype=out_dtype)
+        for i in range(n):
+            if not ns[i]:
+                v[i] = fn(s[i])
+        return v, ns.copy()
+
+    return vec
+
+
+def _length(s: str) -> int:
+    return len(s.encode("utf-8"))
+
+
+def _strcmp_scalar(vals):
+    a, b = vals
+    if a is None or b is None:
+        return None
+    a, b = to_string(a), to_string(b)
+    return (a > b) - (a < b)
+
+
+def _strcmp_vec(args, chk):
+    (a, na), (b, nb) = _cast_vv_to_str(args[0]), _cast_vv_to_str(args[1])
+    n = len(a)
+    v = _ints(n)
+    null = na | nb
+    for i in range(n):
+        if not null[i]:
+            v[i] = (a[i] > b[i]) - (a[i] < b[i])
+    return v, null
+
+
+def _concat_scalar(vals):
+    if any(v is None for v in vals):
+        return None
+    return "".join(to_string(v) for v in vals)
+
+
+def _concat_vec(args, chk):
+    parts = [_cast_vv_to_str(a) for a in args]
+    n = len(parts[0][0])
+    null = np.zeros(n, dtype=bool)
+    for _, pn in parts:
+        null |= pn
+    v = np.empty(n, dtype=object)
+    for i in range(n):
+        if not null[i]:
+            v[i] = "".join(p[0][i] for p in parts)
+    return v, null
+
+
+def _substr_of(s: str, pos: int, ln) -> str:
+    """MySQL SUBSTRING semantics: 1-based, 0 -> '', negative counts from
+    the end, length clamps at 0."""
+    if pos == 0:
+        return ""
+    if pos < 0:
+        pos = len(s) + pos
+        if pos < 0:
+            return ""
+    else:
+        pos -= 1
+    if pos >= len(s):
+        return ""
+    end = len(s) if ln is None else min(pos + max(ln, 0), len(s))
+    return s[pos:end]
+
+
+def _substring_scalar(vals):
+    s = vals[0]
+    if s is None or vals[1] is None:
+        return None
+    if len(vals) > 2 and vals[2] is None:
+        return None
+    ln = to_int(vals[2]) if len(vals) > 2 else None
+    return _substr_of(to_string(s), to_int(vals[1]), ln)
+
+
+def _substring_vec(args, chk):
+    """Vectorized SUBSTRING (the reference's builtin_string_vec.go:90
+    course stub, done for real): per-row pos/len may themselves be
+    vectors."""
+    s, ns = _cast_vv_to_str(args[0])
+    p, np_ = _cast_vv_to_int(args[1])
+    null = ns | np_
+    ln = lnn = None
+    if len(args) > 2:
+        ln, lnn = _cast_vv_to_int(args[2])
+        null = null | lnn
+    n = len(s)
+    v = np.empty(n, dtype=object)
+    for i in range(n):
+        if not null[i]:
+            v[i] = _substr_of(s[i], int(p[i]),
+                              None if ln is None else int(ln[i]))
+    return v, null
+
+
+def _str2(fn):
+    """Scalar + vec builders for a 2-string-arg builtin."""
+    def scalar(vals):
+        a, b = vals
+        if a is None or b is None:
+            return None
+        return fn(to_string(a), to_string(b))
+
+    def vec(args, chk):
+        a, na = _cast_vv_to_str(args[0])
+        b, nb = _cast_vv_to_str(args[1])
+        null = na | nb
+        n = len(a)
+        v = np.empty(n, dtype=object)
+        for i in range(n):
+            if not null[i]:
+                v[i] = fn(a[i], b[i])
+        return v, null
+    return scalar, vec
+
+
+def _vec_str2_int(fn):
+    def vec(args, chk):
+        a, na = _cast_vv_to_str(args[0])
+        b, nb = _cast_vv_to_str(args[1])
+        null = na | nb
+        n = len(a)
+        v = _ints(n)
+        for i in range(n):
+            if not null[i]:
+                v[i] = fn(a[i], b[i])
+        return v, null
+    return vec
+
+
+def _replace_scalar(vals):
+    s, frm, to = vals
+    if s is None or frm is None or to is None:
+        return None
+    s, frm, to = to_string(s), to_string(frm), to_string(to)
+    return s if frm == "" else s.replace(frm, to)
+
+
+def _replace_vec(args, chk):
+    s, ns = _cast_vv_to_str(args[0])
+    f, nf = _cast_vv_to_str(args[1])
+    t, nt = _cast_vv_to_str(args[2])
+    null = ns | nf | nt
+    n = len(s)
+    v = np.empty(n, dtype=object)
+    for i in range(n):
+        if not null[i]:
+            v[i] = s[i] if f[i] == "" else s[i].replace(f[i], t[i])
+    return v, null
+
+
+def _instr(s: str, sub: str) -> int:
+    return s.find(sub) + 1  # 1-based; 0 = absent ('' found at 1)
+
+
+def _locate_scalar(vals):
+    # LOCATE(substr, str[, pos]) — argument order flipped vs INSTR
+    sub, s = vals[0], vals[1]
+    if sub is None or s is None:
+        return None
+    sub, s = to_string(sub), to_string(s)
+    if len(vals) > 2:
+        if vals[2] is None:
+            return None
+        pos = to_int(vals[2])
+        if pos < 1:
+            return 0
+        found = s.find(sub, pos - 1)
+        return found + 1
+    return _instr(s, sub)
+
+
+def _pad_cut(side: str):
+    """LEFT/RIGHT(s, n)."""
+    def fn(s, n):
+        n = max(int(n), 0)
+        # clamp the start: RIGHT('abc', 5) is 'abc', not a wrapped slice
+        return s[:n] if side == "left" else s[max(len(s) - n, 0):]
+    return fn
+
+
+def _left_right(name: str):
+    cut = _pad_cut(name)
+
+    def scalar(vals):
+        s, n = vals
+        if s is None or n is None:
+            return None
+        return cut(to_string(s), to_int(n))
+
+    def vec(args, chk):
+        s, ns = _cast_vv_to_str(args[0])
+        k, nk = _cast_vv_to_int(args[1])
+        null = ns | nk
+        n = len(s)
+        v = np.empty(n, dtype=object)
+        for i in range(n):
+            if not null[i]:
+                v[i] = cut(s[i], k[i])
+        return v, null
+    return scalar, vec
+
+
+# ===== registry / typed constructor =========================================
+
+def new_function(name: str, args: List[Expression]) -> ScalarFunction:
+    """Build a typed ScalarFunction (reference: expression.NewFunction)."""
+    name = name.lower()
+    if name in ("+", "-", "*", "/", "div", "%", "mod"):
+        if name == "mod":
+            name = "%"
+        rt = _arith_ret_type(name, args)
+        # compute in the ARG family (both-int -> int64 math; else real math),
+        # independent of the result type (div always returns int)
+        family = (EvalType.INT if all(a.eval_type is EvalType.INT for a in args)
+                  and name != "/" else EvalType.REAL)
+        s, v = _make_arith(name, family, _uns_flags(args))
+        return ScalarFunction(name, args, rt, s, v)
+    if name == "unaryminus":
+        et = args[0].eval_type
+        rt = new_int_type() if et is EvalType.INT else new_real_type()
+        s, v = _make_unary_minus(rt.eval_type)
+        return ScalarFunction(name, args, rt, s, v)
+    if name in ("=", "!=", "<", "<=", ">", ">=", "<=>"):
+        fam = _cmp_family(args)
+        s, v = _make_compare(name, fam, _uns_flags(args))
+        return ScalarFunction(name, args, new_int_type(), s, v)
+    if name == "and":
+        return ScalarFunction(name, args, new_int_type(),
+                              _logic_and_scalar, _logic_and_vec)
+    if name == "or":
+        return ScalarFunction(name, args, new_int_type(),
+                              _logic_or_scalar, _logic_or_vec)
+    if name == "xor":
+        return ScalarFunction(name, args, new_int_type(),
+                              _logic_xor_scalar, _logic_xor_vec)
+    if name == "not":
+        return ScalarFunction(name, args, new_int_type(),
+                              _unary_not_scalar, _unary_not_vec)
+    if name == "isnull":
+        return ScalarFunction(name, args, new_int_type(),
+                              _is_null_scalar, _is_null_vec)
+    if name in ("istrue", "isfalse"):
+        s, v = _make_is_truth(name == "istrue")
+        return ScalarFunction(name, args, new_int_type(), s, v)
+    if name == "if":
+        rt = _common_ret_type(args[1:])
+        args = [args[0]] + [_maybe_cast(a, rt) for a in args[1:]]
+        return ScalarFunction(name, args, rt, _if_scalar, _if_vec)
+    if name == "ifnull":
+        rt = _common_ret_type(args)
+        args = [_maybe_cast(a, rt) for a in args]
+        return ScalarFunction(name, args, rt, _ifnull_scalar, _ifnull_vec)
+    if name == "case":
+        res_args = [args[i] for i in range(1, len(args), 2)]
+        if len(args) % 2 == 1:
+            res_args.append(args[-1])
+        rt = _common_ret_type(res_args)
+        cast_args = []
+        for i, a in enumerate(args):
+            is_res = (i % 2 == 1) or (len(args) % 2 == 1 and i == len(args) - 1)
+            cast_args.append(_maybe_cast(a, rt) if is_res else a)
+        return ScalarFunction(name, cast_args, rt, _case_scalar, _case_vec)
+    if name == "like":
+        # 3rd arg: escape char as a Constant (reference: builtinLike's
+        # third escape argument)
+        escape = "\\"
+        if len(args) == 3:
+            esc = args[2]
+            if isinstance(esc, Constant) and esc.value:
+                escape = str(esc.value)
+            args = args[:2]
+        s, v = _make_like(escape)
+        return ScalarFunction(name, args, new_int_type(), s, v)
+    if name == "in":
+        fam = _cmp_family(args)
+        s, v = _make_in(fam, _uns_flags(args))
+        return ScalarFunction(name, args, new_int_type(), s, v)
+    if name in ("length", "octet_length"):
+        return ScalarFunction(name, args, new_int_type(),
+                              _str1(_length), _vec_str1(_length, _I64))
+    if name == "char_length":
+        return ScalarFunction(name, args, new_int_type(),
+                              _str1(len), _vec_str1(len, _I64))
+    if name in ("upper", "ucase"):
+        return ScalarFunction(name, args, new_string_type(),
+                              _str1(str.upper), _vec_str1(str.upper))
+    if name in ("lower", "lcase"):
+        return ScalarFunction(name, args, new_string_type(),
+                              _str1(str.lower), _vec_str1(str.lower))
+    if name == "strcmp":
+        return ScalarFunction(name, args, new_int_type(),
+                              _strcmp_scalar, _strcmp_vec)
+    if name == "concat":
+        return ScalarFunction(name, args, new_string_type(),
+                              _concat_scalar, _concat_vec)
+    if name in ("substring", "substr", "mid"):
+        return ScalarFunction(name, args, new_string_type(),
+                              _substring_scalar, _substring_vec)
+    if name == "trim":
+        return ScalarFunction(name, args, new_string_type(),
+                              _str1(lambda s: s.strip(" ")),
+                              _vec_str1(lambda s: s.strip(" ")))
+    if name == "ltrim":
+        return ScalarFunction(name, args, new_string_type(),
+                              _str1(lambda s: s.lstrip(" ")),
+                              _vec_str1(lambda s: s.lstrip(" ")))
+    if name == "rtrim":
+        return ScalarFunction(name, args, new_string_type(),
+                              _str1(lambda s: s.rstrip(" ")),
+                              _vec_str1(lambda s: s.rstrip(" ")))
+    if name == "reverse":
+        return ScalarFunction(name, args, new_string_type(),
+                              _str1(lambda s: s[::-1]),
+                              _vec_str1(lambda s: s[::-1]))
+    if name == "replace":
+        return ScalarFunction(name, args, new_string_type(),
+                              _replace_scalar, _replace_vec)
+    if name == "instr":
+        s, v = _str2(_instr)
+        return ScalarFunction(name, args, new_int_type(), s,
+                              _vec_str2_int(_instr))
+    if name in ("locate", "position"):
+        return ScalarFunction(name, args, new_int_type(), _locate_scalar)
+    if name in ("left", "right"):
+        s, v = _left_right(name)
+        return ScalarFunction(name, args, new_string_type(), s, v)
+    if name == "abs":
+        et = args[0].eval_type
+        rt = new_int_type() if et is EvalType.INT else new_real_type()
+
+        def abs_scalar(vals):
+            a = vals[0]
+            if a is None:
+                return None
+            return wrap_i64(abs(int(a))) if rt.eval_type is EvalType.INT else abs(to_real(a))
+
+        def abs_vec(vs, chk):
+            cast = _cast_vv_to_int if rt.eval_type is EvalType.INT else _cast_vv_to_real
+            v, nl = cast(vs[0])
+            return np.abs(v), nl
+
+        return ScalarFunction(name, args, rt, abs_scalar, abs_vec)
+    if name in ("cast_int", "cast_real", "cast_string"):
+        return _make_cast(name, args[0])
+    raise ValueError(f"unknown function {name!r}")
+
+
+def _common_ret_type(args: List[Expression]) -> FieldType:
+    from ..mytypes import agg_field_type
+    return agg_field_type([a.ret_type for a in args])
+
+
+def _make_cast(name: str, arg: Expression) -> ScalarFunction:
+    if name == "cast_int":
+        rt = new_int_type()
+        return ScalarFunction(name, [arg], rt,
+                              lambda vs: to_int(vs[0]),
+                              lambda vs, chk: _cast_vv_to_int(vs[0]))
+    if name == "cast_real":
+        rt = new_real_type()
+        return ScalarFunction(name, [arg], rt,
+                              lambda vs: to_real(vs[0]),
+                              lambda vs, chk: _cast_vv_to_real(vs[0]))
+    rt = new_string_type()
+    return ScalarFunction(name, [arg], rt,
+                          lambda vs: to_string(vs[0]),
+                          lambda vs, chk: _cast_vv_to_str(vs[0]))
+
+
+def _maybe_cast(a: Expression, rt: FieldType) -> Expression:
+    if a.eval_type is rt.eval_type:
+        return a
+    name = {EvalType.INT: "cast_int", EvalType.REAL: "cast_real",
+            EvalType.STRING: "cast_string"}[rt.eval_type]
+    return _make_cast(name, a)
+
+
+KNOWN_SCALAR_FUNCS = {
+    "length", "octet_length", "char_length", "upper", "ucase", "lower",
+    "lcase", "strcmp", "concat", "substring", "substr", "mid", "abs",
+    "if", "ifnull", "isnull",
+    "trim", "ltrim", "rtrim", "reverse", "replace", "instr", "locate",
+    "position", "left", "right",
+}

@@ -1,0 +1,905 @@
+"""Process-level metrics and the Prometheus text renderer (/metrics).
+
+Two counter families:
+
+- query-lifecycle counters owned here (``observe_query``): statements
+  executed, errors, slow queries, summed wall seconds — labeled by
+  statement kind;
+- device-economics counters owned by the device layer (``kernels.STATS``
+  and ``ops/progcache.STATS``), read at render time.  Those dicts are
+  process-cumulative accumulators (plus the ``pipe_depth_hwm`` high-water
+  mark, exported as a gauge): exactly the monotonic shape Prometheus
+  counters want.
+
+Rendering follows the Prometheus text exposition format 0.0.4 (HELP/TYPE
+comment pairs, ``\\n``-terminated sample lines).
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Tuple
+
+_mu = threading.Lock()
+
+#: (metric, labels-tuple) -> value;  labels-tuple is ((k, v), ...)
+_QUERY_COUNTERS: Dict[Tuple[str, tuple], float] = {}
+
+#: device-layer STATS key -> (prometheus name, help text)
+_DEVICE_METRICS = {
+    "dispatches": ("tinysql_dispatches_total",
+                   "Compiled device-program dispatches"),
+    "d2h_transfers": ("tinysql_d2h_transfers_total",
+                      "Device-to-host transfer operations"),
+    "d2h_bytes": ("tinysql_d2h_bytes_total",
+                  "Bytes materialized device-to-host"),
+    "h2d_transfers": ("tinysql_h2d_transfers_total",
+                      "Host-to-device upload operations (ParamTable "
+                      "pushes, column/mask uploads)"),
+    "h2d_bytes": ("tinysql_h2d_bytes_total",
+                  "Bytes uploaded host-to-device"),
+    "device_s": ("tinysql_device_busy_seconds_total",
+                 "MEASURED device busy seconds from profiled dispatches "
+                 "(block_until_ready-closed; tidb_device_profile_rate)"),
+    "profiled_dispatches": ("tinysql_profiled_dispatches_total",
+                            "Dispatches closed with block_until_ready "
+                            "by the sampling profiler"),
+    "host_dispatches": ("tinysql_host_dispatches_total",
+                        "Host-twin kernel invocations (numpy twins "
+                        "serving the XLA:CPU backend)"),
+    "flops": ("tinysql_device_flops_total",
+              "XLA cost-analysis FLOPs of dispatched programs"),
+    "bytes_accessed": ("tinysql_device_bytes_accessed_total",
+                       "XLA cost-analysis bytes accessed"),
+    "pipe_blocks": ("tinysql_pipe_blocks_total",
+                    "Blocks staged through the async block pipeline"),
+    "pipe_stage_s": ("tinysql_pipe_stage_seconds_total",
+                     "Host staging wall seconds (pipeline producer)"),
+    "pipe_dispatch_s": ("tinysql_pipe_dispatch_seconds_total",
+                        "Device dispatch wall seconds inside pipelines"),
+    "pipe_drain_s": ("tinysql_pipe_drain_seconds_total",
+                     "Result drain wall seconds inside pipelines"),
+    "pipe_wall_s": ("tinysql_pipe_wall_seconds_total",
+                    "End-to-end pipeline wall seconds"),
+    "pipe_depth_hwm": ("tinysql_pipe_depth_hwm",
+                       "Staging-queue depth high-water mark"),
+}
+
+
+#: THE central metric-name registry: every name exported on /metrics OR
+#: sampled into the time-series ring (obs/tsring.py) is declared here —
+#: name -> (kind, help).  The ring validates names against this table at
+#: sample time (unregistered names are dropped + counted) and qlint
+#: OB404 checks it statically, so /metrics, metrics_history, and
+#: metrics_summary can never drift apart on what a metric is called.
+METRICS: Dict[str, Tuple[str, str]] = {
+    # query lifecycle (owned here)
+    "tinysql_queries_total": ("counter", "Statements executed"),
+    "tinysql_query_seconds_sum":
+        ("counter", "Summed statement execution wall seconds "
+                    "(parse excluded)"),
+    "tinysql_slow_queries_total":
+        ("counter", "Statements whose exec wall exceeded "
+                    "tidb_slow_log_threshold"),
+    "tinysql_query_errors_total": ("counter", "Statements that raised"),
+    # progcache / prewarm provenance (ops/progcache.py)
+    "tinysql_progcache_hits_total":
+        ("counter", "In-process program-registry hits"),
+    "tinysql_progcache_misses_total":
+        ("counter", "In-process program-registry misses (program builds)"),
+    "tinysql_prewarm_seeded_total":
+        ("counter", "Programs compiled inside a prewarm scope "
+                    "(auto-prewarm worker / tools/warm.py)"),
+    "tinysql_prewarm_hits_total":
+        ("counter", "Query-path registry hits on prewarm-seeded programs "
+                    "(compiles the prewarmer saved real queries)"),
+    "tinysql_progcache_programs": ("gauge", "Registered compiled programs"),
+    "tinysql_compile_seconds_total":
+        ("counter", "Summed program-build wall seconds (inclusive of "
+                    "nested builds, like the compile spans)"),
+    "tinysql_pending_cost_analyses":
+        ("gauge", "Deferred XLA cost analyses awaiting resolution "
+                  "(drained by the tsring sampler tick / bench; "
+                  "bounded at kernels.PENDING_COSTS_MAX)"),
+    # SLO error-budget accounting (obs/inspect.slo_sample, fed from the
+    # exec-phase latency histogram against tidb_slo_p99_ms)
+    "tinysql_slo_exec_measurements_total":
+        ("counter", "Exec-phase latency measurements while an SLO "
+                    "(tidb_slo_p99_ms) was armed"),
+    "tinysql_slo_exec_breaches_total":
+        ("counter", "Exec-phase measurements provably over the armed "
+                    "tidb_slo_p99_ms threshold"),
+    "tinysql_slo_p99_ms":
+        ("gauge", "The armed SLO threshold at sample time (the slo-burn "
+                  "rule discards windows where it changed)"),
+    # resilience (fail/, utils/memory.py)
+    "tinysql_failpoint_hits_total":
+        ("counter", "Failpoint fires by name"),
+    "tinysql_mem_quota_exceeded_total":
+        ("counter", "Statements aborted by tidb_mem_quota_query"),
+    # memory-adaptive spilling (ops/spill.py)
+    "tinysql_spill_bytes_total":
+        ("counter", "Bytes written to the host spill store (partitions "
+                    "+ sort/top-k run files)"),
+    "tinysql_spill_reload_bytes_total":
+        ("counter", "Spilled bytes read back for probing/merging"),
+    "tinysql_spill_partitions_total":
+        ("counter", "Partitions / run files written to the spill store"),
+    "tinysql_spill_repartitions_total":
+        ("counter", "Recursive repartition events (a partition "
+                    "overflowed its working-set budget)"),
+    "tinysql_spill_stream_runs_total":
+        ("counter", "Streamed partial-aggregation slices (an "
+                    "unsplittable partition merged in budget-sized "
+                    "runs)"),
+    "tinysql_spilled_statements_total":
+        ("counter", "Statements that spilled at least once"),
+    "tinysql_spill_open_slots":
+        ("gauge", "Live spill-store slots (0 between statements — "
+                  "anything else is a leak)"),
+    # mesh-sharded operator tier (ops/shardops.py STATS)
+    "tinysql_shard_rounds_total":
+        ("counter", "Sharded program dispatches (partition-parallel "
+                    "join/semijoin/agg/sort/top-k rounds)"),
+    "tinysql_shard_rows_hwm":
+        ("gauge", "Per-shard row high-water mark (largest partition "
+                  "block / row slice one device has carried)"),
+    "tinysql_shard_exchange_bytes_total":
+        ("counter", "Bytes scattered through shard exchanges "
+                    "(partition-block scatter + shuffle-join lanes)"),
+    "tinysql_shard_skew_retries_total":
+        ("counter", "Sharded attempts abandoned for partition skew "
+                    "(fell back to the single-device kernel)"),
+    "tinysql_shard_stacked_rounds_total":
+        ("counter", "Batch rounds dispatched B stacked queries OVER a "
+                    "sharded program (the B x N product)"),
+    # serving layer (server/admission.py, server/pool.py, ops/batching.py)
+    "tinysql_admission_admitted_total":
+        ("counter", "Statements that began executing on the statement "
+                    "pool"),
+    "tinysql_admission_queued_total":
+        ("counter", "Statements that waited in the admission queue first"),
+    "tinysql_admission_rejected_total":
+        ("counter", "Statements shed by admission control (MySQL 1041)"),
+    "tinysql_admission_queue_wait_seconds_total":
+        ("counter", "Summed seconds pooled statements spent waiting for "
+                    "a worker (the pool-side half of the per-statement "
+                    "queue_wait attribution)"),
+    "tinysql_pool_queued":
+        ("gauge", "Statements waiting in the admission queue (live "
+                  "pools)"),
+    "tinysql_pool_running":
+        ("gauge", "Statements executing on pool workers (live pools)"),
+    "tinysql_batch_rounds_total":
+        ("counter", "Coalesced same-digest batch rounds dispatched"),
+    "tinysql_batch_statements_total":
+        ("counter", "Statements served through a batch round dispatch"),
+    "tinysql_batch_occupancy_sum":
+        ("counter", "Summed batch occupancy (divide by rounds for the "
+                    "average)"),
+    "tinysql_batch_fallbacks_total":
+        ("counter", "Replay consume misses that fell back to solo "
+                    "dispatch"),
+    "tinysql_batch_stacked_rounds_total":
+        ("counter", "Batch groups served by ONE stacked-params "
+                    "vmap-batched dispatch (tidb_batch_stack_max)"),
+    "tinysql_batch_stacked_occupancy_sum":
+        ("counter", "Summed stacked-group occupancy (divide by stacked "
+                    "rounds for the average members per stacked "
+                    "dispatch)"),
+    "tinysql_batch_stack_fallbacks_total":
+        ("counter", "Batch groups that fell back from the stacked leg "
+                    "to back-to-back replays (layout mismatch, missing "
+                    "stacking recipe, stacked dispatch error)"),
+    "tinysql_batch_dispatch_seconds_total":
+        ("counter", "Wall seconds spent inside batch-round device "
+                    "dispatch legs"),
+    "tinysql_stmt_mem_inflight_bytes":
+        ("gauge", "Aggregate live MemTracker bytes held by RUNNING "
+                  "statements (the admission gate's pressure signal)"),
+    # wire front end (server/server.py accept gate + server/aio.py):
+    # the connection-pressure inspection rule's evidence
+    "tinysql_conn_open":
+        ("gauge", "Open wire connections across live servers (both "
+                  "wire modes)"),
+    "tinysql_conn_idle":
+        ("gauge", "Open connections with no statement executing or "
+                  "queued (parked aio file objects / blocked legacy "
+                  "readers)"),
+    "tinysql_conn_active":
+        ("gauge", "Open connections with a statement executing or "
+                  "queued"),
+    "tinysql_conn_accepts_total":
+        ("counter", "Connections admitted at accept (handed to a wire "
+                    "front end)"),
+    "tinysql_conn_sheds_total":
+        ("counter", "Connects refused with MySQL 1040 at accept "
+                    "(tidb_max_server_connections)"),
+    # histograms / debug surfaces
+    "tinysql_stmt_phase_seconds":
+        ("histogram", "Statement latency by phase (statement summary "
+                      "store)"),
+    "tinysql_dispatch_device_seconds":
+        ("histogram", "Measured device busy time per profiled dispatch "
+                      "(ops/profiler.py, tidb_device_profile_rate)"),
+    "tinysql_trace_ring_entries":
+        ("gauge", "Query traces buffered for /debug/trace"),
+    # continuous host profiler (obs/conprof.py)
+    "tinysql_conprof_samples_total":
+        ("counter", "Thread-stack samples folded by the continuous "
+                    "host profiler"),
+    "tinysql_conprof_idle_samples_total":
+        ("counter", "Samples whose leaf frame was a blocking primitive "
+                    "(parked threads; excluded from busy-CPU shares)"),
+    "tinysql_conprof_attributed_samples_total":
+        ("counter", "Samples attributed to a running statement "
+                    "(statements_summary sum_cpu_ms/cpu_samples)"),
+    "tinysql_conprof_ticks_total":
+        ("counter", "Continuous-profiler sampling ticks"),
+    "tinysql_conprof_self_seconds_total":
+        ("counter", "Wall seconds the profiler spent walking/folding "
+                    "frames (its own overhead; the profiler-overhead "
+                    "rule's evidence)"),
+    "tinysql_conprof_evicted_total":
+        ("counter", "Folded stacks evicted into the (evicted) tombstone "
+                    "by the per-window tidb_conprof_max_stacks cap"),
+    "tinysql_conprof_backoff":
+        ("gauge", "Live overhead-backoff divisor (effective rate = "
+                  "tidb_conprof_rate / backoff; 1 = at full rate)"),
+    "tinysql_conprof_stacks":
+        ("gauge", "Distinct folded stacks in the current window"),
+    "tinysql_conprof_windows":
+        ("gauge", "Retained profile windows (current + rotated)"),
+    # continuous heap profiler (obs/memprof.py)
+    "tinysql_memprof_ticks_total":
+        ("counter", "Heap-profiler sampling ticks (tracemalloc "
+                    "snapshots taken)"),
+    "tinysql_memprof_sites_total":
+        ("counter", "Allocation sites folded by the heap profiler"),
+    "tinysql_memprof_attributed_total":
+        ("counter", "Statement attributions of traced-heap growth "
+                    "(statements_summary sum_heap_alloc_kb)"),
+    "tinysql_memprof_self_seconds_total":
+        ("counter", "Wall seconds the heap profiler spent snapshotting "
+                    "and folding (its own overhead; the bench_serve "
+                    "memprof gate's evidence)"),
+    "tinysql_memprof_evicted_total":
+        ("counter", "Allocation sites evicted into the (evicted) "
+                    "tombstone by the per-window tidb_memprof_max_sites "
+                    "cap"),
+    "tinysql_memprof_errors_total":
+        ("counter", "Heap-profiler ticks that failed (torn snapshots, "
+                    "memprofSampleError) — counted, never fatal"),
+    "tinysql_memprof_backoff":
+        ("gauge", "Live overhead-backoff divisor (effective rate = "
+                  "tidb_memprof_rate / backoff; 1 = at full rate)"),
+    # measured-vs-tracked memory reconciliation (obs/memprof.py
+    # memory_state — the heap-growth / hbm-pressure / mem-untracked
+    # rules' evidence series)
+    "tinysql_mem_tracked_bytes":
+        ("gauge", "Live statement MemTracker bytes (the ledger the "
+                  "spill/admission gates act on)"),
+    "tinysql_mem_traced_bytes":
+        ("gauge", "Measured python heap (tracemalloc current traced "
+                  "bytes; 0 when tracing is off)"),
+    "tinysql_mem_traced_peak_bytes":
+        ("gauge", "Measured python heap high water since tracing "
+                  "started"),
+    "tinysql_mem_rss_bytes":
+        ("gauge", "Process resident set size (/proc/self/statm)"),
+    "tinysql_mem_untracked_bytes":
+        ("gauge", "Measured heap beyond the MemTracker ledger (the "
+                  "mem-untracked rule's divergence)"),
+    "tinysql_hbm_live_bytes":
+        ("gauge", "Total bytes of live device buffers (HBM census)"),
+    "tinysql_hbm_buffers":
+        ("gauge", "Live device buffers counted by the HBM census"),
+    "tinysql_hbm_unattributed_bytes":
+        ("gauge", "Live device bytes no registered owner claims — the "
+                  "leak bucket (hbm census)"),
+    "tinysql_hbm_limit_bytes":
+        ("gauge", "Backend device-memory capacity when exposed "
+                  "(memory_stats bytes_limit; 0 on CPU)"),
+    # durable MVCC: WAL + checkpoint + crash recovery (kv/wal.py STATS)
+    "tinysql_wal_appends_total":
+        ("counter", "WAL records journaled (prewrite/commit/rollback/"
+                    "resolve/gc/backfill)"),
+    "tinysql_wal_append_bytes_total":
+        ("counter", "Framed bytes written to the write-ahead log"),
+    "tinysql_wal_append_errors_total":
+        ("counter", "WAL appends that failed BEFORE mutating the store "
+                    "(typed WalError surfaced to the caller)"),
+    "tinysql_wal_fsyncs_total":
+        ("counter", "WAL fsync syscalls (strict: per commit-class "
+                    "record; relaxed: group commit)"),
+    "tinysql_wal_fsync_seconds_total":
+        ("counter", "Wall seconds inside WAL fsync — the durability "
+                    "tax; the wal-stall rule's evidence"),
+    "tinysql_wal_fsync_errors_total":
+        ("counter", "WAL fsync failures (outcome undetermined: bytes "
+                    "may survive in the page cache)"),
+    "tinysql_wal_torn_writes_total":
+        ("counter", "Deliberately half-written records (walTornTail "
+                    "crash-boundary lever)"),
+    "tinysql_wal_size_bytes":
+        ("gauge", "Bytes in the live log since the last checkpoint "
+                  "rotation"),
+    "tinysql_wal_checkpoints_total":
+        ("counter", "Full entry-map snapshots atomically installed "
+                    "(tmp -> fsync -> rename -> log truncate)"),
+    "tinysql_wal_checkpoint_seconds_total":
+        ("counter", "Wall seconds spent writing checkpoints"),
+    "tinysql_wal_checkpoint_errors_total":
+        ("counter", "Checkpoint attempts that failed before the atomic "
+                    "rename — counted, never fatal"),
+    "tinysql_recovery_runs_total":
+        ("counter", "Crash-recovery passes (checkpoint load + wal "
+                    "replay) at store open"),
+    "tinysql_recovery_replayed_records_total":
+        ("counter", "WAL records re-applied during recovery"),
+    "tinysql_recovery_locks_total":
+        ("counter", "In-flight Percolator locks rebuilt by recovery "
+                    "(TTL re-armed from restart time) for the "
+                    "lock-resolution ladder to fence or complete"),
+    "tinysql_recovery_truncated_tails_total":
+        ("counter", "Torn log tails truncated at the first bad "
+                    "checksum during recovery"),
+    "tinysql_gc_runs_total":
+        ("counter", "MVCC garbage-collection sweeps run under the "
+                    "tidb_gc_safepoint trigger"),
+    "tinysql_gc_removed_versions_total":
+        ("counter", "Stale MVCC versions removed below the safepoint"),
+    # flight recorder (obs/flight.py STATS): durable observability
+    # segments — all-zero means no data dir was armed (volatile
+    # byte-identity: the family never appears)
+    "tinysql_flight_segments_total":
+        ("counter", "Flight-recorder segments appended (crc-framed, "
+                    "zlib-compressed tier snapshots)"),
+    "tinysql_flight_segment_bytes_total":
+        ("counter", "Framed bytes appended to the flight store"),
+    "tinysql_flight_fsyncs_total":
+        ("counter", "Flight-store fsync syscalls (one per segment "
+                    "append)"),
+    "tinysql_flight_final_flushes_total":
+        ("counter", "Final black-box segments force-flushed on a death "
+                    "path (close / atexit)"),
+    "tinysql_flight_compactions_total":
+        ("counter", "Retention-bounded in-file compactions (rewrite "
+                    "keeping the newest N segments)"),
+    "tinysql_flight_torn_truncations_total":
+        ("counter", "Torn segment tails truncated at the last good "
+                    "crc boundary on writer open"),
+    "tinysql_flight_prior_segments_total":
+        ("counter", "Prior-incarnation segments loaded read-only at "
+                    "boot"),
+    "tinysql_flight_errors_total":
+        ("counter", "Flight writer errors (collection or append "
+                    "failures — counted, never fatal)"),
+    "tinysql_flight_self_seconds_total":
+        ("counter", "Wall seconds inside the flight writer's "
+                    "snapshot+append path (the bench overhead gate's "
+                    "evidence)"),
+    # boot identity (obs/flight.py): the join key every flight surface
+    # shares — always emitted, armed or not
+    "tinysql_incarnation":
+        ("gauge", "This process's incarnation id (monotonic across "
+                  "restarts when a data dir is armed)"),
+    "tinysql_server_start_timestamp":
+        ("gauge", "Unix timestamp of this incarnation's boot"),
+    # time-series sampler self-accounting (obs/tsring.py)
+    "tinysql_metrics_samples_total":
+        ("counter", "Time-series ring samples taken"),
+    "tinysql_metrics_sample_seconds_total":
+        ("counter", "Wall seconds spent collecting ring samples (the "
+                    "sampler's own overhead)"),
+    "tinysql_metrics_dropped_unregistered_total":
+        ("counter", "Sampled values dropped because their metric name "
+                    "was not in the central registry"),
+    "tinysql_metrics_ring_entries":
+        ("gauge", "Samples currently retained in the time-series ring"),
+}
+
+#: shardops.STATS key -> metric name (ONE map shared by the /metrics
+#: render and the tsring "shardops" source, so the two surfaces can
+#: never disagree on the sharded tier's names)
+SHARD_METRIC_NAMES = (
+    ("shard_rounds", "tinysql_shard_rounds_total"),
+    ("shard_rows_hwm", "tinysql_shard_rows_hwm"),
+    ("shard_exchange_bytes", "tinysql_shard_exchange_bytes_total"),
+    ("shard_skew_retries", "tinysql_shard_skew_retries_total"),
+    ("shard_stacked_rounds", "tinysql_shard_stacked_rounds_total"),
+)
+
+#: kv/wal.py STATS key -> metric name (ONE map shared by the /metrics
+#: render and the tsring "wal" source).  tinysql_wal_size_bytes is the
+#: only gauge — everything else accumulates.
+WAL_METRIC_NAMES = (
+    ("appends", "tinysql_wal_appends_total"),
+    ("append_bytes", "tinysql_wal_append_bytes_total"),
+    ("append_errors", "tinysql_wal_append_errors_total"),
+    ("fsyncs", "tinysql_wal_fsyncs_total"),
+    ("fsync_s", "tinysql_wal_fsync_seconds_total"),
+    ("fsync_errors", "tinysql_wal_fsync_errors_total"),
+    ("torn_writes", "tinysql_wal_torn_writes_total"),
+    ("wal_size_bytes", "tinysql_wal_size_bytes"),
+    ("checkpoints", "tinysql_wal_checkpoints_total"),
+    ("checkpoint_s", "tinysql_wal_checkpoint_seconds_total"),
+    ("checkpoint_errors", "tinysql_wal_checkpoint_errors_total"),
+    ("recoveries", "tinysql_recovery_runs_total"),
+    ("replayed_records", "tinysql_recovery_replayed_records_total"),
+    ("recovered_locks", "tinysql_recovery_locks_total"),
+    ("truncated_tails", "tinysql_recovery_truncated_tails_total"),
+    ("gc_runs", "tinysql_gc_runs_total"),
+    ("gc_removed", "tinysql_gc_removed_versions_total"),
+)
+
+#: obs/flight.py STATS key -> metric name (ONE map shared by the
+#: /metrics render and the tsring "flight" source).  All counters; the
+#: family only appears once the recorder is armed and moving.
+FLIGHT_METRIC_NAMES = (
+    ("segments", "tinysql_flight_segments_total"),
+    ("segment_bytes", "tinysql_flight_segment_bytes_total"),
+    ("fsyncs", "tinysql_flight_fsyncs_total"),
+    ("final_flushes", "tinysql_flight_final_flushes_total"),
+    ("compactions", "tinysql_flight_compactions_total"),
+    ("torn_truncations", "tinysql_flight_torn_truncations_total"),
+    ("prior_segments_loaded", "tinysql_flight_prior_segments_total"),
+    ("errors", "tinysql_flight_errors_total"),
+    ("self_s", "tinysql_flight_self_seconds_total"),
+)
+
+#: STATS keys that are high-water marks (gauges), not accumulators —
+#: THE definition; kernels imports it (as ``_HWM_KEYS``) so the
+#: /metrics render and this registry can never disagree on
+#: gauge-vs-counter, and declaring it here keeps this module
+#: importable without jax
+HWM_STATS_KEYS = ("pipe_depth_hwm",)
+
+# device-economics names come from the _DEVICE_METRICS map above (one
+# definition of the STATS-key -> prometheus-name mapping)
+for _k, (_name, _help) in _DEVICE_METRICS.items():
+    METRICS[_name] = ("gauge" if _k in HWM_STATS_KEYS else "counter",
+                      _help)
+# auto-prewarm worker counters (session/prewarm.py PREWARM_STATS keys)
+for _k in ("cycles", "families_warmed", "bucket_programs",
+           "stacked_programs", "errors",
+           "skipped_cooldown", "skipped_budget", "skipped_satisfied"):
+    METRICS[f"tinysql_prewarm_worker_{_k}_total"] = (
+        "counter", f"Auto-prewarm worker {_k.replace('_', ' ')}")
+# per-role busy-sample counters (obs/conprof.py): the role catalogue is
+# closed and owned by conprof (one definition shared with the ring
+# source and the cpu-saturation rule), so every role's counter is a
+# registered name
+from .conprof import ROLES as _CONPROF_ROLES  # noqa: E402  (jax-free)
+from .conprof import role_metric as _conprof_role_metric  # noqa: E402
+for _r in _CONPROF_ROLES:
+    METRICS[_conprof_role_metric(_r)] = (
+        "counter", f"Busy (non-idle) stack samples on {_r} threads")
+
+
+def registered(name: str) -> bool:
+    """Is ``name`` a declared metric?  (The tsring sample-time check.)"""
+    return name in METRICS
+
+
+def query_counter_totals() -> Dict[str, float]:
+    """The query-lifecycle counters summed across their ``kind`` labels —
+    the flat (label-free) form the time-series ring samples."""
+    with _mu:
+        out: Dict[str, float] = {}
+        for (metric, _labels), v in _QUERY_COUNTERS.items():
+            out[metric] = out.get(metric, 0) + v
+    return out
+
+
+def _bump(metric: str, labels: tuple, n: float) -> None:
+    with _mu:
+        key = (metric, labels)
+        _QUERY_COUNTERS[key] = _QUERY_COUNTERS.get(key, 0) + n
+
+
+def observe_query(kind: str, seconds: float, slow: bool = False,
+                  error: bool = False) -> None:
+    """Record one finished statement (kind = lowercased statement class,
+    e.g. ``select`` / ``insert`` / ``explain``)."""
+    labels = (("kind", kind),)
+    _bump("tinysql_queries_total", labels, 1)
+    _bump("tinysql_query_seconds_sum", labels, seconds)
+    if slow:
+        _bump("tinysql_slow_queries_total", labels, 1)
+    if error:
+        _bump("tinysql_query_errors_total", labels, 1)
+
+
+def reset() -> None:
+    """Tests only."""
+    with _mu:
+        _QUERY_COUNTERS.clear()
+
+
+def _fmt_labels(labels: tuple) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{v}"' for k, v in labels)
+    return "{" + inner + "}"
+
+
+def _fmt_value(v) -> str:
+    if isinstance(v, float) and not v.is_integer():
+        return repr(v)
+    return str(int(v))
+
+
+def render_prometheus() -> str:
+    """The /metrics payload.  Imports the device layer lazily so the
+    status server stays importable without jax."""
+    lines: List[str] = []
+
+    def emit(name: str, help_text: str, mtype: str,
+             samples: List[Tuple[tuple, float]]) -> None:
+        lines.append(f"# HELP {name} {help_text}")
+        lines.append(f"# TYPE {name} {mtype}")
+        for labels, v in samples:
+            lines.append(f"{name}{_fmt_labels(labels)} {_fmt_value(v)}")
+
+    # query-lifecycle counters
+    with _mu:
+        grouped: Dict[str, List[Tuple[tuple, float]]] = {}
+        for (metric, labels), v in sorted(_QUERY_COUNTERS.items()):
+            grouped.setdefault(metric, []).append((labels, v))
+    for metric in sorted(grouped):
+        emit(metric, METRICS.get(metric, ("counter", metric))[1],
+             "counter", grouped[metric])
+
+    # device-economics counters (kernels.STATS); the HWM-key set is
+    # owned by kernels — one definition, so a new high-water counter
+    # can never be mis-exported as an ever-increasing counter here
+    try:
+        from ..ops import kernels, progcache
+        stats = dict(kernels.STATS)
+        hwm_keys = kernels._HWM_KEYS
+        pstats = progcache.stats_snapshot()
+        psize = progcache.size()
+    except Exception:  # jax import failure must not kill /metrics
+        stats, hwm_keys, pstats, psize = {}, (), {}, None
+    for key, (name, help_text) in _DEVICE_METRICS.items():
+        if key not in stats:
+            continue
+        mtype = "gauge" if key in hwm_keys else "counter"
+        emit(name, help_text, mtype, [((), stats[key])])
+    try:
+        pending = len(kernels._PENDING_COSTS) if stats else 0
+    except Exception:
+        pending = None
+    if pending is not None and stats:
+        emit("tinysql_pending_cost_analyses",
+             METRICS["tinysql_pending_cost_analyses"][1], "gauge",
+             [((), pending)])
+    if pstats:
+        emit("tinysql_progcache_hits_total",
+             "In-process program-registry hits", "counter",
+             [((), pstats.get("hits", 0))])
+        emit("tinysql_compile_seconds_total",
+             METRICS["tinysql_compile_seconds_total"][1], "counter",
+             [((), pstats.get("compile_wall_s", 0.0))])
+        emit("tinysql_progcache_misses_total",
+             "In-process program-registry misses (program builds)",
+             "counter", [((), pstats.get("misses", 0))])
+        emit("tinysql_prewarm_seeded_total",
+             "Programs compiled inside a prewarm scope (auto-prewarm "
+             "worker / tools/warm.py)", "counter",
+             [((), pstats.get("prewarm_seeded", 0))])
+        emit("tinysql_prewarm_hits_total",
+             "Query-path registry hits on prewarm-seeded programs "
+             "(compiles the prewarmer saved real queries)", "counter",
+             [((), pstats.get("prewarm_hits", 0))])
+    if psize is not None:
+        emit("tinysql_progcache_programs", "Registered compiled programs",
+             "gauge", [((), psize)])
+
+    # auto-prewarm worker counters (session/prewarm.py PrewarmWorker)
+    try:
+        from ..session.prewarm import stats_snapshot as prewarm_stats
+        pw = prewarm_stats()
+    except Exception:
+        pw = {}
+    if any(pw.values()):
+        for k in sorted(pw):
+            emit(f"tinysql_prewarm_worker_{k}_total",
+                 f"Auto-prewarm worker {k.replace('_', ' ')}", "counter",
+                 [((), pw[k])])
+
+    # resilience counters: failpoint fires (per name), memory-quota
+    # aborts — chaos runs read these to prove
+    # every injected fault was actually observed
+    try:
+        from .. import fail
+        fhits = fail.hits()
+    except Exception:
+        fhits = {}
+    if fhits:
+        emit("tinysql_failpoint_hits_total", "Failpoint fires by name",
+             "counter",
+             [((("name", k),), v) for k, v in sorted(fhits.items())])
+    try:
+        from ..utils import memory as mem
+        emit("tinysql_mem_quota_exceeded_total",
+             "Statements aborted by tidb_mem_quota_query", "counter",
+             [((), mem.aborts_total())])
+    except Exception:
+        pass
+    # memory-adaptive spill economics (ops/spill.py STATS)
+    try:
+        from ..ops.spill import stats_snapshot as spill_stats
+        sp = spill_stats()
+    except Exception:
+        sp = {}
+    if sp:
+        for key, name in (("spill_bytes", "tinysql_spill_bytes_total"),
+                          ("spill_reload_bytes",
+                           "tinysql_spill_reload_bytes_total"),
+                          ("spill_partitions",
+                           "tinysql_spill_partitions_total"),
+                          ("spill_repartitions",
+                           "tinysql_spill_repartitions_total"),
+                          ("spill_stream_runs",
+                           "tinysql_spill_stream_runs_total"),
+                          ("spilled_statements",
+                           "tinysql_spilled_statements_total")):
+            emit(name, METRICS[name][1], "counter",
+                 [((), sp.get(key, 0))])
+        emit("tinysql_spill_open_slots",
+             METRICS["tinysql_spill_open_slots"][1], "gauge",
+             [((), sp.get("open_slots", 0))])
+    # mesh-sharded operator tier (ops/shardops.py STATS): rounds,
+    # per-shard row HWM, exchange bytes, skew fall-backs, stacked BxN
+    try:
+        from ..ops.shardops import stats_snapshot as shard_stats
+        sh = shard_stats()
+    except Exception:
+        sh = {}
+    if sh:
+        for key, name in SHARD_METRIC_NAMES:
+            kind = METRICS[name][0]
+            emit(name, METRICS[name][1], kind, [((), sh.get(key, 0))])
+    # durable MVCC (kv/wal.py STATS): all-zero means no data dir was
+    # ever armed — emit nothing so the volatile store's /metrics output
+    # is byte-identical to the pre-WAL build
+    try:
+        from ..kv.wal import stats_snapshot as wal_stats
+        wl = wal_stats()
+    except Exception:
+        wl = {}
+    if any(wl.values()):
+        for key, name in WAL_METRIC_NAMES:
+            kind = METRICS[name][0]
+            emit(name, METRICS[name][1], kind, [((), wl.get(key, 0))])
+    # flight recorder (obs/flight.py STATS): all-zero means no data dir
+    # was armed — emit nothing, same volatile byte-identity discipline
+    # as the WAL family above
+    try:
+        from .flight import stats_snapshot as flight_stats
+        fl = flight_stats()
+    except Exception:
+        fl = {}
+    if any(fl.values()):
+        for key, name in FLIGHT_METRIC_NAMES:
+            emit(name, METRICS[name][1], "counter",
+                 [((), fl.get(key, 0))])
+    # boot identity: incarnation + start timestamp are the join key the
+    # flight surfaces share — emitted armed or not (constant gauges)
+    try:
+        from .flight import current_incarnation, server_start_ts
+        emit("tinysql_incarnation", METRICS["tinysql_incarnation"][1],
+             "gauge", [((), current_incarnation())])
+        emit("tinysql_server_start_timestamp",
+             METRICS["tinysql_server_start_timestamp"][1], "gauge",
+             [((), server_start_ts())])
+    except Exception:
+        pass
+
+    # serving-layer counters: admission verdicts (server/admission.py)
+    # and cross-query micro-batching (ops/batching.py)
+    try:
+        from ..server.admission import stats_snapshot as adm_stats
+        adm = adm_stats()
+    except Exception:
+        adm = {}
+    if adm:
+        for key in ("admitted", "queued", "rejected"):
+            name = f"tinysql_admission_{key}_total"
+            emit(name, METRICS[name][1], "counter",
+                 [((), adm.get(key, 0))])
+        emit("tinysql_admission_queue_wait_seconds_total",
+             METRICS["tinysql_admission_queue_wait_seconds_total"][1],
+             "counter", [((), adm.get("queue_wait_s_sum", 0.0))])
+        try:
+            from ..server.admission import aggregate_stmt_mem
+            emit("tinysql_stmt_mem_inflight_bytes",
+                 METRICS["tinysql_stmt_mem_inflight_bytes"][1], "gauge",
+                 [((), aggregate_stmt_mem())])
+        except Exception:
+            pass
+    # wire-layer connection economics: the 1040 accept gate's verdicts
+    # (server/admission.py CONN_STATS) + open/idle/active across live
+    # servers — the C10k front end's parked connections are visible here
+    try:
+        from ..server.admission import conn_stats_snapshot
+        from ..server.server import conn_gauges
+        cst = conn_stats_snapshot()
+        cg = conn_gauges()
+    except Exception:
+        cst, cg = {}, None
+    if cst.get("accepts") or cst.get("sheds"):
+        emit("tinysql_conn_accepts_total",
+             METRICS["tinysql_conn_accepts_total"][1], "counter",
+             [((), cst.get("accepts", 0))])
+        emit("tinysql_conn_sheds_total",
+             METRICS["tinysql_conn_sheds_total"][1], "counter",
+             [((), cst.get("sheds", 0))])
+    if cg is not None and cg["open"]:
+        for key in ("open", "idle", "active"):
+            name = f"tinysql_conn_{key}"
+            emit(name, METRICS[name][1], "gauge", [((), cg[key])])
+    try:
+        from ..server.pool import gauges as pool_gauges
+        pg = pool_gauges()
+    except Exception:
+        pg = None
+    if pg is not None:
+        emit("tinysql_pool_queued", "Statements waiting in the admission "
+             "queue (live pools)", "gauge", [((), pg["queued"])])
+        emit("tinysql_pool_running", "Statements executing on pool "
+             "workers (live pools)", "gauge", [((), pg["running"])])
+    try:
+        from ..ops.batching import stats_snapshot as batch_stats
+        bst = batch_stats()
+    except Exception:
+        bst = {}
+    if bst:
+        emit("tinysql_batch_rounds_total",
+             "Coalesced same-digest batch rounds dispatched", "counter",
+             [((), bst.get("batches", 0))])
+        emit("tinysql_batch_statements_total",
+             "Statements served through a batch round dispatch",
+             "counter", [((), bst.get("batched_statements", 0))])
+        emit("tinysql_batch_occupancy_sum",
+             "Summed batch occupancy (divide by rounds for the average)",
+             "counter", [((), bst.get("occupancy_sum", 0))])
+        emit("tinysql_batch_fallbacks_total",
+             "Replay consume misses that fell back to solo dispatch",
+             "counter", [((), bst.get("fallbacks", 0))])
+        emit("tinysql_batch_stacked_rounds_total",
+             METRICS["tinysql_batch_stacked_rounds_total"][1],
+             "counter", [((), bst.get("stacked_rounds", 0))])
+        emit("tinysql_batch_stacked_occupancy_sum",
+             METRICS["tinysql_batch_stacked_occupancy_sum"][1],
+             "counter", [((), bst.get("stacked_occupancy_sum", 0))])
+        emit("tinysql_batch_stack_fallbacks_total",
+             METRICS["tinysql_batch_stack_fallbacks_total"][1],
+             "counter", [((), bst.get("stack_fallbacks", 0))])
+        emit("tinysql_batch_dispatch_seconds_total",
+             METRICS["tinysql_batch_dispatch_seconds_total"][1],
+             "counter", [((), bst.get("dispatch_s_sum", 0.0))])
+
+    # continuous host profiler (obs/conprof.py): samples, attribution,
+    # self-cost, and the per-role busy split — the host-CPU truth feed
+    try:
+        from . import conprof
+        cp = conprof.stats_snapshot()
+    except Exception:
+        cp = {}
+    if cp.get("ticks"):
+        for key, name in (("samples", "tinysql_conprof_samples_total"),
+                          ("idle_samples",
+                           "tinysql_conprof_idle_samples_total"),
+                          ("attributed",
+                           "tinysql_conprof_attributed_samples_total"),
+                          ("ticks", "tinysql_conprof_ticks_total"),
+                          ("self_s",
+                           "tinysql_conprof_self_seconds_total"),
+                          ("evicted", "tinysql_conprof_evicted_total")):
+            emit(name, METRICS[name][1], "counter", [((), cp.get(key, 0))])
+        for key, name in (("backoff", "tinysql_conprof_backoff"),
+                          ("stacks", "tinysql_conprof_stacks"),
+                          ("windows", "tinysql_conprof_windows")):
+            emit(name, METRICS[name][1], "gauge", [((), cp.get(key, 0))])
+        for role, n in sorted(cp.get("role_busy", {}).items()):
+            if n:
+                name = conprof.role_metric(role)
+                emit(name, METRICS[name][1], "counter", [((), n)])
+
+    # continuous heap profiler (obs/memprof.py): sampler self-accounting
+    # only — the reconciliation gauges ride the memory_state ring source
+    # (a /metrics scrape must never pay for an HBM census walk)
+    try:
+        from . import memprof
+        mp = memprof.stats_snapshot()
+    except Exception:
+        mp = {}
+    if mp.get("ticks"):
+        for key, name in (("ticks", "tinysql_memprof_ticks_total"),
+                          ("sites", "tinysql_memprof_sites_total"),
+                          ("attributed",
+                           "tinysql_memprof_attributed_total"),
+                          ("self_s",
+                           "tinysql_memprof_self_seconds_total"),
+                          ("evicted", "tinysql_memprof_evicted_total"),
+                          ("errors", "tinysql_memprof_errors_total")):
+            emit(name, METRICS[name][1], "counter", [((), mp.get(key, 0))])
+        emit("tinysql_memprof_backoff",
+             METRICS["tinysql_memprof_backoff"][1], "gauge",
+             [((), mp.get("backoff", 1))])
+
+    # time-series sampler self-accounting (obs/tsring.py): the cost of
+    # observing is itself observable (bench obs_overhead_frac reads it)
+    try:
+        from .tsring import stats_snapshot as tsring_stats, RING
+        ts = tsring_stats()
+        ring_len = RING.size()
+    except Exception:
+        ts, ring_len = {}, None
+    if ts.get("samples"):
+        emit("tinysql_metrics_samples_total",
+             METRICS["tinysql_metrics_samples_total"][1], "counter",
+             [((), ts.get("samples", 0))])
+        emit("tinysql_metrics_sample_seconds_total",
+             METRICS["tinysql_metrics_sample_seconds_total"][1],
+             "counter", [((), ts.get("sample_wall_s", 0.0))])
+        emit("tinysql_metrics_dropped_unregistered_total",
+             METRICS["tinysql_metrics_dropped_unregistered_total"][1],
+             "counter", [((), ts.get("dropped_unregistered", 0))])
+    if ring_len is not None:
+        emit("tinysql_metrics_ring_entries",
+             METRICS["tinysql_metrics_ring_entries"][1], "gauge",
+             [((), ring_len)])
+
+    # per-phase statement latency histograms, fed from the statement
+    # summary store's ingest path (obs/stmtsummary.py) — the SQL-visible
+    # aggregates and the Prometheus histograms share one write hook
+    try:
+        from .stmtsummary import histogram_snapshot
+        hists = histogram_snapshot()
+    except Exception:
+        hists = {}
+    if any(h["count"] for h in hists.values()):
+        name = "tinysql_stmt_phase_seconds"
+        lines.append(f"# HELP {name} Statement latency by phase "
+                     "(statement summary store)")
+        lines.append(f"# TYPE {name} histogram")
+        for phase in sorted(hists):
+            h = hists[phase]
+            cum = 0
+            for le, count in h["buckets"]:
+                cum += count
+                lines.append(f'{name}_bucket{{phase="{phase}",'
+                             f'le="{le:g}"}} {cum}')
+            lines.append(f'{name}_bucket{{phase="{phase}",le="+Inf"}} '
+                         f'{h["count"]}')
+            lines.append(f'{name}_sum{{phase="{phase}"}} '
+                         f'{_fmt_value(float(h["sum"]))}')
+            lines.append(f'{name}_count{{phase="{phase}"}} {h["count"]}')
+
+    # measured device-time-per-dispatch histogram (ops/profiler.py) —
+    # empty until tidb_device_profile_rate samples a dispatch
+    try:
+        from ..ops.profiler import histogram_snapshot as prof_hist
+        ph = prof_hist()
+    except Exception:
+        ph = {"count": 0}
+    if ph.get("count"):
+        name = "tinysql_dispatch_device_seconds"
+        lines.append(f"# HELP {name} "
+                     f"{METRICS[name][1]}")
+        lines.append(f"# TYPE {name} histogram")
+        cum = 0
+        for le, count in ph["buckets"]:
+            cum += count
+            lines.append(f'{name}_bucket{{le="{le:g}"}} {cum}')
+        lines.append(f'{name}_bucket{{le="+Inf"}} {ph["count"]}')
+        lines.append(f'{name}_sum {_fmt_value(float(ph["sum"]))}')
+        lines.append(f'{name}_count {ph["count"]}')
+
+    from .trace import recent_traces
+    emit("tinysql_trace_ring_entries", "Query traces buffered for "
+         "/debug/trace", "gauge", [((), len(recent_traces()))])
+    return "\n".join(lines) + "\n"

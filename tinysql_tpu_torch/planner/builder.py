@@ -1,0 +1,585 @@
+"""AST -> logical plan: name resolution + expression rewriting + select
+construction.
+
+Capability parity with reference planner/core/logical_plan_builder.go
+(buildSelect/buildJoin/buildAggregation/buildProjection/buildSort…, 1,680 L),
+expression_rewriter.go (AST expr -> expression.Expression with column
+binding), preprocess.go (validation).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+from ..catalog.model import TableInfo
+from ..expression import (AGG_FIRST_ROW, AggFuncDesc, Column, Constant,
+                          Expression, Schema, fold_constants, new_function,
+                          split_cnf)
+from ..mytypes import (Datum, new_int_type, new_real_type, new_string_type,
+                       FieldType)
+from ..parser import ast
+from .logical import (JOIN_INNER, JOIN_LEFT, LogicalAggregation,
+                      LogicalDataSource, LogicalJoin, LogicalLimit,
+                      LogicalPlan, LogicalProjection, LogicalSelection,
+                      LogicalSort, LogicalTableDual, LogicalTopN)
+
+HANDLE_COL_NAME = "_tidb_rowid"  # hidden handle column (reference: model.ExtraHandleID)
+
+
+class PlanError(Exception):
+    pass
+
+
+class UnknownColumn(PlanError):
+    def __init__(self, name):
+        super().__init__(f"Unknown column '{name}'")
+
+
+class AmbiguousColumn(PlanError):
+    def __init__(self, name):
+        super().__init__(f"Column '{name}' in field list is ambiguous")
+
+
+def _lit_ft(v: Datum) -> FieldType:
+    if v is None:
+        return new_int_type()
+    if isinstance(v, bool) or isinstance(v, int):
+        # decimal literals above the signed range are unsigned in MySQL
+        return new_int_type(unsigned=v > (1 << 63) - 1)
+    if isinstance(v, float):
+        return new_real_type()
+    return new_string_type()
+
+
+_BINOP_MAP = {"+": "+", "-": "-", "*": "*", "/": "/", "div": "div",
+              "%": "%", "and": "and", "or": "or", "xor": "xor",
+              "=": "=", "!=": "!=", "<": "<", "<=": "<=", ">": ">",
+              ">=": ">=", "<=>": "<=>"}
+
+
+class ExprRewriter:
+    """AST expression -> typed Expression bound to an input schema
+    (reference: expression_rewriter.go)."""
+
+    def __init__(self, schema: Schema, builder: "PlanBuilder",
+                 agg_mapper: Optional[Dict[int, Column]] = None,
+                 alias_schema: Optional[Schema] = None,
+                 outer_schema: Optional[Schema] = None):
+        self.schema = schema
+        self.builder = builder
+        self.agg_mapper = agg_mapper or {}
+        # secondary resolution scope (select aliases, for HAVING/ORDER BY)
+        self.alias_schema = alias_schema
+        # correlated-subquery resolution scope: columns of the OUTER query
+        # visible inside an EXISTS subquery (planner/decorrelate.py pulls
+        # the conjuncts referencing them up to the semi join)
+        self.outer_schema = outer_schema
+
+    def rewrite(self, e: ast.ExprNode) -> Expression:
+        if isinstance(e, ast.Literal):
+            return Constant(e.value, _lit_ft(e.value))
+        if isinstance(e, ast.ParenExpr):
+            return self.rewrite(e.expr)
+        if isinstance(e, ast.ColumnRef):
+            return self.resolve_column(e)
+        if isinstance(e, ast.UnaryOp):
+            if e.op == "-":
+                return new_function("unaryminus", [self.rewrite(e.operand)])
+            if e.op == "not":
+                return new_function("not", [self.rewrite(e.operand)])
+            raise PlanError(f"unsupported unary op {e.op}")
+        if isinstance(e, ast.BinaryOp):
+            op = _BINOP_MAP.get(e.op)
+            if op is None:
+                raise PlanError(f"unsupported operator {e.op}")
+            return new_function(op, [self.rewrite(e.left), self.rewrite(e.right)])
+        if isinstance(e, ast.IsNullExpr):
+            f = new_function("isnull", [self.rewrite(e.expr)])
+            return new_function("not", [f]) if e.negated else f
+        if isinstance(e, ast.IsTruthExpr):
+            f = new_function("istrue" if e.truth else "isfalse",
+                             [self.rewrite(e.expr)])
+            return new_function("not", [f]) if e.negated else f
+        if isinstance(e, ast.LikeExpr):
+            f = new_function("like", [self.rewrite(e.expr),
+                                      self.rewrite(e.pattern),
+                                      Constant(e.escape, new_string_type())])
+            return new_function("not", [f]) if e.negated else f
+        if isinstance(e, ast.InExpr):
+            f = new_function("in", [self.rewrite(e.expr)]
+                             + [self.rewrite(x) for x in e.items])
+            return new_function("not", [f]) if e.negated else f
+        if isinstance(e, ast.BetweenExpr):
+            x = self.rewrite(e.expr)
+            lo = new_function(">=", [x, self.rewrite(e.lo)])
+            hi = new_function("<=", [x, self.rewrite(e.hi)])
+            f = new_function("and", [lo, hi])
+            return new_function("not", [f]) if e.negated else f
+        if isinstance(e, ast.FuncCall):
+            return new_function(e.name, [self.rewrite(a) for a in e.args])
+        if isinstance(e, ast.AggFunc):
+            col = self.agg_mapper.get(id(e))
+            if col is None:
+                raise PlanError(f"invalid use of aggregate {e.name}()")
+            return col
+        if isinstance(e, ast.CaseExpr):
+            args: List[Expression] = []
+            for cond, res in e.when_clauses:
+                c = self.rewrite(cond)
+                if e.operand is not None:
+                    c = new_function("=", [self.rewrite(e.operand), c])
+                args += [c, self.rewrite(res)]
+            if e.else_clause is not None:
+                args.append(self.rewrite(e.else_clause))
+            return new_function("case", args)
+        if isinstance(e, ast.VariableExpr):
+            v = self.builder.get_variable(e)
+            return Constant(v, _lit_ft(v))
+        if isinstance(e, ast.SubqueryExpr):
+            # scalar subquery: evaluated eagerly at plan time (reference:
+            # expression_rewriter.go handleScalarSubquery — uncorrelated
+            # scalar subqueries fold to constants during optimization);
+            # literal parameterization keeps the folded constant out
+            # of program-cache keys.  Note an IN-list landing here (not a
+            # decorrelated top-level WHERE conjunct) gets SCALAR
+            # semantics: >1 subquery row is a loud 1242 error.
+            v = self.builder.eval_scalar_subquery(e)
+            return Constant(v, _lit_ft(v))
+        if isinstance(e, ast.ExistsExpr):
+            # EXISTS outside a decorrelatable WHERE conjunct: eager
+            # boolean evaluation (uncorrelated only — a correlated column
+            # fails name resolution inside)
+            v = self.builder.eval_exists_subquery(e)
+            f = Constant(v, _lit_ft(v))
+            return new_function("not", [f]) if e.negated else f
+        if isinstance(e, ast.RowExpr):
+            raise PlanError("row expressions are only valid in IN lists")
+        if isinstance(e, ast.DefaultExpr):
+            raise PlanError("DEFAULT is only valid in VALUES lists")
+        raise PlanError(f"unsupported expression {type(e).__name__}")
+
+    def resolve_column(self, ref: ast.ColumnRef) -> Column:
+        hits = _find_in_schema(self.schema, ref)
+        if not hits and self.alias_schema is not None:
+            hits = _find_in_schema(self.alias_schema, ref)
+        if not hits and self.outer_schema is not None:
+            # correlated reference into the enclosing query's scope
+            hits = _find_in_schema(self.outer_schema, ref)
+        if not hits:
+            raise UnknownColumn(str(ref))
+        if len(hits) > 1:
+            raise AmbiguousColumn(str(ref))
+        return hits[0]
+
+
+def _find_in_schema(schema: Schema, ref: ast.ColumnRef) -> List[Column]:
+    name = ref.name.lower()
+    table = ref.table.lower()
+    db = ref.db.lower()
+    out = []
+    for c in schema.columns:
+        if c.name.lower() != name:
+            continue
+        if table and (c.table or "").lower() != table:
+            continue
+        if db and (c.db or "").lower() != db:
+            continue
+        out.append(c)
+    # duplicate unique_ids (same col seen via merge) count once
+    seen = set()
+    uniq = []
+    for c in out:
+        if c.unique_id not in seen:
+            seen.add(c.unique_id)
+            uniq.append(c)
+    return uniq
+
+
+class PlanBuilder:
+    """reference: planner/core/planbuilder.go PlanBuilder (the SELECT slice;
+    non-query statements build executor-level plans in executor/builder)."""
+
+    def __init__(self, ctx):
+        # ctx: session context with .infoschema(), .current_db, .get_sysvar,
+        # .get_uservar
+        self.ctx = ctx
+
+    # ---- variables ------------------------------------------------------
+    def get_variable(self, e: ast.VariableExpr) -> Datum:
+        if e.is_system:
+            return self.ctx.get_sysvar(e.name, e.scope)
+        return self.ctx.get_uservar(e.name)
+
+    # ---- subquery evaluation (planner/decorrelate.py's eager arm) -------
+    def eval_scalar_subquery(self, e: ast.SubqueryExpr) -> Datum:
+        """Execute an uncorrelated scalar subquery NOW; 0 rows -> NULL,
+        >1 rows -> error 1242 (MySQL semantics)."""
+        rows = self._run_subquery(e.select)
+        if len(rows) > 1:
+            raise PlanError("Subquery returns more than 1 row")
+        if not rows:
+            return None
+        if len(rows[0]) != 1:
+            raise PlanError("Operand should contain 1 column(s)")
+        v = rows[0][0]
+        return v.item() if hasattr(v, "item") else v
+
+    def eval_exists_subquery(self, e: ast.ExistsExpr) -> int:
+        import copy
+        stmt = copy.copy(e.select)
+        if stmt.limit is None:
+            stmt.limit = (0, 1)  # EXISTS needs one row at most
+        return 1 if self._run_subquery(stmt) else 0
+
+    def _run_subquery(self, stmt: ast.SelectStmt) -> list:
+        runner = getattr(self.ctx, "_run_select_plan", None)
+        if runner is None:
+            raise PlanError("subqueries need an executing session context")
+        return runner(stmt, self.ctx.get_txn())
+
+    # ---- entry -----------------------------------------------------------
+    def build_select(self, stmt: ast.SelectStmt) -> LogicalPlan:
+        if stmt.from_ is not None:
+            p = self.build_table_refs(stmt.from_)
+        else:
+            p = LogicalTableDual()
+        if stmt.where is not None:
+            # subquery-bearing conjuncts first: IN/EXISTS decorrelate
+            # into semi/anti joins over p (planner/decorrelate.py)
+            from .decorrelate import apply_where_subqueries
+            p, residual = apply_where_subqueries(self, p, stmt.where)
+            conds = []
+            rw = ExprRewriter(p.schema, self)
+            for conj in residual:
+                conds.extend(fold_constants(c)
+                             for c in split_cnf(rw.rewrite(conj)))
+            if conds:
+                p = LogicalSelection(conds, p)
+
+        # ---- wildcard expansion -------------------------------------
+        fields = self._expand_wildcards(stmt.fields, p.schema)
+
+        # ---- aggregate analysis -------------------------------------
+        agg_nodes: List[ast.AggFunc] = []
+        for f in fields:
+            if f.expr is not None:
+                agg_nodes += [x for x in ast.walk_expr(f.expr)
+                              if isinstance(x, ast.AggFunc)]
+        having_aggs = [x for x in ast.walk_expr(stmt.having)
+                       if isinstance(x, ast.AggFunc)] if stmt.having else []
+        order_aggs = []
+        for e, _ in stmt.order_by:
+            order_aggs += [x for x in ast.walk_expr(e)
+                           if isinstance(x, ast.AggFunc)]
+        all_aggs = agg_nodes + having_aggs + order_aggs
+        need_agg = bool(all_aggs) or bool(stmt.group_by)
+
+        agg_mapper: Dict[int, Column] = {}
+        gb_cols: Dict[str, Column] = {}
+        if need_agg:
+            p, agg_mapper, gb_cols = self._build_aggregation(
+                p, stmt.group_by, all_aggs, fields)
+
+        # ---- having --------------------------------------------------
+        if stmt.having is not None:
+            rw = ExprRewriter(p.schema, self, agg_mapper,
+                              alias_schema=self._alias_schema(fields, p, agg_mapper))
+            conds = split_cnf(rw.rewrite(stmt.having))
+            p = LogicalSelection(conds, p)
+
+        # ---- projection ---------------------------------------------
+        rw = ExprRewriter(p.schema, self, agg_mapper)
+        proj_exprs: List[Expression] = []
+        out_cols: List[Column] = []
+        for f in fields:
+            e = rw.rewrite(f.expr)
+            proj_exprs.append(e)
+            name = f.as_name or (f.expr.name if isinstance(f.expr, ast.ColumnRef)
+                                 else (f.text or "expr"))
+            if isinstance(e, Column) and not f.as_name:
+                out_cols.append(e.renamed(name=name, table=e.table))
+            else:
+                out_cols.append(Column(e.ret_type, name=name))
+        proj_schema = Schema(out_cols)
+        p = LogicalProjection(proj_exprs, proj_schema, p)
+
+        # ---- distinct -----------------------------------------------
+        if stmt.distinct:
+            p = self._build_distinct(p)
+
+        # ---- order by -----------------------------------------------
+        visible = len(proj_schema)
+        if stmt.order_by:
+            p, extra = self._build_sort(p, stmt.order_by, fields, agg_mapper,
+                                        gb_cols)
+        # ---- limit --------------------------------------------------
+        if stmt.limit is not None:
+            off, cnt = stmt.limit
+            p = LogicalLimit(off, cnt, p)
+        # trim hidden order-by columns
+        if len(p.schema) > visible:
+            keep = p.schema.columns[:visible]
+            p = LogicalProjection(list(keep), Schema(list(keep)), p)
+        return p
+
+    def _expand_wildcards(self, fields: List[ast.SelectField],
+                          schema: Schema) -> List[ast.SelectField]:
+        """Expand * and t.* into explicit column fields (reference:
+        logical_plan_builder.go unfoldWildStar)."""
+        out: List[ast.SelectField] = []
+        for f in fields:
+            if not f.is_wildcard:
+                out.append(f)
+                continue
+            want = f.wildcard_table.lower()
+            matched = False
+            for c in schema.columns:
+                if c.name == HANDLE_COL_NAME:
+                    continue
+                if want and (c.table or "").lower() != want:
+                    continue
+                matched = True
+                out.append(ast.SelectField(
+                    ast.ColumnRef(c.name, table=c.table or ""),
+                    as_name=c.name))
+            if not matched:
+                raise UnknownColumn(f"{f.wildcard_table or ''}.*")
+        return out
+
+    # ---- FROM ------------------------------------------------------------
+    def build_table_refs(self, j: ast.Join) -> LogicalPlan:
+        if j.right is None:
+            return self._build_table_source(j.left)
+        left = (self.build_table_refs(j.left) if isinstance(j.left, ast.Join)
+                else self._build_table_source(j.left))
+        right = (self.build_table_refs(j.right) if isinstance(j.right, ast.Join)
+                 else self._build_table_source(j.right))
+        tp = j.tp
+        if tp == "right":
+            left, right = right, left
+            tp = JOIN_LEFT
+        elif tp == "cross":
+            tp = JOIN_INNER
+        join = LogicalJoin(tp, left, right)
+        conds: List[Expression] = []
+        if j.on is not None:
+            rw = ExprRewriter(join.schema, self)
+            conds = split_cnf(rw.rewrite(j.on))
+        for name in j.using:
+            lref = _find_in_schema(left.schema, ast.ColumnRef(name))
+            rref = _find_in_schema(right.schema, ast.ColumnRef(name))
+            if not lref or not rref:
+                raise UnknownColumn(name)
+            conds.append(new_function("=", [lref[0], rref[0]]))
+        self._classify_join_conds(join, conds)
+        return join
+
+    def _classify_join_conds(self, join: LogicalJoin,
+                             conds: List[Expression]) -> None:
+        """Split ON conjuncts into equi-keys / one-side filters / other
+        (reference: LogicalJoin.attachOnConds + extractOnCondition)."""
+        lsch, rsch = join.children[0].schema, join.children[1].schema
+        for c in conds:
+            cols = c.collect_columns()
+            from_left = any(lsch.contains(x) for x in cols)
+            from_right = any(rsch.contains(x) for x in cols)
+            if (getattr(c, "name", "") == "=" and from_left and from_right):
+                a, b = c.children()
+                acols, bcols = a.collect_columns(), b.collect_columns()
+                a_left = acols and all(lsch.contains(x) for x in acols)
+                b_right = bcols and all(rsch.contains(x) for x in bcols)
+                a_right = acols and all(rsch.contains(x) for x in acols)
+                b_left = bcols and all(lsch.contains(x) for x in bcols)
+                if a_left and b_right:
+                    join.eq_conditions.append((a, b))
+                    continue
+                if a_right and b_left:
+                    join.eq_conditions.append((b, a))
+                    continue
+            if from_left and not from_right:
+                join.left_conditions.append(c)
+            elif from_right and not from_left:
+                join.right_conditions.append(c)
+            else:
+                join.other_conditions.append(c)
+
+    def _build_table_source(self, src) -> LogicalPlan:
+        if isinstance(src, ast.Join):
+            return self.build_table_refs(src)
+        assert isinstance(src, ast.TableSource)
+        if isinstance(src.source, ast.SelectStmt):
+            sub = self.build_select(src.source)
+            # re-qualify output columns under the derived-table alias
+            cols = [c.renamed(table=src.as_name) for c in sub.schema.columns]
+            sub = LogicalProjection(list(sub.schema.columns), Schema(cols), sub)
+            return sub
+        tn: ast.TableName = src.source
+        db = tn.db or self.ctx.current_db
+        if not db:
+            raise PlanError("No database selected")
+        from ..catalog.memtables import is_memtable, memtable_columns
+        if is_memtable(db, tn.name):
+            from .logical import LogicalMemTable
+            alias = src.as_name or tn.name
+            cols = [Column(ft, name=name, table=alias, db=db)
+                    for name, ft in memtable_columns(tn.name)]
+            return LogicalMemTable(db, tn.name.lower(), cols)
+        tbl: TableInfo = self.ctx.infoschema().table_by_name(db, tn.name)
+        alias = src.as_name or tn.name
+        cols = []
+        for c in tbl.public_columns():
+            col = Column(c.ft, name=c.name, table=alias, db=db)
+            col.stats_col_id = c.id  # feeds histogram/CMS selectivity
+            cols.append(col)
+        ds = LogicalDataSource(db, tbl, alias, cols)
+        ds.storage = self.ctx.storage  # stats lookup at physical time
+        return ds
+
+    # ---- aggregation ------------------------------------------------------
+    def _build_aggregation(self, p: LogicalPlan, group_by: List[ast.ExprNode],
+                           agg_nodes: List[ast.AggFunc],
+                           fields: List[ast.SelectField]):
+        rw = ExprRewriter(p.schema, self)
+        # group-by items; `GROUP BY 1` = field ordinal; bare alias resolves
+        # against select fields (MySQL extension)
+        gb_exprs: List[Expression] = []
+        gb_ast: List[ast.ExprNode] = []
+        for g in group_by:
+            if isinstance(g, ast.Literal) and isinstance(g.value, int):
+                idx = g.value - 1
+                if not (0 <= idx < len(fields)) or fields[idx].expr is None:
+                    raise PlanError(f"Unknown column '{g.value}' in group statement")
+                g = fields[idx].expr
+            elif isinstance(g, ast.ColumnRef) and not g.table:
+                try:
+                    rw.resolve_column(g)
+                except UnknownColumn:
+                    for f in fields:
+                        if f.as_name and f.as_name.lower() == g.name.lower():
+                            g = f.expr
+                            break
+            gb_ast.append(g)
+            gb_exprs.append(fold_constants(rw.rewrite(g)))
+
+        # dedupe agg funcs by structural key
+        descs: List[AggFuncDesc] = []
+        desc_cols: List[Column] = []
+        agg_mapper: Dict[int, Column] = {}
+        by_key: Dict[str, Column] = {}
+        for node in agg_nodes:
+            args = [rw.rewrite(a) for a in node.args]
+            desc = AggFuncDesc(node.name, args, distinct=node.distinct)
+            key = f"{node.name}|{node.distinct}|" + ",".join(a.key() for a in args)
+            col = by_key.get(key)
+            if col is None:
+                col = Column(desc.ret_type, name=f"{node.name}#{len(descs)}")
+                by_key[key] = col
+                descs.append(desc)
+                desc_cols.append(col)
+            agg_mapper[id(node)] = col
+
+        # group-by outputs (referencable in SELECT/HAVING/ORDER BY)
+        gb_cols: Dict[str, Column] = {}
+        gb_out_cols: List[Column] = []
+        for g_ast, g_expr in zip(gb_ast, gb_exprs):
+            if isinstance(g_expr, Column):
+                out = g_expr
+            else:
+                out = Column(g_expr.ret_type, name=g_expr.key())
+            gb_cols[g_expr.key()] = out
+            gb_out_cols.append(out)
+
+        # non-aggregated select columns become first_row aggs (MySQL's
+        # non-ONLY_FULL_GROUP_BY behavior; reference adds FirstRow descs)
+        gb_keys = {e.key() for e in gb_exprs}
+        for f in fields:
+            if f.expr is None:
+                continue
+            for node in ast.walk_expr(f.expr):
+                if isinstance(node, ast.AggFunc):
+                    break
+            else:
+                e = rw.rewrite(f.expr)
+                for c in e.collect_columns():
+                    if c.key() in gb_keys:
+                        continue
+                    if any(c.unique_id == gc.unique_id for gc in gb_out_cols):
+                        continue
+                    if any(c.unique_id == dc.unique_id for dc in desc_cols):
+                        continue
+                    # first_row passthrough keeps the same column identity
+                    descs.append(AggFuncDesc(AGG_FIRST_ROW, [c]))
+                    desc_cols.append(c)
+
+        schema = Schema(desc_cols + [c for c in gb_out_cols
+                                     if not any(c.unique_id == d.unique_id
+                                                for d in desc_cols)])
+        agg = LogicalAggregation(gb_exprs, descs, schema, p)
+        # stash output binding: executor emits desc outputs then gb outputs
+        agg.output_cols = desc_cols
+        agg.gb_out_cols = gb_out_cols
+        return agg, agg_mapper, gb_cols
+
+    def _build_distinct(self, p: LogicalProjection) -> LogicalPlan:
+        """SELECT DISTINCT -> group by all output columns (reference:
+        buildDistinct)."""
+        gb = list(p.schema.columns)
+        descs = [AggFuncDesc(AGG_FIRST_ROW, [c]) for c in gb]
+        agg = LogicalAggregation(list(gb), descs, Schema(list(gb)), p)
+        agg.output_cols = list(gb)
+        agg.gb_out_cols = list(gb)
+        return agg
+
+    def _alias_schema(self, fields, p, agg_mapper) -> Schema:
+        cols = []
+        for f in fields:
+            if f.as_name and f.expr is not None:
+                try:
+                    rw = ExprRewriter(p.schema, self, agg_mapper)
+                    e = rw.rewrite(f.expr)
+                except PlanError:
+                    continue
+                if isinstance(e, Column):
+                    cols.append(e.renamed(name=f.as_name, table=""))
+        return Schema(cols)
+
+    # ---- order by ---------------------------------------------------------
+    def _build_sort(self, p: LogicalPlan,
+                    order_by: List[Tuple[ast.ExprNode, bool]],
+                    fields: List[ast.SelectField],
+                    agg_mapper: Dict[int, Column],
+                    gb_cols: Dict[str, Column]):
+        """ORDER BY resolves against select aliases first, then the
+        projection input; expressions not in the projection get appended as
+        hidden columns (trimmed by the caller)."""
+        proj: LogicalProjection = p if isinstance(p, LogicalProjection) else None
+        items: List[Tuple[Expression, bool]] = []
+        extra = 0
+        for e_ast, desc in order_by:
+            e = self._resolve_order_item(e_ast, p, fields, agg_mapper)
+            if e is None:
+                # not available in current output: compute beneath, append
+                if proj is None:
+                    raise UnknownColumn(str(e_ast))
+                rw = ExprRewriter(proj.child(0).schema, self, agg_mapper)
+                inner = rw.rewrite(e_ast)
+                hidden = Column(inner.ret_type, name=f"_order_{extra}")
+                proj.exprs.append(inner)
+                proj.schema = Schema(proj.schema.columns + [hidden])
+                p.schema = proj.schema
+                e = hidden
+                extra += 1
+            items.append((e, desc))
+        return LogicalSort(items, p), extra
+
+    def _resolve_order_item(self, e_ast, p, fields, agg_mapper):
+        # ordinal
+        if isinstance(e_ast, ast.Literal) and isinstance(e_ast.value, int):
+            idx = e_ast.value - 1
+            if 0 <= idx < len(p.schema.columns):
+                return p.schema.columns[idx]
+            raise PlanError(f"Unknown column '{e_ast.value}' in order clause")
+        try:
+            rw = ExprRewriter(p.schema, self, agg_mapper)
+            return rw.rewrite(e_ast)
+        except PlanError:
+            return None

@@ -1,0 +1,257 @@
+"""EXPLAIN / EXPLAIN ANALYZE text rendering (reference:
+planner/core/explain.go + stringer; common_plans.go Explain with
+RuntimeStats for the ANALYZE columns)."""
+from __future__ import annotations
+
+import hashlib
+import re
+from typing import List, Optional
+
+from .physical import (PhysicalHashAgg, PhysicalHashJoin,
+                       PhysicalIndexLookUpReader, PhysicalIndexReader,
+                       PhysicalLimit, PhysicalPlan, PhysicalProjection,
+                       PhysicalSelection, PhysicalSort, PhysicalTableDual,
+                       PhysicalTableReader, PhysicalTopN)
+
+
+def _ranges_str(ranges) -> str:
+    if ranges is None:
+        return "full"
+    return f"{len(ranges)} range" + ("s" if len(ranges) != 1 else "")
+
+
+def _info(p: PhysicalPlan) -> str:
+    if isinstance(p, PhysicalTableReader):
+        s = p.scan
+        filt = f", filters:{len(s.filters)}" if s.filters else ""
+        push = ""
+        if s.pushed_agg is not None:
+            push = f", cop_agg:{len(s.pushed_agg['aggs'])}"
+        elif s.pushed_topn is not None:
+            push = f", cop_topn:{s.pushed_topn['n']}"
+        elif s.pushed_limit is not None:
+            push = f", cop_limit:{s.pushed_limit}"
+        ko = "true" if getattr(s, "keep_order", False) else "false"
+        return (f"table:{s.alias}, ranges:{_ranges_str(s.ranges)}, "
+                f"keep order:{ko}{filt}{push}")
+    if isinstance(p, PhysicalIndexReader):
+        s = p.scan
+        filt = f", filters:{len(s.filters)}" if s.filters else ""
+        ko = ", keep order:true" if getattr(s, "keep_order", False) else ""
+        return (f"table:{s.alias}, index:{s.index.name}, covering, "
+                f"ranges:{_ranges_str(s.ranges)}{ko}{filt}")
+    if isinstance(p, PhysicalIndexLookUpReader):
+        s = p.index_scan
+        filt = (f", filters:{len(p.table_scan.filters)}"
+                if p.table_scan.filters else "")
+        return (f"table:{s.alias}, index:{s.index.name}, "
+                f"ranges:{_ranges_str(s.ranges)}{filt}")
+    if isinstance(p, PhysicalSelection):
+        return ", ".join(c.key() for c in p.conditions)
+    if isinstance(p, PhysicalProjection):
+        return ", ".join(e.key() for e in p.exprs)
+    if isinstance(p, PhysicalHashAgg):
+        gb = ",".join(e.key() for e in p.group_by) or "-"
+        aggs = ",".join(f"{d.name}({','.join(a.key() for a in d.args)})"
+                        for d in p.aggs)
+        return f"group by:{gb}, funcs:{aggs}"
+    if isinstance(p, PhysicalHashJoin):
+        keys = ",".join(f"{l.key()}={r.key()}" for l, r in
+                        zip(p.left_keys, p.right_keys)) or "CARTESIAN"
+        mesh = getattr(p, "mesh_strategy", None)
+        mesh = f", mesh:{mesh}" if mesh else ""
+        na = ", null-aware" if getattr(p, "null_aware", False) else ""
+        return f"{p.tp} join, equal:[{keys}]{mesh}{na}"
+    if isinstance(p, (PhysicalSort, PhysicalTopN)):
+        by = ",".join(f"{e.key()}{' desc' if d else ''}" for e, d in p.by)
+        extra = (f", offset:{p.offset}, count:{p.count}"
+                 if isinstance(p, PhysicalTopN) else "")
+        return by + extra
+    if isinstance(p, PhysicalLimit):
+        return f"offset:{p.offset}, count:{p.count}"
+    if isinstance(p, PhysicalTableDual):
+        return f"rows:{p.row_count}"
+    return ""
+
+
+def _task(p: PhysicalPlan) -> str:
+    if isinstance(p, PhysicalTableReader):
+        return "root"
+    if getattr(p, "use_tpu", False):
+        return "tpu"
+    return "root"
+
+
+def _est_rows(p: PhysicalPlan) -> str:
+    """Row estimate column (reference explain format: id, estRows, task,
+    operator info); blank ONLY when the node carries no estimate at all —
+    a genuine 0-row estimate renders 0.00 like the reference."""
+    r = getattr(p, "stats_row_count", None)
+    if r is None or (r == 0.0 and not getattr(p, "has_estimate", False)):
+        # nodes never costed leave stats_row_count at the 0.0 default;
+        # costed nodes mark has_estimate so real zeros still render
+        return ""
+    return f"{r:.2f}"
+
+
+def explain_text(p: PhysicalPlan, depth: int = 0,
+                 out: List[list] = None) -> List[list]:
+    if out is None:
+        out = []
+    name = p.op_name()
+    if getattr(p, "use_tpu", False):
+        name += "(TPU)"
+    out.append(["  " * depth + name, _est_rows(p), _task(p), _info(p)])
+    children = list(p.children)
+    if isinstance(p, PhysicalTableReader):
+        out.append(["  " * (depth + 1) + "TableScan",
+                    _est_rows(p.scan) or _est_rows(p), "cop",
+                    f"table:{p.scan.alias}"])
+    for c in children:
+        explain_text(c, depth + 1, out)
+    return out
+
+
+_COL_ID_RE = re.compile(r"col#(\d+)")
+
+
+def plan_digest(p: PhysicalPlan) -> str:
+    """Stable digest of the plan SHAPE (operator tree + operator info,
+    estimates excluded so stats drift keeps the digest) — the join key
+    across the slow log, the feedback file, and
+    ``information_schema.statements_summary`` (reference: plan digest in
+    the slow log).
+
+    Column references render as ``col#<unique_id>`` from a PROCESS-GLOBAL
+    allocator, so re-planning the identical statement produces fresh ids;
+    they are canonicalized to first-seen order here — without this, no
+    two executions ever shared a digest and every digest join was
+    silently empty."""
+    parts: List[str] = []
+
+    def walk(n, depth):
+        parts.append(f"{depth}:{n.op_name()}"
+                     f":{int(bool(getattr(n, 'use_tpu', False)))}"
+                     f":{_info(n)}")
+        for c in n.children:
+            walk(c, depth + 1)
+
+    walk(p, 0)
+    text = "|".join(parts)
+    seen: dict = {}
+
+    def canon(m):
+        uid = m.group(1)
+        if uid not in seen:
+            seen[uid] = len(seen)
+        return f"col#{seen[uid]}"
+
+    text = _COL_ID_RE.sub(canon, text)
+    return hashlib.sha1(text.encode()).hexdigest()[:16]
+
+
+# ---- EXPLAIN ANALYZE -----------------------------------------------------
+
+EXPLAIN_ANALYZE_COLUMNS = ("id", "estRows", "actRows", "task",
+                           "execution info", "device info",
+                           "operator info")
+
+
+def _fmt_bytes(n: float) -> str:
+    n = float(n)
+    for unit in ("B", "KB", "MB", "GB"):
+        if n < 1024 or unit == "GB":
+            if unit == "B":
+                # integer byte counts render bare; the occupancy-weighted
+                # fractional shares a stacked member carries (its 1/B
+                # slice of the round's h2d/d2h bytes) keep two decimals —
+                # int() truncation rendered a 170.67B share as 170B and
+                # broke the shares-sum-to-round-total readback
+                return (f"{int(n)}B" if n.is_integer()
+                        else f"{n:.2f}B")
+            return f"{n:.1f}{unit}"
+        n /= 1024.0
+    return f"{n:.1f}GB"
+
+
+def _exec_info(st) -> str:
+    return (f"time:{st.wall_s * 1e3:.1f}ms, open:{st.open_s * 1e3:.1f}ms, "
+            f"loops:{st.loops}")
+
+
+def _fmt_count(v) -> str:
+    """Counter cell: integers render bare; the occupancy-weighted
+    FRACTIONAL shares a stacked batch member carries (its 1/B slice of
+    the round's one dispatch — ops/batching.py) keep two decimals
+    instead of truncating to a misleading 0."""
+    f = float(v)
+    return str(int(f)) if f.is_integer() else f"{f:.2f}"
+
+
+def _device_info(st) -> str:
+    """Device-economics cell: program dispatches, packed D2H transfers/
+    bytes, program-cache hits/misses, and the pipeline stage/dispatch/
+    drain/overlap accounting — only the families that actually fired."""
+    d = st.device
+    parts = []
+    if d.get("dispatches"):
+        parts.append(f"dispatches:{_fmt_count(d['dispatches'])}")
+    if d.get("device_s"):
+        # MEASURED device busy time (sampling profiler,
+        # tidb_device_profile_rate) — distinct from the host wall in
+        # execution info, which on a real device times the async submit
+        parts.append(f"device:{d['device_s'] * 1e3:.1f}ms"
+                     f"/{_fmt_count(d.get('profiled_dispatches', 0))}smp")
+    if d.get("compile_s"):
+        parts.append(f"compile:{d['compile_s'] * 1e3:.1f}ms")
+    if d.get("d2h_transfers"):
+        parts.append(f"d2h:{_fmt_count(d['d2h_transfers'])}/"
+                     f"{_fmt_bytes(d.get('d2h_bytes', 0))}")
+    if d.get("h2d_transfers"):
+        parts.append(f"h2d:{_fmt_count(d['h2d_transfers'])}/"
+                     f"{_fmt_bytes(d.get('h2d_bytes', 0))}")
+    hits, misses = d.get("progcache_hits", 0), d.get("progcache_misses", 0)
+    if hits or misses:
+        parts.append(f"cache:{int(hits)}h/{int(misses)}m")
+    if d.get("pipe_blocks"):
+        from ..ops.kernels import pipe_overlap_frac
+        overlap = pipe_overlap_frac(d)
+        parts.append(f"pipe:{int(d['pipe_blocks'])}blk"
+                     f"/stage:{d.get('pipe_stage_s', 0.0) * 1e3:.1f}ms"
+                     f"/drain:{d.get('pipe_drain_s', 0.0) * 1e3:.1f}ms"
+                     f"/overlap:{overlap:.2f}")
+    if d.get("spill_bytes"):
+        sp = (f"spill:{int(d.get('spill_partitions', 0))}p"
+              f"/{_fmt_bytes(d['spill_bytes'])}"
+              f"/reload:{_fmt_bytes(d.get('spill_reload_bytes', 0))}")
+        if d.get("spill_repartitions"):
+            sp += f"/repart:{int(d['spill_repartitions'])}"
+        parts.append(sp)
+    return ", ".join(parts)
+
+
+def explain_analyze_text(p: PhysicalPlan, qobs, depth: int = 0,
+                         out: Optional[List[list]] = None) -> List[list]:
+    """The four EXPLAIN columns plus actRows / execution info / device
+    info from the per-operator RuntimeStats collected while the
+    statement ran (``qobs`` = the statement's obs scope; operators the
+    executor tree never built — e.g. inside a fused devpipe program —
+    render with blank analyze cells)."""
+    if out is None:
+        out = []
+    name = p.op_name()
+    if getattr(p, "use_tpu", False):
+        name += "(TPU)"
+    st = qobs.op_stats_for(p) if qobs is not None else None
+    act = str(st.act_rows) if st is not None else ""
+    einfo = _exec_info(st) if st is not None else ""
+    dinfo = _device_info(st) if st is not None else ""
+    out.append(["  " * depth + name, _est_rows(p), act, _task(p),
+                einfo, dinfo, _info(p)])
+    if isinstance(p, PhysicalTableReader):
+        out.append(["  " * (depth + 1) + "TableScan",
+                    _est_rows(p.scan) or _est_rows(p), "", "cop", "", "",
+                    f"table:{p.scan.alias}"])
+    for c in p.children:
+        explain_analyze_text(c, qobs, depth + 1, out)
+    return out

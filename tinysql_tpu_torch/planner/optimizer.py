@@ -1,0 +1,543 @@
+"""Logical optimization rules + logical->physical conversion.
+
+Capability parity with reference planner/core/optimizer.go:44-55 (the
+fixed-order rule list) — this module carries predicate pushdown
+(rule_predicate_push_down.go), column pruning (rule_column_pruning.go), and
+TopN pushdown (rule_topn_push_down.go); further rules (agg pushdown, join
+reorder, max/min elimination) land in rules.py as the planner widens.
+Physical conversion binds every expression to child schema offsets
+(reference: resolve_indices.go).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Set, Tuple
+
+from ..expression import (AggFuncDesc, Column, Constant, Expression, Schema,
+                          new_function, substitute_column)
+from .builder import HANDLE_COL_NAME, PlanError
+from .logical import (JOIN_ANTI, JOIN_INNER, JOIN_LEFT, JOIN_SEMI,
+                      LogicalAggregation, LogicalDataSource, LogicalJoin,
+                      LogicalLimit, LogicalPlan, LogicalProjection,
+                      LogicalSelection, LogicalSort, LogicalTableDual,
+                      LogicalTopN)
+from .physical import (PhysicalHashAgg, PhysicalHashJoin, PhysicalLimit,
+                       PhysicalMergeJoin, PhysicalPlan, PhysicalProjection,
+                       PhysicalSelection, PhysicalSort, PhysicalTableDual,
+                       PhysicalTableReader, PhysicalTableScan, PhysicalTopN)
+
+
+# ===== predicate pushdown ===================================================
+
+def predicate_pushdown(p: LogicalPlan,
+                       conds: List[Expression]) -> Tuple[List[Expression], LogicalPlan]:
+    """Push `conds` (from parents) into p; returns (retained, new plan)
+    (reference: rule_predicate_push_down.go PredicatePushDown)."""
+    if isinstance(p, LogicalSelection):
+        child_conds = conds + p.conditions
+        retained, child = predicate_pushdown(p.child(0), child_conds)
+        if retained:
+            return [], LogicalSelection(retained, child)
+        return [], child
+
+    if isinstance(p, LogicalDataSource):
+        p.pushed_conds.extend(conds)
+        p.all_conds = list(p.pushed_conds)
+        return [], p
+
+    if isinstance(p, LogicalProjection):
+        pushable, retained = [], []
+        for c in conds:
+            cols = c.collect_columns()
+            if all(p.schema.column_index(x) >= 0 for x in cols):
+                pushable.append(substitute_column(c, p.schema, p.exprs))
+            else:
+                retained.append(c)
+        r2, child = predicate_pushdown(p.child(0), pushable)
+        p.children[0] = (LogicalSelection(r2, child) if r2 else child)
+        return retained, p
+
+    if isinstance(p, LogicalJoin):
+        from .joinconds import classify_conjuncts
+        lsch, rsch = p.children[0].schema, p.children[1].schema
+        new_eq, lp, rp, other, retained = classify_conjuncts(
+            conds, lsch, rsch, p.tp)
+        p.eq_conditions.extend(new_eq)
+        p.other_conditions.extend(other)
+        if p.tp in (JOIN_INNER, JOIN_SEMI, JOIN_ANTI):
+            # semi/anti joins FILTER the left side: a cond on left
+            # columns commutes below exactly like through an inner join
+            left_push = list(p.left_conditions) + lp
+            p.left_conditions = []
+        else:
+            # Outer join: ON-clause outer-side conditions stay attached to
+            # the join — they decide MATCHING, not row survival; a failing
+            # outer row must null-extend, not disappear (reference:
+            # rule_predicate_push_down.go LeftOuterJoin keeps LeftConditions
+            # on the join and the joiner null-extends on miss).  WHERE-side
+            # conds (lp) still push below the outer child.
+            left_push = lp
+        right_push = list(p.right_conditions) + rp
+        p.right_conditions = []
+        r1, lc = predicate_pushdown(p.children[0], left_push)
+        r2, rc = predicate_pushdown(p.children[1], right_push)
+        p.children[0] = LogicalSelection(r1, lc) if r1 else lc
+        p.children[1] = LogicalSelection(r2, rc) if r2 else rc
+        return retained, p
+
+    if isinstance(p, LogicalAggregation):
+        gb_uids = {c.unique_id for e in p.group_by
+                   for c in ([e] if isinstance(e, Column) else [])}
+        push, retained = [], []
+        for c in conds:
+            cols = c.collect_columns()
+            if cols and all(x.unique_id in gb_uids for x in cols):
+                push.append(c)
+            else:
+                retained.append(c)
+        r, child = predicate_pushdown(p.child(0), push)
+        p.children[0] = LogicalSelection(r, child) if r else child
+        return retained, p
+
+    if isinstance(p, (LogicalSort, LogicalTopN)):
+        r, child = predicate_pushdown(p.child(0), conds)
+        p.children[0] = LogicalSelection(r, child) if r else child
+        return [], p
+
+    if isinstance(p, (LogicalLimit, LogicalTableDual)):
+        for i, c in enumerate(p.children):
+            r, nc = predicate_pushdown(c, [])
+            p.children[i] = LogicalSelection(r, nc) if r else nc
+        return conds, p
+
+    # default: stop pushing
+    for i, c in enumerate(p.children):
+        r, nc = predicate_pushdown(c, [])
+        p.children[i] = LogicalSelection(r, nc) if r else nc
+    return conds, p
+
+
+# ===== column pruning =======================================================
+
+def _cols_of(exprs) -> Set[int]:
+    out: Set[int] = set()
+    for e in exprs:
+        for c in e.collect_columns():
+            out.add(c.unique_id)
+    return out
+
+
+def column_pruning(p: LogicalPlan, needed: Set[int]) -> None:
+    """reference: rule_column_pruning.go PruneColumns."""
+    if isinstance(p, LogicalProjection):
+        keep = [i for i, c in enumerate(p.schema.columns)
+                if c.unique_id in needed]
+        if not keep:
+            keep = [0]
+        p.exprs = [p.exprs[i] for i in keep]
+        p.schema = Schema([p.schema.columns[i] for i in keep])
+        column_pruning(p.child(0), _cols_of(p.exprs))
+        return
+    if isinstance(p, LogicalSelection):
+        column_pruning(p.child(0), needed | _cols_of(p.conditions))
+        p.schema = p.child(0).schema
+        return
+    if isinstance(p, (LogicalSort, LogicalTopN)):
+        column_pruning(p.child(0), needed | _cols_of(e for e, _ in p.by))
+        p.schema = p.child(0).schema
+        return
+    if isinstance(p, LogicalLimit):
+        column_pruning(p.child(0), needed)
+        p.schema = p.child(0).schema
+        return
+    if isinstance(p, LogicalAggregation):
+        keep_idx = [i for i, c in enumerate(p.output_cols)
+                    if c.unique_id in needed]
+        gb_needed = {c.unique_id for c in getattr(p, "gb_out_cols", [])
+                     if c.unique_id in needed}
+        if not keep_idx and not gb_needed and p.agg_funcs:
+            keep_idx = [0]
+        p.agg_funcs = [p.agg_funcs[i] for i in keep_idx]
+        p.output_cols = [p.output_cols[i] for i in keep_idx]
+        new_schema = [c for c in p.schema.columns
+                      if c.unique_id in needed
+                      or any(c.unique_id == oc.unique_id for oc in p.output_cols)]
+        if new_schema:
+            p.schema = Schema(new_schema)
+        child_needed = set()
+        for d in p.agg_funcs:
+            child_needed |= _cols_of(d.args)
+        child_needed |= _cols_of(p.group_by)
+        column_pruning(p.child(0), child_needed)
+        return
+    if isinstance(p, LogicalJoin):
+        used = set(needed)
+        for a, b in p.eq_conditions:
+            used |= _cols_of([a, b])
+        used |= _cols_of(p.other_conditions)
+        used |= _cols_of(p.left_conditions) | _cols_of(p.right_conditions)
+        column_pruning(p.children[0], used)
+        column_pruning(p.children[1], used)
+        if p.tp in (JOIN_SEMI, JOIN_ANTI):
+            # semi/anti joins emit LEFT rows only; the right side kept
+            # just its equi/other condition columns
+            p.schema = Schema(list(p.children[0].schema.columns))
+        else:
+            p.schema = p.children[0].schema.merge(p.children[1].schema)
+        return
+    if isinstance(p, LogicalDataSource):
+        used = needed | _cols_of(p.pushed_conds)
+        cols = [c for c in p.schema.columns if c.unique_id in used]
+        if not cols:
+            cols = [p.schema.columns[0]]
+        p.schema = Schema(cols)
+        return
+    if isinstance(p, LogicalTableDual):
+        p.schema = Schema([c for c in p.schema.columns if c.unique_id in needed])
+        return
+    for c in p.children:
+        column_pruning(c, needed)
+
+
+# ===== topn pushdown ========================================================
+
+def topn_pushdown(p: LogicalPlan) -> LogicalPlan:
+    """Limit(Sort) -> TopN; TopN pushes through Projection
+    (reference: rule_topn_push_down.go)."""
+    if isinstance(p, LogicalLimit) and isinstance(p.child(0), LogicalSort):
+        s = p.child(0)
+        t = LogicalTopN(s.by, p.offset, p.count, s.child(0))
+        t.schema = s.schema
+        return topn_pushdown(t)
+    if isinstance(p, LogicalTopN) and isinstance(p.child(0), LogicalProjection):
+        proj: LogicalProjection = p.child(0)
+        cols = [c for e, _ in p.by for c in e.collect_columns()]
+        if all(proj.schema.column_index(c) >= 0 for c in cols):
+            new_by = [(substitute_column(e, proj.schema, proj.exprs), d)
+                      for e, d in p.by]
+            t = LogicalTopN(new_by, p.offset, p.count, proj.child(0))
+            t.schema = proj.child(0).schema
+            proj.children[0] = topn_pushdown(t)
+            return proj
+    p.children = [topn_pushdown(c) for c in p.children]
+    return p
+
+
+# ===== logical -> physical ==================================================
+
+def _bind(exprs: List[Expression], schema: Schema) -> List[Expression]:
+    return [e.resolve_indices(schema) for e in exprs]
+
+
+def _merge_join_ok(p: LogicalJoin, left_phys: PhysicalPlan,
+                   right_phys: PhysicalPlan) -> bool:
+    """Merge join needs key-ordered inputs: decided on the BUILT
+    children via the order-property framework — any plan that PROVIDES
+    the key order qualifies (clustered-pk table read, covering index
+    read, ...), replacing the old ad-hoc pk-reader gate (reference:
+    exhaust_physical_plans.go merge-join candidates require matching
+    sort properties of the child task)."""
+    if p.tp not in (JOIN_INNER, JOIN_LEFT) or len(p.eq_conditions) != 1:
+        return False
+    a, b = p.eq_conditions[0]
+    if not (isinstance(a, Column) and isinstance(b, Column)):
+        return False
+    from .props import provided_order, satisfies
+    return (satisfies(provided_order(left_phys), [(a.unique_id, False)])
+            and satisfies(provided_order(right_phys),
+                          [(b.unique_id, False)]))
+
+
+def _unique_on(side: LogicalPlan, key_uids: Set[int], n_keys: int) -> bool:
+    """Is the join-key tuple UNIQUE among `side`'s output rows?  True for
+    a clustered-pk datasource keyed by its pk, an aggregation whose group
+    keys all sit inside the join keys, row-filtering operators over such,
+    and inner joins that preserve one side's multiplicity (the OTHER side
+    is unique on its own join keys)."""
+    if len(key_uids) != n_keys or not key_uids:
+        return False  # non-column keys or no equi keys
+    if isinstance(side, LogicalAggregation):
+        gb = side.group_by
+        return (bool(gb) and all(isinstance(e, Column) for e in gb)
+                and {e.unique_id for e in gb} <= key_uids)
+    if isinstance(side, LogicalDataSource):
+        key_names = {sc.name.lower() for sc in side.schema.columns
+                     if sc.unique_id in key_uids}
+        if len(key_names) != n_keys:
+            return False
+        pk = side.table_info.get_pk_handle_col()
+        if pk is not None and pk.name.lower() in key_names:
+            return True
+        # a UNIQUE index whose columns are all join keys makes the key
+        # tuple unique among MATCHABLE rows (rows with a NULL key never
+        # equi-match, so nullable unique duplicates are irrelevant here)
+        for idx in side.table_info.public_indices():
+            if not idx.unique:
+                continue
+            if {c.name.lower() for c in idx.columns} <= key_names:
+                return True
+        return False
+    if isinstance(side, (LogicalSelection, LogicalSort, LogicalTopN,
+                         LogicalLimit)):
+        return _unique_on(side.child(0), key_uids, n_keys)
+    if isinstance(side, LogicalProjection):
+        # identity columns pass through; expression outputs don't
+        ident = {e.unique_id for e in side.exprs if isinstance(e, Column)}
+        if not key_uids <= ident:
+            return False
+        return _unique_on(side.child(0), key_uids, n_keys)
+    if isinstance(side, LogicalJoin) and side.tp in (JOIN_SEMI, JOIN_ANTI):
+        # a semi/anti join never duplicates left rows: uniqueness of the
+        # left child survives
+        return _unique_on(side.children[0], key_uids, n_keys)
+    if isinstance(side, LogicalJoin) and side.tp == JOIN_INNER \
+            and side.eq_conditions:
+        lsch, rsch = side.children[0].schema, side.children[1].schema
+        lk = {a.unique_id for a, _ in side.eq_conditions
+              if isinstance(a, Column)}
+        rk = {b.unique_id for _, b in side.eq_conditions
+              if isinstance(b, Column)}
+        nk = len(side.eq_conditions)
+        if all(any(c.unique_id == u for c in rsch.columns)
+               for u in key_uids):
+            # keys from the right child: unique there AND the left child
+            # matches each right row at most once
+            return (_unique_on(side.children[1], key_uids, n_keys)
+                    and _unique_on(side.children[0], lk, nk))
+        if all(any(c.unique_id == u for c in lsch.columns)
+               for u in key_uids):
+            return (_unique_on(side.children[0], key_uids, n_keys)
+                    and _unique_on(side.children[1], rk, nk))
+    return False
+
+
+# ---- physical construction helpers (shared implementation rules) ---------
+# Both optimizer frameworks build physical operators through these — the
+# System-R tail calls them from to_physical, the cascades implementation
+# phase calls them per memo group with its own child winners (reference:
+# implementation_rules.go builds the same physical ops both ways).
+
+def phys_selection(p: LogicalSelection, child: PhysicalPlan) -> PhysicalPlan:
+    return PhysicalSelection(_bind(p.conditions, child.schema), child)
+
+
+def phys_projection(p: LogicalProjection, child: PhysicalPlan) -> PhysicalPlan:
+    return PhysicalProjection(_bind(p.exprs, child.schema), p.schema, child)
+
+
+def phys_aggregation(p: LogicalAggregation,
+                     child: PhysicalPlan) -> PhysicalPlan:
+    gb = _bind(p.group_by, child.schema)
+    aggs = []
+    for d in p.agg_funcs:
+        d2 = d.clone()
+        d2.args = _bind(d.args, child.schema)
+        aggs.append(d2)
+    # map each schema column to ('agg', i) or ('gb', i)
+    output_map: List[Tuple[str, int]] = []
+    for c in p.schema.columns:
+        for i, oc in enumerate(getattr(p, "output_cols", [])):
+            if oc.unique_id == c.unique_id:
+                output_map.append(("agg", i))
+                break
+        else:
+            for i, gc in enumerate(getattr(p, "gb_out_cols", [])):
+                if gc.unique_id == c.unique_id:
+                    output_map.append(("gb", i))
+                    break
+            else:
+                raise PlanError(f"agg schema column {c!r} unmapped")
+    agg = PhysicalHashAgg(gb, aggs, p.schema, child, [])
+    agg.output_map = output_map
+    return agg
+
+
+def phys_join(p: LogicalJoin, left: PhysicalPlan, right: PhysicalPlan,
+              cls=PhysicalHashJoin) -> PhysicalPlan:
+    # semi/anti joins emit the left child's rows VERBATIM: the physical
+    # schema must be the BUILT left child's (join_reorder may have
+    # rebuilt that subtree after the logical schema was captured)
+    schema = Schema(list(left.schema.columns)) \
+        if p.tp in (JOIN_SEMI, JOIN_ANTI) else p.schema
+    join = cls(p.tp, left, right, schema)
+    join.left_keys = _bind([a for a, _ in p.eq_conditions], left.schema)
+    join.right_keys = _bind([b for _, b in p.eq_conditions], right.schema)
+    # key-uniqueness per side (reference: schema key info feeding the
+    # join executors): unlocks the expansion-free unique-build probe
+    join.left_unique = _unique_on(
+        p.children[0], {a.unique_id for a, _ in p.eq_conditions
+                        if isinstance(a, Column)},
+        len(p.eq_conditions))
+    join.right_unique = _unique_on(
+        p.children[1], {b.unique_id for _, b in p.eq_conditions
+                        if isinstance(b, Column)},
+        len(p.eq_conditions))
+    # other conds see BOTH sides even when the join's output schema is
+    # left-only (semi/anti): the executors evaluate them on candidate
+    # (probe row, build row) pairs
+    join.other_conditions = _bind(p.other_conditions,
+                                  left.schema.merge(right.schema))
+    # leftover one-side conds (outer joins keep them at the join)
+    join.left_conditions = _bind(p.left_conditions, left.schema)
+    join.right_conditions = _bind(p.right_conditions, right.schema)
+    join.null_aware = getattr(p, "null_aware", False)
+    return join
+
+
+def phys_datasource(p: LogicalDataSource, order_hint=None) -> PhysicalPlan:
+    with_handle = any(c.name == HANDLE_COL_NAME for c in p.schema.columns)
+    from .access import build_reader
+    stats = None
+    storage = getattr(p, "storage", None)
+    if storage is not None:
+        from ..statistics.table_stats import load_stats
+        stats = load_stats(storage, p.table_info.id)
+    return build_reader(p, stats, with_handle, order_hint)
+
+
+def to_physical(p: LogicalPlan,
+                order_hint=None) -> PhysicalPlan:
+    """`order_hint`: the sort property a parent Sort/TopN requires —
+    threaded through row-order-preserving operators down to the reader so
+    the access-path choice is ORDER-AWARE (reference: findBestTask over a
+    required PhysicalProperty; enforcer_rules.go adds the Sort only when
+    the child can't provide it)."""
+    if isinstance(p, LogicalDataSource):
+        return phys_datasource(p, order_hint)
+    if isinstance(p, LogicalSelection):
+        child = to_physical(p.child(0), order_hint)
+        return phys_selection(p, child)
+    if isinstance(p, LogicalProjection):
+        # projections forward the hint when the ordered columns are
+        # identity outputs (their source order survives)
+        hint = None
+        if order_hint:
+            ident = {e.unique_id for e in p.exprs if isinstance(e, Column)}
+            if all(uid in ident for uid, _ in order_hint):
+                hint = order_hint
+        child = to_physical(p.child(0), hint)
+        return phys_projection(p, child)
+    if isinstance(p, LogicalAggregation):
+        return phys_aggregation(p, to_physical(p.child(0)))
+    if isinstance(p, LogicalJoin):
+        left = to_physical(p.children[0])
+        right = to_physical(p.children[1])
+        merge_ok = _merge_join_ok(p, left, right)
+        if merge_ok:
+            from .props import mark_keep_order
+            mark_keep_order(left)
+            mark_keep_order(right)
+        cls = PhysicalMergeJoin if merge_ok else PhysicalHashJoin
+        return phys_join(p, left, right, cls)
+    if isinstance(p, LogicalSort):
+        from .props import (mark_keep_order, provided_order, required_of,
+                            satisfies)
+        req = required_of(p.by)
+        child = to_physical(p.child(0), req)
+        if satisfies(provided_order(child), req):
+            mark_keep_order(child)
+            return child  # Sort eliminated: the reader provides the order
+        by = [(e.resolve_indices(child.schema), d) for e, d in p.by]
+        return PhysicalSort(by, child)
+    if isinstance(p, LogicalTopN):
+        from .props import (mark_keep_order, provided_order, required_of,
+                            satisfies)
+        req = required_of(p.by)
+        child = to_physical(p.child(0), req)
+        if satisfies(provided_order(child), req):
+            # ordered input: TopN degenerates to Limit (the cascades :800
+            # course stub's TopN->index rewrite, done via properties)
+            mark_keep_order(child)
+            return PhysicalLimit(p.offset, p.count, child)
+        by = [(e.resolve_indices(child.schema), d) for e, d in p.by]
+        return PhysicalTopN(by, p.offset, p.count, child)
+    if isinstance(p, LogicalLimit):
+        return PhysicalLimit(p.offset, p.count, to_physical(p.child(0)))
+    if isinstance(p, LogicalTableDual):
+        return PhysicalTableDual(p.schema, p.row_count)
+    from .logical import LogicalMemTable
+    if isinstance(p, LogicalMemTable):
+        from .physical import PhysicalMemTable
+        return PhysicalMemTable(p.table, p.schema)
+    raise PlanError(f"no physical mapping for {type(p).__name__}")
+
+
+def _ds_row_count(ds) -> float:
+    storage = getattr(ds, "storage", None)
+    if storage is None:
+        return 0.0
+    from ..statistics.table_stats import load_stats
+    s = load_stats(storage, ds.table_info.id)
+    return float(s.row_count) if s else 0.0
+
+
+def _propagate_constants_in_plan(p: LogicalPlan) -> None:
+    """Constant propagation across equalities in every CNF condition
+    list (reference: expression/constant_propagation.go, run as part of
+    the logical rewrite list): selections and join residuals get
+    `col = const` bindings substituted into sibling conjuncts so later
+    rules (pushdown, ranger) see the derived constants."""
+    from ..expression import propagate_constants
+    for c in p.children:
+        _propagate_constants_in_plan(c)
+    if isinstance(p, LogicalSelection):
+        p.conditions = propagate_constants(p.conditions)
+    elif isinstance(p, LogicalJoin) and p.other_conditions:
+        p.other_conditions = propagate_constants(p.other_conditions)
+
+
+def normalize_logical(logical: LogicalPlan,
+                      push_predicates: bool = True) -> LogicalPlan:
+    """The fixed-order logical rewrite list (reference:
+    planner/core/optimizer.go:44-55), shared by BOTH optimizer frameworks
+    so their normalization can never drift.  The cascades pipeline skips
+    predicate pushdown (its transformation rules own that)."""
+    from .rules_extra import (eliminate_aggregation, eliminate_max_min,
+                              eliminate_outer_joins, eliminate_projections,
+                              join_reorder, push_agg_through_join,
+                              push_semi_joins_down)
+    root_needed = {c.unique_id for c in logical.schema.columns}
+    _propagate_constants_in_plan(logical)
+    logical = eliminate_outer_joins(logical, root_needed)
+    if push_predicates:
+        retained, logical = predicate_pushdown(logical, [])
+        if retained:
+            logical = LogicalSelection(retained, logical)
+    logical = push_agg_through_join(logical)
+    column_pruning(logical, root_needed)
+    logical = eliminate_aggregation(logical)
+    logical = eliminate_max_min(logical)
+    logical = eliminate_projections(logical)
+    logical = join_reorder(logical, stats_of=_ds_row_count)
+    # after reorder: the left-deep inner chain is in place, sink each
+    # semi/anti join next to the side its keys come from
+    return push_semi_joins_down(logical)
+
+
+def optimize(logical: LogicalPlan, tpu: bool = True,
+             tpu_min_rows: float = 0.0,
+             mesh_shards: int = 0,
+             verify: bool = False) -> PhysicalPlan:
+    """The System-R style pipeline (reference: planner/core/optimizer.go:77
+    — the fixed-order rewrite list of optimizer.go:44-55), physical
+    conversion, estimate derivation, then the device enforcer (cost+
+    capability, incl. the mesh broadcast-vs-shuffle join strategy) +
+    coprocessor pushdown.
+
+    `verify=True` (the tidb_qlint_verify sysvar) runs the qlint
+    plan-device invariant checker over the placed plan and raises
+    analysis.PlanDeviceError instead of handing a mis-placed plan to the
+    executor — the runtime arm of `tools/lint.py --plans`."""
+    logical = normalize_logical(logical)
+    logical = topn_pushdown(logical)
+    phys = to_physical(logical)
+    from .derive_stats import derive_stats
+    phys = derive_stats(phys)
+    from .device import place_devices
+    phys = place_devices(phys, enabled=tpu, min_rows=tpu_min_rows,
+                         mesh_shards=mesh_shards)
+    from .cop import push_to_cop
+    phys = push_to_cop(phys)
+    if verify:
+        from ..analysis.plan_device import verify_plan
+        verify_plan(phys)
+    return phys

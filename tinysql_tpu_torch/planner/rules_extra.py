@@ -1,0 +1,605 @@
+"""Additional logical rewrite rules (reference: planner/core's fixed-order
+rule list, optimizer.go:44-55): projection elimination
+(rule_eliminate_projection.go), max/min elimination
+(rule_max_min_eliminate.go), aggregation elimination
+(rule_aggregation_elimination.go), outer-join elimination
+(rule_join_elimination.go), greedy join reorder (rule_join_reorder.go).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Set
+
+from ..expression import (AggFuncDesc, Column, Constant, Expression,
+                          Schema, new_function)
+from ..expression.aggregation import (AGG_AVG, AGG_COUNT, AGG_FIRST_ROW,
+                                      AGG_MAX, AGG_MIN, AGG_SUM)
+from ..mytypes import new_int_type
+from .logical import (JOIN_INNER, JOIN_LEFT, LogicalAggregation,
+                      LogicalDataSource, LogicalJoin, LogicalPlan,
+                      LogicalProjection, LogicalSelection, LogicalSort,
+                      LogicalTopN)
+
+
+# ===== projection elimination ==============================================
+
+def eliminate_projections(p: LogicalPlan) -> LogicalPlan:
+    """Drop identity projections: exprs are exactly the child's schema
+    columns, in order, same names exposed (reference:
+    rule_eliminate_projection.go canProjectionBeEliminatedLoose)."""
+    p.children = [eliminate_projections(c) for c in p.children]
+    if isinstance(p, LogicalProjection) and p.children:
+        child = p.child(0)
+        if (len(p.exprs) == len(child.schema.columns)
+                and all(isinstance(e, Column)
+                        and e.unique_id == c.unique_id
+                        for e, c in zip(p.exprs, child.schema.columns))
+                and len(p.schema.columns) == len(child.schema.columns)
+                and all(a.unique_id == b.unique_id for a, b in
+                        zip(p.schema.columns, child.schema.columns))):
+            return child
+    return p
+
+
+# ===== max/min elimination =================================================
+
+def eliminate_max_min(p: LogicalPlan) -> LogicalPlan:
+    """A lone MAX(col)/MIN(col) with no GROUP BY only needs one row:
+    insert NOT NULL filter + TopN(1) below the aggregation (reference:
+    rule_max_min_eliminate.go)."""
+    p.children = [eliminate_max_min(c) for c in p.children]
+    if not isinstance(p, LogicalAggregation) or p.group_by:
+        return p
+    if len(p.agg_funcs) != 1:
+        return p
+    d = p.agg_funcs[0]
+    if d.name not in (AGG_MAX, AGG_MIN) or d.distinct:
+        return p
+    arg = d.args[0]
+    if not isinstance(arg, Column):
+        return p
+    child = p.child(0)
+    # NULLs never win max/min; filtering them keeps TopN(1) correct for
+    # MIN (NULL sorts first ascending)
+    not_null = new_function("not", [new_function("isnull", [arg])])
+    sel = LogicalSelection([not_null], child)
+    topn = LogicalTopN([(arg, d.name == AGG_MAX)], 0, 1, sel)
+    topn.schema = child.schema
+    p.children = [topn]
+    return p
+
+
+# ===== aggregation elimination =============================================
+
+def eliminate_aggregation(p: LogicalPlan) -> LogicalPlan:
+    """GROUP BY over a unique key produces one row per group: rewrite the
+    aggregation into a projection of per-row equivalents (reference:
+    rule_aggregation_elimination.go)."""
+    p.children = [eliminate_aggregation(c) for c in p.children]
+    if not isinstance(p, LogicalAggregation) or not p.group_by:
+        return p
+    child = p.child(0)
+    gb_uids = {e.unique_id for e in p.group_by if isinstance(e, Column)}
+    if len(gb_uids) != len(p.group_by):
+        return p  # non-column group keys
+    if not _covers_unique_key(child, gb_uids):
+        return p
+    exprs: List[Expression] = []
+    out_cols: List[Column] = []
+    for c in p.schema.columns:
+        src = _agg_output_source(p, c)
+        if src is None:
+            return p
+        per_row = _per_row_equivalent(src)
+        if per_row is None:
+            return p
+        exprs.append(per_row)
+        out_cols.append(c)
+    proj = LogicalProjection(exprs, Schema(out_cols), child)
+    return proj
+
+
+def unique_key_sets(p: LogicalPlan) -> List[Set[int]]:
+    """Derive the unique keys (as column unique_id sets) of a logical
+    subtree — the reference's Schema.Keys maintained by buildKeyInfo
+    (rule_build_key_info.go).  Propagation through joins is what lets
+    aggregation elimination fire above an agg-pushdown join: a join whose
+    build side is unique on ALL its equi-key columns never duplicates the
+    probe side, so probe-side keys stay unique."""
+    if isinstance(p, LogicalDataSource):
+        keys: List[Set[int]] = []
+        pk = p.table_info.get_pk_handle_col()
+        for c in p.schema.columns:
+            if pk is not None and c.name == pk.name:
+                keys.append({c.unique_id})
+        for idx in p.table_info.public_indices():
+            if idx.unique and len(idx.columns) == 1:
+                name = idx.columns[0].name
+                for c in p.schema.columns:
+                    # a NULLABLE unique index admits multiple NULL rows
+                    # (catalog/table.py encodes NULL entries non-uniquely),
+                    # and GROUP BY groups NULLs together — only a NOT NULL
+                    # column is a true key (reference buildKeyInfo does the
+                    # same check)
+                    if c.name == name and c.ret_type.not_null:
+                        keys.append({c.unique_id})
+        return keys
+    if isinstance(p, (LogicalSelection, LogicalSort, LogicalTopN)):
+        return unique_key_sets(p.child(0))
+    if isinstance(p, LogicalProjection):
+        out_of = {}
+        for e, oc in zip(p.exprs, p.schema.columns):
+            if isinstance(e, Column):
+                out_of.setdefault(e.unique_id, oc.unique_id)
+        keys = []
+        for k in unique_key_sets(p.child(0)):
+            if all(u in out_of for u in k):
+                keys.append({out_of[u] for u in k})
+        return keys
+    if isinstance(p, LogicalAggregation):
+        gb_outs = getattr(p, "gb_out_cols", [])
+        if p.group_by and len(gb_outs) == len(p.group_by):
+            return [{c.unique_id for c in gb_outs}]
+        return []
+    if isinstance(p, LogicalJoin) and p.tp in ("semi", "anti"):
+        # semi/anti joins never duplicate (or extend) left rows
+        return unique_key_sets(p.child(0))
+    if isinstance(p, LogicalJoin) and p.tp in (JOIN_INNER, JOIN_LEFT):
+        lkeys = unique_key_sets(p.child(0))
+        rkeys = unique_key_sets(p.child(1))
+        l_eq = {a.unique_id for a, _ in p.eq_conditions
+                if isinstance(a, Column)}
+        r_eq = {b.unique_id for _, b in p.eq_conditions
+                if isinstance(b, Column)}
+        r_unique = bool(p.eq_conditions) and any(k <= r_eq for k in rkeys)
+        l_unique = bool(p.eq_conditions) and any(k <= l_eq for k in lkeys)
+        out: List[Set[int]] = []
+        if r_unique:
+            out += lkeys  # every probe row matches at most one build row
+        if l_unique and p.tp == JOIN_INNER:
+            out += rkeys
+        return out
+    return []
+
+
+def _covers_unique_key(child: LogicalPlan, gb_uids: Set[int]) -> bool:
+    """Does some unique key of `child` sit inside the group-by columns?"""
+    return any(k and k <= gb_uids for k in unique_key_sets(child))
+
+
+def _agg_output_source(agg: LogicalAggregation, col: Column):
+    for out_c, d in zip(agg.output_cols, agg.agg_funcs):
+        if out_c.unique_id == col.unique_id:
+            return d
+    for out_c, e in zip(getattr(agg, "gb_out_cols", []), agg.group_by):
+        if out_c.unique_id == col.unique_id:
+            return e
+    return None
+
+
+def _per_row_equivalent(src) -> Optional[Expression]:
+    """One-row-group equivalents (reference: rewriteExpr in
+    rule_aggregation_elimination.go).  FINAL-mode descriptors consume
+    partial STATES (one state per row once groups are unique): the merge
+    of a single partial is the partial itself — except AVG, whose state is
+    a (sum, count) column pair."""
+    from ..expression.aggregation import AggMode
+    if isinstance(src, Expression):
+        return src  # group-by column passes through
+    d: AggFuncDesc = src
+    arg = d.args[0]
+    if d.mode is AggMode.FINAL:
+        if d.name == AGG_AVG:
+            # sum/count; x/0 is NULL, matching AVG of an all-NULL group
+            return new_function("/", [d.args[0], d.args[1]])
+        e = arg  # COUNT merges by SUM of one partial count = itself, etc.
+        if (d.ret_type.eval_type is not e.ret_type.eval_type
+                and d.ret_type.eval_type.name == "REAL"):
+            e = new_function("cast_real", [e])
+        return e
+    if d.name in (AGG_MAX, AGG_MIN, AGG_FIRST_ROW, AGG_SUM, AGG_AVG):
+        if d.distinct and d.name in (AGG_SUM, AGG_AVG):
+            pass  # distinct over one row is the row itself
+        e = arg
+        if d.ret_type.eval_type is not e.ret_type.eval_type:
+            e = new_function("cast_real", [e]) \
+                if d.ret_type.eval_type.name == "REAL" else e
+        return e
+    if d.name == AGG_COUNT:
+        if isinstance(arg, Constant) and arg.value is not None:
+            return Constant(1, new_int_type())  # COUNT(*)
+        isn = new_function("isnull", [arg])
+        return new_function("if", [isn, Constant(0, new_int_type()),
+                                   Constant(1, new_int_type())])
+    return None
+
+
+# ===== outer join elimination ==============================================
+
+def eliminate_outer_joins(p: LogicalPlan, needed: Set[int]) -> LogicalPlan:
+    """LEFT JOIN whose right side contributes no needed columns and whose
+    join keys hit a unique key on the right (no row duplication) reduces
+    to its left child (reference: rule_join_elimination.go)."""
+    if isinstance(p, LogicalJoin) and p.tp == JOIN_LEFT:
+        right = p.children[1]
+        right_uids = {c.unique_id for c in right.schema.columns}
+        if not (needed & right_uids) and _right_keys_unique(p):
+            return eliminate_outer_joins(p.children[0], needed)
+    for i, c in enumerate(p.children):
+        child_needed = _needed_below(p, needed)
+        p.children[i] = eliminate_outer_joins(c, child_needed)
+    return p
+
+
+def _right_keys_unique(join: LogicalJoin) -> bool:
+    right = join.children[1]
+    if not isinstance(right, LogicalDataSource) or join.other_conditions:
+        return False
+    pk = right.table_info.get_pk_handle_col()
+    pk_uid = None
+    for c in right.schema.columns:
+        if pk is not None and c.name == pk.name:
+            pk_uid = c.unique_id
+    r_keys = {b.unique_id for _, b in join.eq_conditions
+              if isinstance(b, Column)}
+    if pk_uid is not None and pk_uid in r_keys:
+        return True
+    # single-column unique index fully matched
+    for idx in right.table_info.public_indices():
+        if idx.unique and len(idx.columns) == 1:
+            name = idx.columns[0].name
+            for c in right.schema.columns:
+                if c.name == name and c.unique_id in r_keys:
+                    return True
+    return False
+
+
+def _needed_below(p: LogicalPlan, needed: Set[int]) -> Set[int]:
+    out = set(needed)
+    if isinstance(p, LogicalProjection):
+        out = set()
+        for e in p.exprs:
+            out |= {c.unique_id for c in e.collect_columns()}
+    elif isinstance(p, LogicalSelection):
+        for e in p.conditions:
+            out |= {c.unique_id for c in e.collect_columns()}
+    elif isinstance(p, LogicalAggregation):
+        out = set()
+        for d in p.agg_funcs:
+            for a in d.args:
+                out |= {c.unique_id for c in a.collect_columns()}
+        for e in p.group_by:
+            out |= {c.unique_id for c in e.collect_columns()}
+    elif isinstance(p, LogicalJoin):
+        for a, b in p.eq_conditions:
+            out |= {c.unique_id for c in a.collect_columns()}
+            out |= {c.unique_id for c in b.collect_columns()}
+        for e in (p.other_conditions + p.left_conditions
+                  + p.right_conditions):
+            out |= {c.unique_id for c in e.collect_columns()}
+    elif isinstance(p, (LogicalSort, LogicalTopN)):
+        for e, _ in p.by:
+            out |= {c.unique_id for c in e.collect_columns()}
+    return out
+
+
+# ===== greedy join reorder =================================================
+
+def join_reorder(p: LogicalPlan, stats_of=None) -> LogicalPlan:
+    """Flatten chains of inner equi-joins and rebuild left-deep, smallest
+    estimated source first, preferring connected (equi-cond) pairs
+    (reference: rule_join_reorder.go greedy solver)."""
+    p.children = [join_reorder(c, stats_of) for c in p.children]
+    if isinstance(p, LogicalJoin) and p.tp in ("semi", "anti"):
+        # the reordered left subtree may expose its columns in a new
+        # order; a semi/anti join mirrors the left child exactly
+        p.schema = Schema(list(p.children[0].schema.columns))
+    if not (isinstance(p, LogicalJoin) and p.tp == JOIN_INNER):
+        return p
+    nodes: List[LogicalPlan] = []
+    eqs: List[tuple] = []
+    others: List[Expression] = []
+
+    def flatten(j: LogicalPlan):
+        if (isinstance(j, LogicalJoin) and j.tp == JOIN_INNER
+                and not j.left_conditions and not j.right_conditions):
+            flatten(j.children[0])
+            flatten(j.children[1])
+            eqs.extend(j.eq_conditions)
+            others.extend(j.other_conditions)
+        else:
+            nodes.append(j)
+    flatten(p)
+    if len(nodes) <= 2:
+        return p
+
+    def est(n: LogicalPlan) -> float:
+        if isinstance(n, LogicalDataSource) and stats_of is not None:
+            s = stats_of(n)
+            if s:
+                return float(s)
+        return 1e4
+
+    if len(nodes) <= DP_REORDER_LIMIT:
+        tree = _dp_best_tree(nodes, eqs, est)
+        cur, _, pending_eqs = _build_join_tree(tree, nodes, list(eqs))
+        return _finish_reorder(cur, pending_eqs, others)
+
+    remaining = sorted(nodes, key=est)
+    cur = remaining.pop(0)
+    cur_uids = {c.unique_id for c in cur.schema.columns}
+    pending_eqs = list(eqs)
+    while remaining:
+        # prefer a node connected to the current tree by an equi cond
+        pick = None
+        for cand in remaining:
+            cand_uids = {c.unique_id for c in cand.schema.columns}
+            for a, b in pending_eqs:
+                au = {c.unique_id for c in a.collect_columns()}
+                bu = {c.unique_id for c in b.collect_columns()}
+                if ((au <= cur_uids and bu <= cand_uids)
+                        or (bu <= cur_uids and au <= cand_uids)):
+                    pick = cand
+                    break
+            if pick is not None:
+                break
+        if pick is None:
+            pick = remaining[0]
+        remaining.remove(pick)
+        j = LogicalJoin(JOIN_INNER, cur, pick)
+        pick_uids = {c.unique_id for c in pick.schema.columns}
+        pending_eqs = _attach_eqs(j, cur_uids, pick_uids, pending_eqs)
+        cur = j
+        cur_uids = cur_uids | pick_uids
+    return _finish_reorder(cur, pending_eqs, others)
+
+
+def _attach_eqs(j: LogicalJoin, luids: Set[int], ruids: Set[int],
+                pending_eqs: List[tuple]) -> List[tuple]:
+    """Attach every pending equi condition whose two sides are now both
+    in scope, oriented left-side-first; returns the still-pending rest
+    (shared by the greedy and DP assemblies)."""
+    new_uids = luids | ruids
+    still = []
+    for a, b in pending_eqs:
+        au = {c.unique_id for c in a.collect_columns()}
+        bu = {c.unique_id for c in b.collect_columns()}
+        if au <= new_uids and bu <= new_uids:
+            if au <= luids:
+                j.eq_conditions.append((a, b))
+            else:
+                j.eq_conditions.append((b, a))
+        else:
+            still.append((a, b))
+    return still
+
+
+def _finish_reorder(cur: LogicalPlan, pending_eqs: List[tuple],
+                    others: List[Expression]) -> LogicalPlan:
+    if others:
+        assert isinstance(cur, LogicalJoin)
+        cur.other_conditions.extend(others)
+    # any unplaced equi conds (degenerate) become other conditions
+    for a, b in pending_eqs:
+        if isinstance(cur, LogicalJoin):
+            cur.other_conditions.append(new_function("=", [a, b]))
+    return cur
+
+
+# ===== semi/anti join sink =================================================
+
+def push_semi_joins_down(p: LogicalPlan) -> LogicalPlan:
+    """Sink a semi/anti join below the inner-join chain under its left
+    child, next to the side its equi-keys actually come from (reference:
+    TiDB plans the decorrelated semi join against the correlated table,
+    not the whole FROM product).  A semi/anti join is a row FILTER on
+    its left input, so it commutes with inner joins (and the outer side
+    of a LEFT join) exactly like a selection — sinking it prunes the
+    chain EARLY instead of filtering the full join product (Q5: the
+    region membership lands on nation's 25 rows, not on the 5-way join
+    output)."""
+    p.children = [push_semi_joins_down(c) for c in p.children]
+    if isinstance(p, LogicalJoin) and p.tp in ("semi", "anti"):
+        return _sink_semi(p)
+    return p
+
+
+def _sink_semi(semi: LogicalJoin) -> LogicalPlan:
+    left = semi.children[0]
+    if not (isinstance(left, LogicalJoin)
+            and left.tp in (JOIN_INNER, JOIN_LEFT)):
+        return semi
+    need = set()
+    for a, _ in semi.eq_conditions:
+        need |= {c.unique_id for c in a.collect_columns()}
+    for c in semi.other_conditions:
+        need |= {x.unique_id for x in c.collect_columns()
+                 if left.schema.contains(x)}
+    if not need:
+        return semi  # cartesian membership: no side to sink toward
+    for side in (0, 1):
+        if side == 1 and left.tp != JOIN_INNER:
+            continue  # never below the inner side of a LEFT join
+        child_uids = {c.unique_id
+                      for c in left.children[side].schema.columns}
+        if need <= child_uids:
+            semi.children[0] = left.children[side]
+            semi.schema = Schema(list(left.children[side].schema.columns))
+            left.children[side] = _sink_semi(semi)
+            return left
+    return semi
+
+
+# ===== aggregation pushdown through join ===================================
+
+def push_agg_through_join(p: LogicalPlan) -> LogicalPlan:
+    """Decompose an aggregation over an inner join into a PARTIAL
+    aggregation below one join side + the original aggregation in FINAL
+    mode above (reference: rule_aggregation_push_down.go:181
+    tryToPushDownAgg; the cascades course rule
+    transformation_rules.go:497 is the same shape).
+
+    Validity: the partial side's group keys always include that side's
+    equi-join keys, so every row of one partial group carries the SAME
+    join key and duplicates identically across matches — partial states
+    recombine exactly as the raw rows would have (sum of sums, count of
+    counts via FINAL mode, min of mins...).  Requirements enforced:
+
+    - inner join, no residual cross-side conditions (those filter
+      per-PAIR and would have to run before pre-aggregation), no side
+      conditions left on the push side
+    - every agg arg reads ONE side only; count(*)/const-arg descs ride
+      with whichever side the rest picked
+    - push-side group-by items and join keys are bare Columns
+    - no DISTINCT (partial states don't compose)
+    """
+    p.children = [push_agg_through_join(c) for c in p.children]
+    if not isinstance(p, LogicalAggregation) or not p.children:
+        return p
+    j = p.child(0)
+    if not isinstance(j, LogicalJoin) or j.tp != JOIN_INNER:
+        return p
+    if j.other_conditions or not j.eq_conditions:
+        return p
+    if any(d.distinct for d in p.agg_funcs) or not p.agg_funcs:
+        return p
+    lsch, rsch = j.children[0].schema, j.children[1].schema
+    sides = []
+    for d in p.agg_funcs:
+        cols = [c for a in d.args for c in a.collect_columns()]
+        if not cols:
+            sides.append(None)
+        elif all(lsch.contains(c) for c in cols):
+            sides.append(0)
+        elif all(rsch.contains(c) for c in cols):
+            sides.append(1)
+        else:
+            return p
+    picked = {s for s in sides if s is not None}
+    if len(picked) != 1:
+        return p
+    side = picked.pop()
+    if (j.left_conditions if side == 0 else j.right_conditions):
+        return p
+    side_schema = lsch if side == 0 else rsch
+    keys = [(a if side == 0 else b) for a, b in j.eq_conditions]
+    if not all(isinstance(k, Column) for k in keys):
+        return p
+    # partial group keys: push-side group-by columns + push-side join keys
+    part_keys: List[Column] = []
+    for e in p.group_by:
+        cols = e.collect_columns()
+        if any(side_schema.contains(c) for c in cols):
+            if not isinstance(e, Column):
+                return p
+            part_keys.append(e)
+    for k in keys:
+        if not any(k.unique_id == c.unique_id for c in part_keys):
+            part_keys.append(k)
+
+    partial_descs: List[AggFuncDesc] = []
+    partial_cols: List[Column] = []
+    final_descs: List[AggFuncDesc] = []
+    for d in p.agg_funcs:
+        prt = d.partial_result_types()
+        partials, final = d.split(list(range(len(prt))))
+        fresh = [Column(ft, name=f"partial_{d.name}#{len(partial_cols) + i}")
+                 for i, ft in enumerate(prt)]
+        final.args = list(fresh)  # rebind by unique id, not dummy ordinal
+        partial_descs.extend(partials)
+        partial_cols.extend(fresh)
+        final_descs.append(final)
+
+    part_schema = Schema(partial_cols + part_keys)
+    partial = LogicalAggregation(list(part_keys), partial_descs,
+                                 part_schema, j.children[side])
+    partial.output_cols = partial_cols
+    partial.gb_out_cols = list(part_keys)  # pass-through identity
+    j.children[side] = partial
+    j.schema = j.children[0].schema.merge(j.children[1].schema)
+    p.agg_funcs = final_descs
+    return p
+
+
+# ===== DP join reorder =====================================================
+
+DP_REORDER_LIMIT = 8  # exhaustive DP up to this many join nodes
+
+
+def _dp_best_tree(nodes, eqs, est):
+    """Exact join-order search over connected subsets (reference:
+    rule_join_reorder_dp.go — DP over bitmasks; TiDB bounds it with
+    tidb_opt_join_reorder_threshold, greedy beyond).  Returns a nested
+    (left_tree, right_tree) tuple of node indices; bushy shapes allowed.
+
+    Cost model (matches derive_stats): an equi-connected join yields
+    max(|L|,|R|) rows, a cartesian product |L|*|R|; plan cost = sum of
+    intermediate result sizes.  Cartesian cost dominance makes the DP
+    prefer any connected order before a product, which is the practical
+    win over the greedy's local choice."""
+    n = len(nodes)
+    uids = [frozenset(c.unique_id for c in nd.schema.columns)
+            for nd in nodes]
+    edge_sides = []
+    for a, b in eqs:
+        au = frozenset(c.unique_id for c in a.collect_columns())
+        bu = frozenset(c.unique_id for c in b.collect_columns())
+        edge_sides.append((au, bu))
+
+    def mask_uids(mask):
+        out = set()
+        for i in range(n):
+            if mask & (1 << i):
+                out |= uids[i]
+        return out
+
+    mu = {1 << i: set(uids[i]) for i in range(n)}
+
+    def connected(lmask, rmask):
+        lu, ru = mu[lmask], mu[rmask]
+        for au, bu in edge_sides:
+            if (au <= lu and bu <= ru) or (bu <= lu and au <= ru):
+                return True
+        return False
+
+    # best[mask] = (cost, rows, tree)
+    best = {1 << i: (0.0, max(est(nodes[i]), 1.0), i) for i in range(n)}
+    full = (1 << n) - 1
+    for mask in range(3, full + 1):
+        if mask & (mask - 1) == 0:  # single node
+            continue
+        if mask not in mu:
+            mu[mask] = mask_uids(mask)
+        cand = None
+        sub = (mask - 1) & mask
+        while sub > 0:
+            other = mask ^ sub
+            if sub < other:  # canonical split once
+                l, r = sub, other
+                if l in best and r in best:
+                    cl, rl, tl = best[l]
+                    cr, rr, tr = best[r]
+                    rows = (max(rl, rr) if connected(l, r)
+                            else rl * rr)
+                    cost = cl + cr + rows
+                    if cand is None or cost < cand[0]:
+                        cand = (cost, rows, (tl, tr))
+            sub = (sub - 1) & mask
+        if cand is not None:
+            best[mask] = cand
+    return best[full][2]
+
+
+def _build_join_tree(tree, nodes, pending_eqs):
+    """Materialize the DP tree into LogicalJoins, attaching each equi
+    condition at the first join where both sides are in scope (oriented
+    left-first, like the greedy assembly)."""
+    if isinstance(tree, int):
+        nd = nodes[tree]
+        return nd, {c.unique_id for c in nd.schema.columns}, pending_eqs
+    lplan, luids, pending_eqs = _build_join_tree(tree[0], nodes,
+                                                 pending_eqs)
+    rplan, ruids, pending_eqs = _build_join_tree(tree[1], nodes,
+                                                 pending_eqs)
+    j = LogicalJoin(JOIN_INNER, lplan, rplan)
+    still = _attach_eqs(j, luids, ruids, pending_eqs)
+    return j, luids | ruids, still
