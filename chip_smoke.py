@@ -6,23 +6,30 @@
 Phases (any mismatch raises, and the script exits nonzero without a
 result line):
 
-1. the card's name and power limit (nvidia-smi) and the build of the four
-   hand-written kernels (HK1-HK4) from tinysql_tpu_torch/csrc;
+1. the card's name and power limit (nvidia-smi) and the build of the six
+   hand-written kernels (HK1-HK6) from tinysql_tpu_torch/csrc;
 2. each kernel against its plain torch version on the card, at the shapes
    the main path gives it at TPC-H SF=1 plus edge cases: integers, counts,
    NULL masks and row order exactly, float sums within 1e-6 relative; each
    kernel runs twice and must give the same bytes.  Median CUDA-event
-   times of the kernel, its plain version and, where one exists, the
-   single PyTorch call computing the same function, beside the bound (the
-   bytes each input read once and each output written once take at
-   3.35 TB/s, or the operations at the card's peak, whichever is larger).
+   times of the kernel (and its device-only time from torch.profiler,
+   which leaves out the host work between launches), its plain version
+   and, where one exists, the single PyTorch call computing the same
+   function, beside the bound (the bytes this run's data needs each input
+   read once and each output written once take at 3.35 TB/s, or the
+   operations at the card's peak, whichever is larger).
    Calls that compute only part of a kernel's function are timed too and
    printed under names that say which part, never as library_ms;
 3. the main path: new_session() on cuda, tpch.load at SF=1 (seed 7), then
-   TPC-H Q1, Q3 and Q6 through SQL with tidb_use_tpu=1.  The rows must
-   equal the port's own CPU tier (tidb_use_tpu=0) under tpch.canon_rows,
-   each wrapper's launch counter (one count per launching wrapper call)
-   must rise on the queries that use it, and no plain version may run;
+   TPC-H Q1, Q3 and Q6 through SQL with tidb_use_tpu=1, on each device
+   tier in turn: the pipeline tier (tidb_devpipe=-1, the default: Q1 and
+   Q3 run as executor/devpipe.py pipelines, whose compiled node kinds are
+   checked) and the per-operator tier (tidb_devpipe=0).  The launch
+   counters are set to 0 just before each tier and read just after it.
+   The rows must equal the port's own CPU tier (tidb_use_tpu=0) under
+   tpch.canon_rows, each wrapper's launch counter (one count per
+   launching wrapper call) must rise on the queries that use it, and no
+   plain version may run;
 4. one JSON line listing the kernels ({"kernels": [...]}), then the
    result line {"ok": true, "device": {...}}.
 
@@ -55,12 +62,26 @@ KERNELS = {
                   "tinysql_tpu/ops/kernels.py:1803"),
     "lex_order": ("tinysql_tpu_torch/csrc/lex_order.cu",
                   "tinysql_tpu/ops/kernels.py:2165"),
+    "csr_reduce": ("tinysql_tpu_torch/csrc/csr_reduce.cu",
+                   "tinysql_tpu/executor/devpipe.py:757"),
+    "dense_probe": ("tinysql_tpu_torch/csrc/dense_probe.cu",
+                    "tinysql_tpu/executor/devpipe.py:1420"),
 }
-# which kernels each query of the main path must launch
-USES = {"Q1": ("segment_reduce", "lex_order"),
-        "Q3": ("equi_join", "segment_reduce", "present_compact",
-               "lex_order"),
-        "Q6": ("masked_reduce",)}
+# per device tier (its tidb_devpipe value), the kernels each query of the
+# main path must launch
+TIERS = {"pipeline": -1, "per_op": 0}
+USES = {
+    "pipeline": {"Q1": ("csr_reduce", "lex_order"),
+                 "Q3": ("dense_probe", "csr_reduce", "lex_order"),
+                 "Q6": ("masked_reduce",)},
+    "per_op": {"Q1": ("segment_reduce", "lex_order"),
+               "Q3": ("equi_join", "segment_reduce", "present_compact",
+                      "lex_order"),
+               "Q6": ("masked_reduce",)},
+}
+# node kinds each pipeline compiles (executor/devpipe.py COMPILED_NODE_KEYS)
+PIPE_KINDS = {"Q1": {"leaf", "aggindex", "proj", "order"},
+              "Q3": {"leaf", "join", "aggindex", "order"}}
 
 
 class Mismatch(AssertionError):
@@ -94,6 +115,35 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10) -> float | None:
+    """Device-only time of one call of fn: the self device time of every
+    kernel, copy and memset it enqueues, summed over a torch.profiler trace
+    of reps calls.  Unlike cuda_ms it leaves out the host work between the
+    launches.  A trace that comes back without device events is taken
+    again, up to three times in all; None when none had any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tinysql_tpu_torch.bench.trace_tpch import device_us
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(device_us(e) for e in prof.key_averages())
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def timed(fn) -> dict:
+    """The kernel's median CUDA-event time (host work between its launches
+    included) and its device-only time."""
+    return {"ms": cuda_ms(fn), "device_ms": device_ms(fn)}
+
+
 def same_bytes(a, b, what: str) -> None:
     """Every kernel output is an int64 tensor (float results as bits), so
     torch.equal compares bytes."""
@@ -105,16 +155,23 @@ def same_bytes(a, b, what: str) -> None:
             raise Mismatch(f"{what}: two runs of the kernel differ")
 
 
-def check_table(k, p, float_rows, what: str) -> float:
+def check_table(k, p, float_rows, what: str, exact_float_rows=()) -> float:
     """k/p: int64 tables (rows x n).  Rows in float_rows hold float64 bits
-    of sums (1e-6 relative); every other row must match exactly.
-    Returns the max absolute difference of the float rows."""
+    of sums (1e-6 relative); rows in exact_float_rows hold float64 bits of
+    min/max (equal as floats, NaN equal to NaN); every other row must
+    match exactly.  Returns the max absolute difference of the float
+    rows."""
     import torch
     if k.shape != p.shape:
         raise Mismatch(f"{what}: shape {tuple(k.shape)} vs {tuple(p.shape)}")
     err = 0.0
     for r in range(k.shape[0]):
-        if r in float_rows:
+        if r in exact_float_rows:
+            kv, pv = k[r].view(torch.float64), p[r].view(torch.float64)
+            same = (kv == pv) | (torch.isnan(kv) & torch.isnan(pv))
+            if not bool(same.all()):
+                raise Mismatch(f"{what}: float min/max row {r} differs")
+        elif r in float_rows:
             kv, pv = k[r].view(torch.float64), p[r].view(torch.float64)
             if not torch.allclose(kv, pv, rtol=FLOAT_RTOL, atol=1e-9,
                                   equal_nan=True):
@@ -129,10 +186,10 @@ def check_table(k, p, float_rows, what: str) -> float:
     return err
 
 
-def lane_float_rows(lanes, head: int):
+def lane_float_rows(lanes, head: int, ops=("sum",)):
     import torch
     return {head + 2 * j for j, (v, _m, op) in enumerate(lanes)
-            if v is not None and v.dtype == torch.float64 and op == "sum"}
+            if v is not None and v.dtype == torch.float64 and op in ops}
 
 
 # ---- phase 2 -------------------------------------------------------------
@@ -168,7 +225,7 @@ def phase_kernels(K, dev):
     err = hk1_case(n, q6, valid, "masked_reduce Q6")
     rec["masked_reduce"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: K.masked_reduce(valid, q6)),
+        **timed(lambda: K.masked_reduce(valid, q6)),
         "plain_ms": cuda_ms(lambda: K.masked_reduce_plain(valid, q6)),
         "library_ms": None,
         "bytes": n * (1 + 8 + 1) + 8 * 4, "ops": 2 * n,
@@ -231,7 +288,7 @@ def phase_kernels(K, dev):
     hk2_case(gid_sk, valid_sk, ns3, q3, "segment_reduce skew")
     rec["segment_reduce"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: K.segment_reduce(gid3, valid3, ns3, q3)),
+        **timed(lambda: K.segment_reduce(gid3, valid3, ns3, q3)),
         "plain_ms": cuda_ms(lambda: K.segment_reduce_plain(
             gid3, valid3, ns3, q3)),
         "library_ms": None,
@@ -251,7 +308,7 @@ def phase_kernels(K, dev):
     ob3 = min(K.bucket(max(np3, 1)), ns3)
     rec["present_compact"] = {
         "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: K.present_compact(tab3, ns3)),
+        **timed(lambda: K.present_compact(tab3, ns3)),
         "plain_ms": cuda_ms(lambda: K.present_compact_plain(tab3, ns3)),
         "library_ms": None,
         "bytes": 8 * ns3 + 8 * int(tab3.shape[0]) * np3
@@ -295,7 +352,7 @@ def phase_kernels(K, dev):
     n_out = hk3_case(lk, z_l, lv, rk, z_r, rv, False, "equi_join Q3 join1")
     rec["equi_join"] = {
         "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: K.equi_join_unique(lk, z_l, lv, rk, z_r, rv)),
+        **timed(lambda: K.equi_join_unique(lk, z_l, lv, rk, z_r, rv)),
         "plain_ms": cuda_ms(lambda: K.equi_join_unique_plain(
             lk, z_l, lv, rk, z_r, rv)),
         "library_ms": None,
@@ -352,7 +409,7 @@ def phase_kernels(K, dev):
     hk4_case(key8, n, None, "lex_order full sort 2^23")
     rec["lex_order"] = {
         "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: K.lex_order(lanes_q3, nq, 10)),
+        **timed(lambda: K.lex_order(lanes_q3, nq, 10)),
         "plain_ms": cuda_ms(lambda: K.lex_order_plain(lanes_q3, nq)[:10]),
         "library_ms": None,
         "one_lane_topk_ms": cuda_ms(lambda: torch.topk(lanes_q3[1], 10,
@@ -381,7 +438,277 @@ def phase_kernels(K, dev):
                           t(np.ones(ne, bool))), ne, None,
              "lex_order 10 lanes")
     hk4_case(lanes_q3, nq, nq + 5, "lex_order k > n")
+    # Q1's ORDER BY: 6 groups in a 16-row bucket, two string-code keys
+    q1k = [(t(rng.integers(0, 3, 16), torch.int64), t(np.zeros(16, bool)))
+           for _ in range(2)]
+    lanes_q1 = K.sort_lanes(q1k, [False, False], t(np.arange(16) < 6))
+    hk4_case(lanes_q1, 16, None, "lex_order Q1 sort")
+    rec["lex_order"]["q1_ms"] = cuda_ms(lambda: K.lex_order(lanes_q1, 16))
+    rec["lex_order"]["q1_bound_ms"] = (4 * 8 * 16 + 8 * 16) / MEM_BPS * 1e3
+    # the pipeline's Q3 TopN: the first 16 of the 2^21-row join view,
+    # ~11k of its rows valid
+    np3 = 1 << 21
+    validp = t(np.zeros(np3, bool))
+    validp[t(rng.choice(np3, 11423, replace=False), torch.int64)] = True
+    lanes_p3 = K.sort_lanes(
+        [(t(np.round(rng.uniform(1e3, 5e5, np3), 2)), t(np.zeros(np3, bool))),
+         (t(rng.integers(0, 2406, np3), torch.int64),
+          t(np.zeros(np3, bool)))], [True, False], validp)
+    hk4_case(lanes_p3, np3, 16, "lex_order pipeline Q3 top-16")
+    rec["lex_order"]["pipe_q3_ms"] = cuda_ms(
+        lambda: K.lex_order(lanes_p3, np3, 16))
+    rec["lex_order"]["pipe_q3_bound_ms"] = \
+        (4 * 8 * np3 + 8 * 16) / MEM_BPS * 1e3
+
+    # -- HK5 csr_reduce: the pipeline's GROUP BY over the group index ----
+    def hk5_case(order, ends, valid, lanes, n_rows, ng, what):
+        nbv = int(order.shape[0])
+        k1 = K.csr_reduce(order, ends, valid, lanes, n_rows, ng)
+        k2 = K.csr_reduce(order, ends, valid, lanes, n_rows, ng)
+        same_bytes(k1, k2, what)
+        p = K.csr_reduce_plain(order, ends, valid,
+                               K._norm_lanes(lanes, nbv, dev, what),
+                               n_rows, ng)
+        return check_table(k1, p, lane_float_rows(lanes, 2), what,
+                           lane_float_rows(lanes, 2, ("min", "max")))
+
+    def hk5_bytes(lanes, n_rows, ng, ngb):
+        """Bytes HK5 must move: order and valid over the live rows, each
+        lane's values and NULL mask over them (a count lane has only its
+        mask), ends over the real groups, the whole table written."""
+        per_row = 8 + 1 + sum((0 if v is None else v.element_size())
+                              + (m is not None) for v, m, _op in lanes)
+        return n_rows * per_row + 8 * ng + 8 * (2 + 2 * len(lanes)) * ngb
+
+    def index_of(keys_np, nbv):
+        order = np.argsort(keys_np, kind="stable")
+        sk = keys_np[order]
+        ends = np.nonzero(np.r_[sk[1:] != sk[:-1], True])[0]
+        ngb_ = K.bucket(len(ends))
+        return (t(K.pad1(order.astype(np.int64), nbv), torch.int64),
+                t(K.pad1(ends.astype(np.int64), ngb_,
+                         fill=len(keys_np) - 1), torch.int64), len(ends))
+
+    # Q3: lineitem (clustered by l_orderkey, 1-7 lines per order) grouped
+    # by l_orderkey, ~54% of the rows pass l_shipdate, one revenue SUM
+    lens = rng.integers(1, 8, 1_500_000)
+    rows3 = int(lens.sum())
+    order5 = t(K.pad1(np.arange(rows3, dtype=np.int64), n), torch.int64)
+    ngb5 = 1 << 21
+    ends5 = t(K.pad1(np.cumsum(lens) - 1, ngb5, fill=rows3 - 1),
+              torch.int64)
+    valid5 = t(K.pad1(rng.random(rows3) < 0.54, n))
+    q3l = [(rnd_f(n), t(np.zeros(n, bool)), "sum")]
+    err5 = hk5_case(order5, ends5, valid5, q3l, rows3, 1_500_000,
+                    "csr_reduce Q3")
+    tab5 = K.csr_reduce(order5, ends5, valid5, q3l, rows3, 1_500_000)
+    present5 = int((tab5[0] > 0).sum())
+    xs5 = q3l[0][0][:rows3].contiguous()
+    lens5 = t(lens, torch.int64)
+    # Q1: 6 groups over ~6M rows in row order, 7 float SUM lanes and 3
+    # counts (count(*) is presence)
+    key1 = rng.choice(6, rows3, p=[0.25, 0.007, 0.25, 0.24, 0.003, 0.25])
+    order1, ends1, ng1 = index_of(key1, n)
+    valid1q = t(K.pad1(rng.random(rows3) < 0.98, n))
+    q1l = []
+    for j in range(10):
+        if j in (4, 6, 8):
+            q1l.append((None, t(np.zeros(n, bool)), "count"))
+        else:
+            q1l.append((rnd_f(n), t(np.zeros(n, bool)), "sum"))
+    hk5_case(order1, ends1, valid1q, q1l, rows3, ng1, "csr_reduce Q1")
+    # skew: one group holds 90% of the rows
+    keysk = np.where(rng.random(rows3) < 0.9, 0,
+                     rng.integers(0, 1 << 21, rows3))
+    ordersk, endssk, ngsk = index_of(keysk, n)
+    hk5_case(ordersk, endssk, valid5, q3l, rows3, ngsk, "csr_reduce skew")
+    # edges: NULL lanes, int64 extremes, NaN / -0.0 in min/max, invalid
+    # and padding rows, runs around the long-run threshold, no groups
+    ne5 = 1 << 16
+    ke = rng.integers(0, 300, ne5)
+    ke[:1025] = 7
+    ke[1025:3000] = 9
+    oe, ee, nge = index_of(ke[:60000], ne5)
+    fe = t(rng.normal(size=ne5))
+    fe[:6] = t([0.0, -0.0, float("nan"), 1e300, -0.0, float("-inf")])
+    ie = t(rng.integers(-(1 << 62), 1 << 62, ne5), torch.int64)
+    ie[:2] = t([I64_MAX, I64_MIN], torch.int64)
+    nul5 = rnd_null(ne5, 0.2)
+    lanes_e5 = [(fe, nul5, "sum"), (fe, nul5, "min"), (fe, None, "max"),
+                (ie, None, "sum"), (ie, nul5, "min"), (ie, None, "max"),
+                (None, nul5, "count")]
+    for frac in (0.8, 0.0):
+        hk5_case(oe, ee, t(rng.random(ne5) < frac), lanes_e5, 60000, nge,
+                 f"csr_reduce edges valid={frac}")
+    hk5_case(oe, ee, t(np.ones(ne5, bool)), lanes_e5, 60000, 0,
+             "csr_reduce no groups")
+    hk5_case(oe, ee, t(np.ones(ne5, bool)), [(fe, nul5, "sum")] * 16,
+             60000, nge, "csr_reduce 16 lanes")
+    rec["csr_reduce"] = {
+        "max_abs_err": err5,
+        **timed(lambda: K.csr_reduce(order5, ends5, valid5, q3l, rows3,
+                                     1_500_000)),
+        "plain_ms": cuda_ms(lambda: K.csr_reduce_plain(
+            order5, ends5, valid5, q3l, rows3, 1_500_000)),
+        "library_ms": None,
+        "bytes": hk5_bytes(q3l, rows3, 1_500_000, ngb5),
+        "ops": 2 * rows3,
+        "shape": f"n=2^23 ({rows3} rows), 2^21-group bucket, "
+                 f"{present5} present, 1 float64 SUM lane (Q3)",
+        "sum_lane_presorted_segment_reduce_ms": cuda_ms(
+            lambda: torch.segment_reduce(xs5, "sum", lengths=lens5)),
+        "q1_ms": cuda_ms(lambda: K.csr_reduce(order1, ends1, valid1q, q1l,
+                                              rows3, ng1)),
+        "q1_device_ms": device_ms(lambda: K.csr_reduce(
+            order1, ends1, valid1q, q1l, rows3, ng1)),
+        "q1_plain_ms": cuda_ms(lambda: K.csr_reduce_plain(
+            order1, ends1, valid1q, q1l, rows3, ng1)),
+        "q1_bound_ms": hk5_bytes(q1l, rows3, ng1, int(ends1.shape[0]))
+        / MEM_BPS * 1e3,
+        "skew90_ms": cuda_ms(lambda: K.csr_reduce(
+            ordersk, endssk, valid5, q3l, rows3, ngsk)),
+        "skew90_plain_ms": cuda_ms(lambda: K.csr_reduce_plain(
+            ordersk, endssk, valid5, q3l, rows3, ngsk))}
+
+    # -- HK6 dense_probe: the pipeline's join probe ----------------------
+    def hk6_case(args, mode, what):
+        a = K.dense_probe(*args, mode)
+        b = K.dense_probe(*args, mode)
+        same_bytes([a[0]] + [x for vm in a[1] for x in vm],
+                   [b[0]] + [x for vm in b[1] for x in vm], what)
+        c = K.dense_probe_plain(*args, mode)
+        if not torch.equal(a[0], c[0]) or len(a[1]) != len(c[1]):
+            raise Mismatch(f"{what}: valid differs")
+        for (x, xn), (y, yn) in zip(a[1], c[1]):
+            if not torch.equal(xn, yn) or not torch.equal(
+                    x.view(torch.uint8), y.view(torch.uint8)):
+                raise Mismatch(f"{what}: gathered lane differs")
+        return int(a[0].sum())
+
+    # join 1: orders (2^21 bucket, ~48.6% pass o_orderdate) probe the
+    # customer pk table (150,000 keys, ~20% BUILDING), 2 build lanes
+    np1, nbb1 = 1 << 21, 1 << 18
+    kp1 = t(rng.integers(1, 150_001, np1), torch.int64)
+    pv1 = t((np.arange(np1) < 1_500_000) & (rng.random(np1) < 0.486))
+    tbl1 = t(np.arange(150_000, dtype=np.int32))
+    bv1 = t((np.arange(nbb1) < 150_000) & (rng.random(nbb1) < 0.2))
+    bl1 = [(t(np.arange(1, nbb1 + 1), torch.int64), t(np.zeros(nbb1, bool))),
+           (t(rng.integers(0, 5, nbb1), torch.int64),
+            t(np.zeros(nbb1, bool)))]
+    args1 = (kp1, t(np.zeros(np1, bool)), pv1, 1, 150_000, tbl1, bv1, bl1)
+    out1 = hk6_case(args1, "inner", "dense_probe Q3 join1")
+    # join 2: the join-1 view (2^21) probes the l_orderkey group index's
+    # key -> group table (orderkeys up to 6M, 8 of every 32 used), build
+    # = the aggregate's 2^21-group view (l_orderkey, revenue)
+    okeys = np.sort(rng.choice(6_000_000, 1_500_000, replace=False)) + 1
+    tbl2 = np.full(int(okeys[-1] - okeys[0] + 1), -1, np.int32)
+    tbl2[okeys - okeys[0]] = np.arange(1_500_000, dtype=np.int32)
+    kp2 = t(K.pad1(rng.permutation(okeys), np1), torch.int64)
+    pv2 = pv1 & t(rng.random(np1) < 0.2)
+    bv2 = t((np.arange(ngb5) < 1_500_000) & (rng.random(ngb5) < 0.955))
+    bl2 = [(t(K.pad1(okeys, ngb5), torch.int64), t(np.zeros(ngb5, bool))),
+           (rnd_f(ngb5), t(rng.random(ngb5) < 0.045))]
+    args2 = (kp2, t(np.zeros(np1, bool)), pv2, int(okeys[0]),
+             int(okeys[-1]), t(tbl2), bv2, bl2)
+    hk6_case(args2, "inner", "dense_probe Q3 join2")
+    # edges: NULL keys, keys outside [lo, hi], hi = int64 max and lo =
+    # int64 min, dead build rows, 1/4/8-byte lanes, every mode
+    ne6, m6 = 1 << 14, 300
+    for lo in (-50, I64_MAX - 299, I64_MIN):
+        hi = lo + 299
+        keys6 = rng.choice(300, m6, replace=False)
+        tb6 = np.full(300, -1, np.int32)
+        tb6[keys6[:250]] = np.arange(250, dtype=np.int32)
+        off = rng.integers(-20, 320, ne6)
+        kp6 = np.array([min(max(lo + int(o), I64_MIN), I64_MAX)
+                        for o in off], dtype=np.int64)
+        kp6[:4] = [I64_MAX, I64_MIN, lo, hi]
+        nbb6 = K.bucket(m6)
+        bl6 = [(t(rng.normal(size=nbb6)), rnd_null(nbb6, 0.2)),
+               (t(rng.integers(0, 9, nbb6), torch.int64), None),
+               (t(rng.random(nbb6) < 0.5), rnd_null(nbb6, 0.2)),
+               (t(rng.integers(0, 9, nbb6).astype(np.int32)), None)]
+        args6 = (t(kp6), rnd_null(ne6, 0.1), t(rng.random(ne6) < 0.9), lo,
+                 hi, t(tb6), t(rng.random(nbb6) < 0.8), bl6)
+        for mode in ("inner", "left", "semi", "anti"):
+            hk6_case(args6, mode, f"dense_probe edges lo={lo} {mode}")
+    def probe_bytes(args):
+        """Bytes HK6 must move on this data: key, NULL flag and validity
+        read and the valid mask written for every probe row; the table
+        entry of each distinct in-range key and the build row it names
+        (validity, each lane's value and NULL flag) read once; each
+        gathered lane's value and NULL flag written per probe row."""
+        kp, kn, _pv, lo, hi, tbl, _bv, bl = args
+        nbp = int(kp.shape[0])
+        offs = torch.unique(kp[~kn & (kp >= lo) & (kp <= hi)] - lo)
+        rows = int((tbl[offs] >= 0).sum())  # a unique key: one row each
+        build = 1 + sum(v.element_size() + (m is not None) for v, m in bl)
+        out = sum(v.element_size() + 1 for v, _m in bl)
+        return nbp * (8 + 1 + 1 + 1 + out) + 4 * len(offs) + rows * build
+
+    ps1 = torch.clamp(torch.where(
+        (kp1 >= 1) & (kp1 <= 150_000), tbl1[torch.clamp(kp1 - 1, 0,
+                                                         149_999)].long(),
+        torch.full_like(kp1, -1)), 0, nbb1 - 1)
+    rec["dense_probe"] = {
+        "max_abs_err": 0.0,
+        **timed(lambda: K.dense_probe(*args1, "inner")),
+        "plain_ms": cuda_ms(lambda: K.dense_probe_plain(*args1, "inner")),
+        "library_ms": None,
+        "bytes": probe_bytes(args1),
+        "ops": np1,
+        "shape": f"probe 2^21 ({int(pv1.sum())} valid), table 150,000, "
+                 f"build 2^18, 2 lanes, {out1} matches (Q3 join 1)",
+        "one_lane_gather_ms": cuda_ms(lambda: bl1[0][0].index_select(
+            0, ps1)),
+        "join2_ms": cuda_ms(lambda: K.dense_probe(*args2, "inner")),
+        "join2_device_ms": device_ms(lambda: K.dense_probe(*args2,
+                                                           "inner")),
+        "join2_plain_ms": cuda_ms(lambda: K.dense_probe_plain(*args2,
+                                                              "inner")),
+        "join2_bound_ms": probe_bytes(args2) / MEM_BPS * 1e3}
+    rec["offpath"] = offpath(K, dev, t, rng)
     return rec
+
+
+def offpath(K, dev, t, rng) -> dict:
+    """Families off the main path that an existing kernel serves, timed
+    at a stated shape with their bounds (median CUDA events)."""
+    import numpy as np
+    import torch
+    n, ns = 1 << 20, 1 << 16
+    gid = t(rng.integers(0, ns, n), torch.int64)
+    valid = t(rng.random(n) < 0.9)
+    lanes = [(t(rng.random(n)), t(np.zeros(n, bool)), "sum"),
+             (None, t(np.zeros(n, bool)), "count")]
+    key = [(t(rng.integers(0, ns, n), torch.int64), t(np.zeros(n, bool)))]
+    lk = t(rng.integers(0, 1 << 15, n), torch.int64)
+    rk = t(rng.integers(0, 1 << 15, 1 << 15), torch.int64)
+    zl, zr = t(np.zeros(n, bool)), t(np.zeros(1 << 15, bool))
+    ol, orr = t(np.ones(n, bool)), t(np.ones(1 << 15, bool))
+
+    def k4():
+        # group_aggregate's two kernels: the key sort, then the segment
+        # reduction at as many segments as rows (its boundary scan
+        # between them is torch glue, left out)
+        K.lex_order(K.sort_lanes(key, [False], valid, zero_nulls=False), n)
+        return K.segment_reduce(key[0][0], valid, n, lanes)
+    mult_pairs = int(K.equi_join_mult(lk, zl, ol, rk, zr, orr)[0].shape[0])
+    out = {
+        "K3 segment_reduce n=2^20 ns=2^16 2 lanes": (
+            lambda: K.segment_reduce(gid, valid, ns, lanes),
+            n * (8 + 1 + 8 + 1 + 1) + 6 * 8 * ns),
+        "K4 lex_order + segment_reduce n=2^20 1 key 2 lanes": (
+            k4, n * (8 + 1 + 1 + 8 + 1 + 1) + 6 * 8 * n),
+        "K5 masked_reduce n=2^20 2 lanes": (
+            lambda: K.masked_reduce(valid, lanes),
+            n * (1 + 8 + 1 + 1) + 8 * 6),
+        f"K7 equi_join_mult probe 2^20 build 2^15 ({mult_pairs} pairs)": (
+            lambda: K.equi_join_mult(lk, zl, ol, rk, zr, orr),
+            n * 10 + (1 << 15) * 10 + 16 * mult_pairs),
+    }
+    return {name: {"ms": cuda_ms(fn), "bound_ms": b / MEM_BPS * 1e3}
+            for name, (fn, b) in out.items()}
 
 
 # ---- phase 3 -------------------------------------------------------------
@@ -389,6 +716,50 @@ def phase_kernels(K, dev):
 def _sync(torch) -> None:
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def run_tier(K, sess, tier: str, torch) -> tuple:
+    """TPC-H Q1, Q3 and Q6 on one device tier: rows, per-query launches
+    and the tier's launch counts (set to 0 just before, read just after)."""
+    from tinysql_tpu_torch.bench import tpch
+    from tinysql_tpu_torch.executor import devpipe
+    sess.execute(f"set tidb_devpipe = {TIERS[tier]}")
+    K.reset_kernel_counts()
+    rows = {}
+    for q, sql in tpch.QUERIES.items():
+        before = K.kernel_counts()["launches"]
+        devpipe.COMPILED_NODE_KEYS.clear()
+        t1 = time.perf_counter()
+        rows[q] = sess.query(sql).rows
+        _sync(torch)
+        first_s = time.perf_counter() - t1
+        kinds = {k[0] for k in devpipe.COMPILED_NODE_KEYS}
+        want = PIPE_KINDS.get(q, set()) if tier == "pipeline" else set()
+        if kinds != want:
+            raise Mismatch(f"{tier} {q}: pipeline node kinds {kinds}, "
+                           f"want {want}")
+        warm = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            again = sess.query(sql).rows
+            _sync(torch)
+            warm.append(time.perf_counter() - t1)
+            if tpch.canon_rows(again) != tpch.canon_rows(rows[q]):
+                raise Mismatch(f"{tier} {q}: warm run rows differ from "
+                               f"the first")
+        after = K.kernel_counts()["launches"]
+        used = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        for k in USES[tier][q]:
+            if k not in used:
+                raise Mismatch(f"{tier} {q}: kernel {k} was not launched")
+        print(f"[main] {tier} {q}: {len(rows[q])} rows, first run "
+              f"{first_s:.4f} s, warm best of 3 {min(warm):.4f} s, "
+              f"node kinds {sorted(kinds)}, launches {used}", flush=True)
+    counts = K.kernel_counts()
+    if any(counts["plain_calls"].values()):
+        raise Mismatch(f"plain versions ran on the {tier} tier: "
+                       f"{counts['plain_calls']}")
+    return rows, counts["launches"]
 
 
 def phase_main_path(K, kinfo, device=None):
@@ -404,39 +775,16 @@ def phase_main_path(K, kinfo, device=None):
     print(f"[main] tpch.load sf={SF} seed={SEED}: {counts} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     sess.execute("set tidb_use_tpu=1")
-    K.reset_kernel_counts()
-    rows = {}
-    per_query = {}
-    for q, sql in tpch.QUERIES.items():
-        before = K.kernel_counts()["launches"]
-        t1 = time.perf_counter()
-        rows[q] = sess.query(sql).rows
-        _sync(torch)
-        first_s = time.perf_counter() - t1
-        warm = []
-        for _ in range(3):
-            t1 = time.perf_counter()
-            again = sess.query(sql).rows
-            _sync(torch)
-            warm.append(time.perf_counter() - t1)
-            if tpch.canon_rows(again) != tpch.canon_rows(rows[q]):
-                raise Mismatch(f"{q}: warm run rows differ from the first")
-        after = K.kernel_counts()["launches"]
-        used = {k: after[k] - before[k] for k in after}
-        for k in USES[q]:
-            if used[k] <= 0:
-                raise Mismatch(f"{q}: kernel {k} was not launched")
-        per_query[q] = used
-        print(f"[main] {q}: {len(rows[q])} rows, first run {first_s:.4f} s,"
-              f" warm best of 3 {min(warm):.4f} s, launches {used}",
-              flush=True)
-    counts_after = K.kernel_counts()
-    if any(counts_after["plain_calls"].values()):
-        raise Mismatch(f"plain versions ran on the main path: "
-                       f"{counts_after['plain_calls']}")
-    for k, v in counts_after["launches"].items():
-        kinfo[k]["launches"] = v
-        if v <= 0:
+    if int(sess.get_sysvar("tidb_devpipe")) != TIERS["pipeline"]:
+        raise Mismatch("the pipeline tier is not the default")
+    tier_rows = {}
+    for tier in TIERS:
+        tier_rows[tier], launches = run_tier(K, sess, tier, torch)
+        for k, v in launches.items():
+            kinfo[k]["launches"] += v
+            kinfo[k].setdefault("launches_by_tier", {})[tier] = v
+    for k, info in kinfo.items():
+        if info["launches"] <= 0:
             raise Mismatch(f"kernel {k} never launched on the main path")
     # the port's own CPU tier is the reference for the rows
     sess.execute("set tidb_use_tpu=0")
@@ -445,18 +793,19 @@ def phase_main_path(K, kinfo, device=None):
         t1 = time.perf_counter()
         cpu_rows = sess.query(sql).rows
         cpu_s = time.perf_counter() - t1
-        if tpch.canon_rows(cpu_rows) != tpch.canon_rows(rows[q]):
-            raise Mismatch(f"{q}: GPU rows differ from the CPU tier:\n"
-                           f"gpu {rows[q][:3]}\ncpu {cpu_rows[:3]}")
-        if len(rows[q]) != expect_rows[q]:
-            raise Mismatch(f"{q}: only {len(rows[q])} rows")
-        for r in rows[q]:
-            for v in r:
-                if isinstance(v, float) and not math.isfinite(v):
-                    raise Mismatch(f"{q}: non-finite value {v}")
-        print(f"[main] {q}: equal to the CPU tier ({cpu_s:.3f} s there)",
-              flush=True)
-    return per_query
+        for tier, rows in tier_rows.items():
+            if tpch.canon_rows(cpu_rows) != tpch.canon_rows(rows[q]):
+                raise Mismatch(f"{tier} {q}: GPU rows differ from the CPU "
+                               f"tier:\ngpu {rows[q][:3]}\n"
+                               f"cpu {cpu_rows[:3]}")
+            if len(rows[q]) != expect_rows[q]:
+                raise Mismatch(f"{tier} {q}: only {len(rows[q])} rows")
+            for r in rows[q]:
+                for v in r:
+                    if isinstance(v, float) and not math.isfinite(v):
+                        raise Mismatch(f"{tier} {q}: non-finite value {v}")
+        print(f"[main] {q}: both tiers equal to the CPU tier ({cpu_s:.3f} s"
+              f" there)", flush=True)
 
 
 def main() -> int:
@@ -491,6 +840,9 @@ def main() -> int:
     with K.use_device(dev):
         rec = phase_kernels(K, dev)
     torch.cuda.synchronize()
+    for name, r in rec.pop("offpath").items():
+        print(f"[offpath] {name}: ms {r['ms']:.4f}, bound "
+              f"{r['bound_ms']:.5f} ms (bytes)", flush=True)
     kinfo = {}
     for name, r in rec.items():
         bound_s = max(r["bytes"] / MEM_BPS, r["ops"] / OPS_PS)
@@ -501,10 +853,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_s * 1e3,
-            "bound_by": by, "library_ms": r["library_ms"]}
+            "bound_by": by, "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"]}
         extra = {k: v for k, v in r.items()
-                 if k not in ("max_abs_err", "ms", "plain_ms", "library_ms")}
-        print(f"[kernel] {name}: ms {r['ms']:.4f}, plain {r['plain_ms']:.4f},"
+                 if k not in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                              "library_ms")}
+        print(f"[kernel] {name}: ms {r['ms']:.4f}, device {r['device_ms']},"
+              f" plain {r['plain_ms']:.4f},"
               f" library {r['library_ms']}, bound {bound_s * 1e3:.5f} ms "
               f"({by}), max_abs_err {r['max_abs_err']:.3g}, {extra}",
               flush=True)

@@ -110,19 +110,86 @@ def test_equi_join_and_lex_order_match_plain(dev):
         assert torch.equal(got, want[:got.shape[0]])
 
 
+def test_csr_reduce_matches_plain(dev):
+    """HK5 over a group index: short groups on a thread each, long ones
+    (past the 1024-row threshold) through the chunk queue, NULL lanes,
+    invalid and padding rows, padding groups; bit-identical run to run."""
+    rng = np.random.default_rng(3)
+    n, nb = 60000, 1 << 16
+    key = rng.integers(0, 500, n)
+    key[:3000] = 7
+    key[3000:4025] = 9
+    order = np.argsort(key, kind="stable")
+    sk = key[order]
+    ends = np.nonzero(np.r_[sk[1:] != sk[:-1], True])[0]
+    ng, ngb = len(ends), 1024
+    o = _t(K.pad1(order.astype(np.int64), nb), dev)
+    e = _t(K.pad1(ends.astype(np.int64), ngb, fill=n - 1), dev)
+    valid = _t(rng.random(nb) < 0.8, dev)
+    v = _t(rng.normal(size=nb), dev)
+    iv = _t(rng.integers(-9, 9, nb), dev, torch.int64)
+    m = _t(rng.random(nb) < 0.1, dev)
+    lanes = [(v, m, "sum"), (v, None, "min"), (v, m, "max"),
+             (iv, m, "sum"), (iv, None, "min"), (None, m, "count")]
+    a = K.csr_reduce(o, e, valid, lanes, n, ng)
+    b = K.csr_reduce_plain(o, e, valid, lanes, n, ng)
+    assert torch.equal(a[:2], b[:2]) and torch.equal(a[3:], b[3:])
+    torch.testing.assert_close(a[2].view(torch.float64),
+                               b[2].view(torch.float64), rtol=1e-9,
+                               atol=1e-12)
+    assert torch.equal(a, K.csr_reduce(o, e, valid, lanes, n, ng))
+
+
+def test_dense_probe_matches_plain(dev):
+    rng = np.random.default_rng(4)
+    n, m = 5000, 256
+    for lo in (-100, (1 << 63) - 300, -(1 << 63)):
+        hi = lo + 299
+        tbl = np.full(300, -1, np.int32)
+        tbl[rng.choice(300, 200, replace=False)] = np.arange(200)
+        off = rng.integers(-20, 320, n)
+        kp = np.array([min(max(lo + int(x), -(1 << 63)), (1 << 63) - 1)
+                       for x in off], dtype=np.int64)
+        args = (_t(kp, dev), _t(rng.random(n) < 0.1, dev),
+                _t(rng.random(n) < 0.9, dev), lo, hi, _t(tbl, dev),
+                _t(rng.random(m) < 0.8, dev),
+                [(_t(rng.normal(size=m), dev), _t(rng.random(m) < 0.2, dev)),
+                 (_t(rng.integers(0, 9, m), dev, torch.int64), None),
+                 (_t(rng.random(m) < 0.5, dev), None)])
+        for mode in ("inner", "left", "semi", "anti"):
+            va, la = K.dense_probe(*args, mode)
+            vb, lb = K.dense_probe_plain(*args, mode)
+            assert torch.equal(va, vb) and len(la) == len(lb), mode
+            for (x, xn), (y, yn) in zip(la, lb):
+                assert torch.equal(xn, yn), mode
+                assert torch.equal(x.view(torch.uint8),
+                                   y.view(torch.uint8)), mode
+
+
 def test_tpch_on_the_card_matches_the_cpu_tier(dev):
+    """Both device tiers on the card — the pipeline (the default) and the
+    per-operator tier — launch every kernel between them, run no plain
+    version, and give the CPU tier's rows."""
     from tinysql_tpu_torch.bench import tpch
     from tinysql_tpu_torch.session import new_session
     s = new_session()
     assert s.device.type == "cuda"
     tpch.load(s, sf=0.01, seed=7)
     s.execute("set tidb_tpu_min_rows = 0")
-    K.reset_kernel_counts()
-    gpu = {q: s.query(sql).rows for q, sql in tpch.QUERIES.items()}
-    counts = K.kernel_counts()
-    assert all(counts["launches"].values()), counts
-    assert not any(counts["plain_calls"].values()), counts
+    launched = dict.fromkeys(K.LAUNCHES, 0)
+    gpu = {}
+    for devpipe in (-1, 0):
+        s.execute(f"set tidb_devpipe = {devpipe}")
+        K.reset_kernel_counts()
+        gpu[devpipe] = {q: s.query(sql).rows
+                        for q, sql in tpch.QUERIES.items()}
+        counts = K.kernel_counts()
+        assert not any(counts["plain_calls"].values()), counts
+        for k, v in counts["launches"].items():
+            launched[k] += v
+    assert all(launched.values()), launched
     s.execute("set tidb_use_tpu = 0")
     for q, sql in tpch.QUERIES.items():
-        assert tpch.canon_rows(s.query(sql).rows) == \
-            tpch.canon_rows(gpu[q]), q
+        cpu = tpch.canon_rows(s.query(sql).rows)
+        for devpipe in (-1, 0):
+            assert cpu == tpch.canon_rows(gpu[devpipe][q]), (devpipe, q)

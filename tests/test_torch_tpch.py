@@ -70,13 +70,15 @@ def _same(a, b, q):
 def test_tpch_matches_reference_device_tier(sessions, q, monkeypatch):
     ref, port = sessions
     built = []
-    orig = gpu_executors.build_gpu_executor
+    orig = gpu_executors._build_gpu_op
 
     def record(plan):
+        # the per-operator executors (auto on the CPU: the pipeline tier
+        # hands them every plan)
         ex = orig(plan)
         built.append(type(ex).__name__)
         return ex
-    monkeypatch.setattr(gpu_executors, "build_gpu_executor", record)
+    monkeypatch.setattr(gpu_executors, "_build_gpu_op", record)
     kernels.reset_kernel_counts()
     want = ref.query(ref_tpch.QUERIES[q]).rows
     got = port.query(port_tpch.QUERIES[q]).rows
@@ -104,13 +106,19 @@ def test_generators_agree():
 
 
 def test_not_ported_paths_fail_loudly(sessions):
+    """A non-unique join in the forced pipeline tier (its CSR mode is not
+    ported; Q3's unique joins are) and the mesh tier raise, naming their
+    ROADMAP items."""
     _, port = sessions
-    for var, item in (("tidb_devpipe = 1", "item 2"),
-                      ("tidb_mesh_parallel = 1", "item 10")):
+    nonunique = ("select o_orderkey, l_quantity from orders join lineitem "
+                 "on o_custkey = l_suppkey")
+    for var, item, sql in (("tidb_devpipe = 1", "item 1", nonunique),
+                           ("tidb_mesh_parallel = 1", "item 10",
+                            port_tpch.QUERIES["Q3"])):
         port.execute(f"set {var}")
         try:
             with pytest.raises(NotImplementedError, match=item):
-                port.query(port_tpch.QUERIES["Q3"])
+                port.query(sql)
         finally:
             port.execute("set " + var.split("=")[0] + "= " +
                          ("-1" if "devpipe" in var else "0"))

@@ -2,14 +2,18 @@
 
     python3 -m tinysql_tpu_torch.bench.trace_tpch [--out FILE]
 
-Loads TPC-H at SF=1 (seed 7, the main path's data) into a session on the current CUDA device,
-then for each query: the first run's wall, the best of three warm walls,
+Loads TPC-H at SF=1 (seed 7, the main path's data) into a session on the
+current CUDA device, then for each device tier (the pipeline tier,
+tidb_devpipe=-1, the default; the per-operator tier, tidb_devpipe=0) and
+each query: the first run's wall, the best of three warm walls,
 and one more warm run under torch.profiler (CPU + CUDA activities) giving
 the device time summed over its kernels (one stream, so kernels do not
 overlap), the device idle share of the wall, the kernels by device time,
 and the per-operator walls and device counters the session records
-(obs/context.py).  Prints one JSON object per query and, with --out,
-writes them all to that file.  Exits 2 without a CUDA device.
+(obs/context.py).  Prints one JSON object per (tier, query) and, with
+--out, writes them all to that file.  The tiers share the replica's
+string dictionaries and column uploads, so the second tier's first run
+does not pay them.  Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import sys
 import time
 
 SF, SEED = 1.0, 7
+#: tier -> tidb_devpipe
+TIERS = {"pipeline": -1, "per_op": 0}
 
 
 def _card() -> str:
@@ -31,7 +37,7 @@ def _card() -> str:
         else "unknown"
 
 
-def _device_us(evt) -> float:
+def device_us(evt) -> float:
     """Device time of a device-side event (a kernel or a copy); 0 for a
     host op, whose self device time repeats its kernels' time."""
     if "CUDA" not in str(getattr(evt, "device_type", "")):
@@ -62,8 +68,8 @@ def trace_query(sess, sql: str, torch) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     stats = sess.last_query_stats.summary()
-    kernels = [(e.key, _device_us(e), e.count)
-               for e in prof.key_averages() if _device_us(e) > 0]
+    kernels = [(e.key, device_us(e), e.count)
+               for e in prof.key_averages() if device_us(e) > 0]
     kernels.sort(key=lambda k: -k[1])
     device_s = sum(k[1] for k in kernels) / 1e6
     return {
@@ -94,11 +100,15 @@ def main(argv=None) -> int:
     from ..session import new_session
     sess = new_session()
     tpch.load(sess, sf=SF, seed=SEED)
-    out = {"card": _card(), "sf": SF, "seed": SEED, "queries": {}}
-    for q, sql in tpch.QUERIES.items():
-        rec = trace_query(sess, sql, torch)
-        out["queries"][q] = rec
-        print(json.dumps({"query": q, **rec}, default=str), flush=True)
+    out = {"card": _card(), "sf": SF, "seed": SEED, "tiers": {}}
+    for tier in TIERS:
+        sess.execute(f"set tidb_devpipe = {TIERS[tier]}")
+        out["tiers"][tier] = {}
+        for q, sql in tpch.QUERIES.items():
+            rec = trace_query(sess, sql, torch)
+            out["tiers"][tier][q] = rec
+            print(json.dumps({"tier": tier, "query": q, **rec},
+                             default=str), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

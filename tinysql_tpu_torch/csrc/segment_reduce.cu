@@ -34,11 +34,14 @@
 //   in a fixed stride and fold their partials in a fixed tree), then one
 //   thread per long run folds its chunks' partials in chunk order.  So one
 //   group spreads over the whole card.  No atomics but the queue slots,
-//   whose order changes which block reduces a chunk and not how.
+//   whose order changes which block reduces a chunk and not how.  The
+//   accumulators and the long-run queue live in run_reduce.cuh, shared
+//   with HK5 csr_reduce.
 // Either way float sums have a fixed order: bit-identical run to run.
 // Float min/max compare order keys in every regime (-0.0 < +0.0), so the
 // result does not depend on the regime or on the order of the rows.
 #include "lex_sort.cuh"
+#include "run_reduce.cuh"
 
 namespace {
 
@@ -51,26 +54,6 @@ struct Part {
   int64_t cnt;
   int64_t nan;
 };
-
-__device__ __forceinline__ int64_t value_identity(int kind, int op) {
-  if (op == OP_MIN) return kind == KIND_I64 ? kI64Max : f64_to_bits(INFINITY);
-  if (op == OP_MAX) return kind == KIND_I64 ? kI64Min : f64_to_bits(-INFINITY);
-  return 0;  // int 0 and the bits of +0.0
-}
-
-// min/max of float lanes run over order keys; their identity
-__device__ __forceinline__ int64_t mm_key_identity(int op) {
-  return op == OP_MIN ? kI64Max : kI64Min;
-}
-
-__device__ __forceinline__ int64_t finish_value(int kind, int op, int64_t v,
-                                                int64_t cnt, int64_t nan) {
-  if (op == OP_SUM || op == OP_COUNT) return op == OP_COUNT ? 0 : v;
-  if (kind == KIND_F64 && nan) return f64_to_bits(NAN);
-  if (cnt == 0) return value_identity(kind, op);
-  if (kind == KIND_F64) return f64_to_bits(f64_from_order_key(v));
-  return v;
-}
 
 __global__ void sr_small_partial(const int64_t* __restrict__ gid,
                                  const uint8_t* __restrict__ valid, int64_t n,
@@ -180,77 +163,6 @@ __global__ void sr_small_merge(Lanes L, const Part* __restrict__ part,
 
 // ---- many segments: stable sort by group, then a thread or block per run -
 
-constexpr int64_t kLongRun = 1024;  // longer runs are cut into chunks
-constexpr int64_t kChunk = 16384;   // rows of a long run per block
-constexpr int kLThreads = 256;
-constexpr int kLBlocks = 264;       // two per SM of an H100 SXM
-
-// One lane's running reduction.  Integer and order-key min/max do not
-// depend on the order of the rows; sums are folded in the caller's fixed
-// order.
-struct Acc {
-  int64_t v;    // int sum, or int / order-key min / max
-  double f;     // float sum
-  int64_t cnt;  // live rows
-  int64_t nan;  // a float min/max lane saw NaN
-};
-
-__device__ __forceinline__ Acc acc_init(int op) {
-  Acc a;
-  a.v = op == OP_SUM ? 0 : mm_key_identity(op == OP_MAX ? OP_MAX : OP_MIN);
-  a.f = 0.0;
-  a.cnt = 0;
-  a.nan = 0;
-  return a;
-}
-
-__device__ __forceinline__ void acc_row(Acc& a, int kind, int op,
-                                        const void* xv, int64_t r) {
-  ++a.cnt;
-  if (op == OP_COUNT) return;
-  if (kind == KIND_I64) {
-    const int64_t x = ((const int64_t*)xv)[r];
-    if (op == OP_SUM) a.v = wrap_add(a.v, x);
-    else if (op == OP_MIN) a.v = x < a.v ? x : a.v;
-    else a.v = x > a.v ? x : a.v;
-    return;
-  }
-  const double x = ((const double*)xv)[r];
-  if (op == OP_SUM) {
-    a.f += x;
-  } else if (is_nan_f64(x)) {
-    a.nan = 1;
-  } else {
-    const int64_t k = f64_order_key(x);
-    if (op == OP_MIN) a.v = k < a.v ? k : a.v;
-    else a.v = k > a.v ? k : a.v;
-  }
-}
-
-// a then b, in that order
-__device__ __forceinline__ void acc_merge(Acc& a, const Acc& b, int kind,
-                                          int op) {
-  a.cnt += b.cnt;
-  a.nan |= b.nan;
-  if (op == OP_SUM) {
-    if (kind == KIND_I64) a.v = wrap_add(a.v, b.v);
-    else a.f += b.f;
-  } else if (op == OP_MIN) {
-    a.v = b.v < a.v ? b.v : a.v;
-  } else if (op == OP_MAX) {
-    a.v = b.v > a.v ? b.v : a.v;
-  }
-}
-
-__device__ __forceinline__ void acc_store(const Acc& a, int kind, int op,
-                                          int j, int64_t g, int64_t ns,
-                                          int64_t* out) {
-  const int64_t v =
-      op == OP_SUM && kind == KIND_F64 ? f64_to_bits(a.f) : a.v;
-  out[(2 + 2 * (int64_t)j) * ns + g] = finish_value(kind, op, v, a.cnt, a.nan);
-  out[(3 + 2 * (int64_t)j) * ns + g] = a.cnt;
-}
-
 __device__ __forceinline__ int64_t seg_key(const int64_t* gid,
                                            const uint8_t* valid, int64_t ns,
                                            int64_t r) {
@@ -266,25 +178,6 @@ __global__ void sr_keys(const int64_t* __restrict__ gid,
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride)
     keys[i] = (uint64_t)seg_key(gid, valid, ns, i);
-}
-
-__global__ void sr_init(Lanes L, int64_t ns, int64_t n,
-                        int64_t* __restrict__ out, int64_t* __restrict__ runs) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) runs[0] = runs[1] = 0;  // queues
-  const int64_t rows = 2 + 2 * (int64_t)L.n;
-  const int64_t total = rows * ns;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const int64_t r = i / ns;
-    int64_t v = 0;
-    if (r == 1) v = n;
-    else if (r >= 2 && (r & 1) == 0) {
-      int j = (int)((r - 2) / 2);
-      v = L.op[j] == OP_COUNT ? 0 : value_identity(L.kind[j], L.op[j]);
-    }
-    out[i] = v;
-  }
 }
 
 // First q in (s, n] whose key differs from g = key(s); the keys ascend
@@ -311,22 +204,6 @@ __device__ int64_t run_end(const int64_t* gid, const uint8_t* valid,
   return hi;
 }
 
-// The long-run queues, in the scratch after the sorted positions:
-// runs[0] long runs queued, runs[1] chunks queued; then per long run k
-// (segment, first chunk, chunk count) at runs[2 + 3k]; then per chunk c
-// its [start, end) in sorted order at chunks[2c]; then the chunk partials,
-// part[c * L.n + lane].
-struct LongQueue {
-  int64_t* runs;
-  int64_t* chunks;
-  Acc* part;
-};
-
-inline int64_t long_cap_runs(int64_t n) { return n / kLongRun + 1; }
-inline int64_t long_cap_chunks(int64_t n) {
-  return n / kChunk + long_cap_runs(n);
-}
-
 __global__ void sr_runs(const int64_t* __restrict__ gid,
                         const uint8_t* __restrict__ valid, int64_t n,
                         int64_t ns, const int64_t* __restrict__ spos,
@@ -341,19 +218,7 @@ __global__ void sr_runs(const int64_t* __restrict__ gid,
     out[g] = e - s;
     out[ns + g] = spos[s];  // rows ascend within a run: the first row
     if (e - s > kLongRun) {
-      const int64_t nc = (e - s + kChunk - 1) / kChunk;
-      const int64_t k =
-          (int64_t)atomicAdd((unsigned long long*)&Q.runs[0], 1ULL);
-      const int64_t c0 = (int64_t)atomicAdd((unsigned long long*)&Q.runs[1],
-                                            (unsigned long long)nc);
-      Q.runs[2 + 3 * k] = g;
-      Q.runs[3 + 3 * k] = c0;
-      Q.runs[4 + 3 * k] = nc;
-      for (int64_t c = 0; c < nc; ++c) {
-        const int64_t cs = s + c * kChunk;
-        Q.chunks[2 * (c0 + c)] = cs;
-        Q.chunks[2 * (c0 + c) + 1] = cs + kChunk < e ? cs + kChunk : e;
-      }
+      queue_long_run(Q, g, s, e);
       continue;
     }
     for (int j = 0; j < L.n; ++j) {
@@ -370,59 +235,12 @@ __global__ void sr_runs(const int64_t* __restrict__ gid,
   }
 }
 
-// One block per queued chunk: thread t takes rows cs + t, cs + t + T, ...
-// in order, then the partials fold in a fixed tree.
-__global__ void sr_chunk_partials(const int64_t* __restrict__ spos, Lanes L,
-                                  LongQueue Q) {
-  __shared__ Acc s_acc[kLThreads];
-  const int t = threadIdx.x;
-  const int64_t nchunk = Q.runs[1];
-  for (int64_t c = blockIdx.x; c < nchunk; c += gridDim.x) {
-    const int64_t cs = Q.chunks[2 * c], ce = Q.chunks[2 * c + 1];
-    for (int j = 0; j < L.n; ++j) {
-      const uint8_t* nl = L.nulls[j];
-      const int kind = L.kind[j], op = L.op[j];
-      Acc a = acc_init(op);
-      for (int64_t q = cs + t; q < ce; q += kLThreads) {
-        const int64_t r = spos[q];
-        if (nl && nl[r]) continue;
-        acc_row(a, kind, op, L.vals[j], r);
-      }
-      s_acc[t] = a;
-      __syncthreads();
-      for (int st = kLThreads / 2; st > 0; st >>= 1) {
-        if (t < st) {
-          Acc x = s_acc[t];
-          acc_merge(x, s_acc[t + st], kind, op);
-          s_acc[t] = x;
-        }
-        __syncthreads();
-      }
-      if (t == 0) Q.part[c * L.n + j] = s_acc[0];
-      __syncthreads();
-    }
-  }
-}
-
-// One thread per (long run, lane): fold the run's chunk partials in chunk
-// order.
-__global__ void sr_long_fold(Lanes L, int64_t ns, LongQueue Q,
-                             int64_t* __restrict__ out) {
-  const int64_t total = Q.runs[0] * L.n;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const int64_t k = i / L.n;
-    const int j = (int)(i % L.n);
-    const int64_t g = Q.runs[2 + 3 * k], c0 = Q.runs[3 + 3 * k];
-    const int64_t nc = Q.runs[4 + 3 * k];
-    const int kind = L.kind[j], op = L.op[j];
-    Acc a = Q.part[c0 * L.n + j];
-    for (int64_t c = 1; c < nc; ++c)
-      acc_merge(a, Q.part[(c0 + c) * L.n + j], kind, op);
-    acc_store(a, kind, op, j, g, ns, out);
-  }
-}
+// sorted position -> row for the long-run queue (every row of a run is
+// live: the sort put the invalid rows past the last segment)
+struct SortedRows {
+  const int64_t* spos;
+  __device__ int64_t operator()(int64_t q) const { return spos[q]; }
+};
 
 int64_t small_blocks(int64_t n) {
   int64_t b = (n + kSThreads * 16 - 1) / (kSThreads * 16);
@@ -464,9 +282,7 @@ TS_API int64_t hk2_scratch_bytes(int64_t n, int64_t ns, int nlanes) {
     return (int64_t)sizeof(Part) * (nlanes + 1) * small_blocks(n) * ns;
   // keys + two ping-pong buffers (one lane + positions) + sorted positions
   // + the long-run queues and the chunk partials
-  return 8 * n + 2 * 16 * n + 8 * n +
-         8 * (2 + 3 * long_cap_runs(n) + 2 * long_cap_chunks(n)) +
-         (int64_t)sizeof(Acc) * long_cap_chunks(n) * (nlanes > 0 ? nlanes : 1);
+  return 8 * n + 2 * 16 * n + 8 * n + long_queue_bytes(n, nlanes);
 }
 
 TS_API int hk2_segment_reduce(const int64_t* gid, const uint8_t* valid,
@@ -487,11 +303,8 @@ TS_API int hk2_segment_reduce(const int64_t* gid, const uint8_t* valid,
   uint64_t* bufA = keys + n;
   uint64_t* bufB = bufA + 2 * n;
   int64_t* spos = (int64_t*)(bufB + 2 * n);
-  LongQueue q;
-  q.runs = spos + n;
-  q.chunks = q.runs + 2 + 3 * long_cap_runs(n);
-  q.part = (Acc*)(q.chunks + 2 * long_cap_chunks(n));
-  LAUNCH(sr_init, grid_for((2 + 2 * lanes->n) * ns, 256, 1 << 16), 256, 0, st,
+  const LongQueue q = long_queue_at(spos + n, n);
+  LAUNCH(run_init, grid_for((2 + 2 * lanes->n) * ns, 256, 1 << 16), 256, 0, st,
          *lanes, ns, n, out, q.runs);
   if (n > 0) {
     LAUNCH(sr_keys, grid_for(n, 256, 1 << 16), 256, 0, st, gid, valid, n, ns,
@@ -511,10 +324,10 @@ TS_API int hk2_segment_reduce(const int64_t* gid, const uint8_t* valid,
     LAUNCH(sr_runs, grid_for(n, 256, 1 << 16), 256, 0, st, gid, valid, n, ns,
            (const int64_t*)spos, *lanes, out, q);
     if (n > kLongRun && lanes->n > 0) {
-      LAUNCH(sr_chunk_partials, kLBlocks, kLThreads, 0, st,
-             (const int64_t*)spos, *lanes, q);
-      LAUNCH(sr_long_fold, grid_for(long_cap_runs(n) * lanes->n, 256, 1024),
-             256, 0, st, *lanes, ns, q, out);
+      LAUNCH(run_chunk_partials<SortedRows>, kLBlocks, kLThreads, 0, st,
+             SortedRows{spos}, *lanes, 0, q);
+      LAUNCH(run_long_fold, grid_for(long_cap_runs(n) * lanes->n, 256, 1024),
+             256, 0, st, *lanes, 0, ns, n, q, out);
     }
   }
   return (int)cudaGetLastError();

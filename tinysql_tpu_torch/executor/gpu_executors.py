@@ -13,10 +13,15 @@ String group/sort keys and string filters ride order-preserving dictionary
 codes built on the host (np.unique), so TPC-H-style char keys still take
 the device path.
 
-Not ported in this slice, and failing loudly instead of falling back:
-block-wise execution (``tidb_device_block_rows``) and the devpipe
-pipeline tier (ROADMAP queue 1, item 2), the memory-adaptive spill route
-(item 6), and the multi-device mesh tier (item 10).
+Plans with a join or a grouped aggregate go to the device pipeline tier
+(executor/devpipe.py) first, which runs them on CUDA by default
+(``tidb_devpipe``) and hands the shapes it does not take to these
+operators.
+
+Not ported yet, and failing loudly instead of falling back: block-wise
+execution (``tidb_device_block_rows``, ROADMAP queue 1, item 1), the
+memory-adaptive spill route (item 6), and the multi-device mesh tier
+(item 10).
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from ..planner.physical import (PhysicalHashAgg, PhysicalHashJoin,
 from .executors import Executor, build_executor
 
 _BLOCKWISE_TODO = ("block-wise device execution (tidb_device_block_rows) "
-                   "is not ported yet: ROADMAP queue 1, item 2")
+                   "is not ported yet: ROADMAP queue 1, item 1")
 _SPILL_TODO = ("memory-adaptive spill execution is not ported yet: "
                "ROADMAP queue 1, item 6")
 _MESH_TODO = ("the multi-device mesh tier (tidb_mesh_parallel) is not "
@@ -88,22 +93,26 @@ def _est_rows_of(plan_child) -> float:
     return float(getattr(plan_child, "stats_row_count", 0.0) or 0.0)
 
 
-def _spill_gate(ctx, est_rows: float, actual_rows: int,
-                row_bytes: int) -> None:
-    """The reference's spill decision (ops/spill.maybe_context): the
-    spillForceAll failpoint, a crossed soft watermark, or a planner
-    estimate above the watermark headroom.  Where it would spill, the
-    port raises — the partitioned route is not ported."""
+def _would_spill(est_bytes: float) -> bool:
+    """The reference's spill decision (ops/spill.would_spill), side-effect
+    free: the spillForceAll failpoint, a crossed soft watermark, or a
+    planner estimate above the watermark headroom."""
     from ..utils import memory as _memory
     if fail.is_armed("spillForceAll"):
-        raise NotImplementedError(_SPILL_TODO)
+        return True
     tracker = _memory.current()
     if tracker is None or tracker.quota <= 0:
-        return
-    est_bytes = int(max(est_rows, float(actual_rows), 0)
-                    * max(row_bytes, 1))
-    if tracker.spill_requested() or (
-            tracker.spill_watermark > 0 and est_bytes > tracker.headroom()):
+        return False
+    return tracker.spill_requested() or (
+        tracker.spill_watermark > 0 and est_bytes > tracker.headroom())
+
+
+def _spill_gate(ctx, est_rows: float, actual_rows: int,
+                row_bytes: int) -> None:
+    """Where the reference would spill, the port raises — the partitioned
+    route is not ported."""
+    if _would_spill(int(max(est_rows, float(actual_rows), 0)
+                        * max(row_bytes, 1))):
         raise NotImplementedError(_SPILL_TODO)
 
 
@@ -416,8 +425,6 @@ class GPUHashAggExec(Executor):
         self._done = False
 
     def open(self, ctx):
-        if self.plan.group_by:
-            _check_devpipe(ctx)
         super().open(ctx)
         self._done = False
 
@@ -1043,7 +1050,6 @@ class GPUHashJoinExec(Executor):
         self._done = False
 
     def open(self, ctx):
-        _check_devpipe(ctx)
         super().open(ctx)
         self._done = False
 
@@ -1433,27 +1439,15 @@ def _marshal(chk: Chunk):
 
 
 def build_gpu_executor(plan) -> Optional[Executor]:
-    """GPU-tier builder.  The reference sends subtrees with a join or a
-    grouped aggregate to its devpipe pipeline tier; the port runs every
-    operator on the per-operator tier until devpipe is ported
-    (``tidb_devpipe=-1``, auto, means this tier; ``tidb_devpipe=1``
-    raises)."""
+    """GPU-tier builder.  Subtrees containing a supported join or a
+    grouped aggregate run as a device pipeline (executor/devpipe.py), with
+    the per-operator executors where the pipeline routes the plan; lone
+    operators use the per-op executors (whose fused paths are already
+    single-call)."""
+    from .devpipe import DevPipeExec, _contains_grouped_agg, _contains_join
+    if _contains_join(plan) or _contains_grouped_agg(plan):
+        return DevPipeExec(plan, _build_gpu_op)
     return _build_gpu_op(plan)
-
-
-def _check_devpipe(ctx) -> None:
-    """The reference runs subtrees with a join or a grouped aggregate in
-    its devpipe pipeline tier when ``tidb_devpipe=1``; the port has not
-    built that tier (ROADMAP queue 1, item 2)."""
-    raw = ctx.session_vars.get("tidb_devpipe", -1)
-    try:
-        forced = raw is not None and int(raw) == 1
-    except (TypeError, ValueError):
-        forced = False
-    if forced:
-        raise NotImplementedError(
-            "the devpipe pipeline tier (tidb_devpipe=1) is not ported yet: "
-            "ROADMAP queue 1, item 2")
 
 
 def _build_gpu_op(plan) -> Optional[Executor]:

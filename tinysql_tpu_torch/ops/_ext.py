@@ -3,7 +3,7 @@
 Each source is compiled on its own by ``nvcc`` into a shared library with
 a plain C interface (sm_90a, -O3) and loaded with ctypes: no PyTorch
 headers are involved, so a build takes seconds, not the minutes a
-``torch/extension.h`` translation unit costs.  The four compiles run in
+``torch/extension.h`` translation unit costs.  The compiles run in
 parallel at first use; the libraries land in ``tinysql_tpu_torch/_build/``
 (listed in .gitignore) under a hash of the sources, so a later process of
 the same checkout loads them without rebuilding.
@@ -20,7 +20,8 @@ import threading
 import time
 from typing import Dict, Optional
 
-SOURCES = ("masked_reduce", "segment_reduce", "equi_join", "lex_order")
+SOURCES = ("masked_reduce", "segment_reduce", "equi_join", "lex_order",
+           "csr_reduce", "dense_probe")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -65,6 +66,15 @@ _SIGNATURES = {
     },
     "lex_order": {
         "hk4_lex_order": (_int, [_vp, _int, _i64, _i64, _vp, _vp, _vp, _vp]),
+    },
+    "csr_reduce": {
+        "hk5_scratch_bytes": (_i64, [_i64, _int]),
+        "hk5_csr_reduce": (_int, [_vp, _vp, _vp, _i64, _i64, _i64, _vp, _vp,
+                                  _vp, _vp]),
+    },
+    "dense_probe": {
+        "hk6_dense_probe": (_int, [_vp, _vp, _vp, _i64, _i64, _i64, _vp, _i64,
+                                   _vp, _i64, _int, _vp, _vp, _vp]),
     },
 }
 

@@ -1,7 +1,7 @@
 """Device core of the port and the relational kernels it runs.
 
 The port of tinysql_tpu/ops/kernels.py.  The JAX package compiled every
-operator family into XLA programs; here each family's core is one of four
+operator family into XLA programs; here each family's core is one of six
 kernels written by hand for Hopper (csrc/*.cu, built by ops/_ext.py), and
 the elementwise work around them (the filter and argument expression
 trees of ops/exprjit.py, key normalisation, output layout) runs as plain
@@ -16,7 +16,12 @@ torch tensor operations:
   (csrc/equi_join.cu) — join matching (K6 unique_join_match, K7
   join_match, and K8 semi_join_match's membership test);
 - HK4 :func:`lex_order` (csrc/lex_order.cu) — ORDER BY permutations and
-  top-k (K9 sort_permutation, K10 top_k).
+  top-k (K9 sort_permutation, K10 top_k);
+- HK5 :func:`csr_reduce` (csrc/csr_reduce.cu) — the pipeline tier's
+  GROUP BY over a memoized group index (K17, executor/devpipe.py);
+- HK6 :func:`dense_probe` (csrc/dense_probe.cu) — the pipeline tier's
+  join probe through a dense key -> row table (K18's unique, semi and
+  anti modes).
 
 Every kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain torch version (same contract: inputs, outputs, NULL, sentinel and
@@ -134,7 +139,8 @@ _STATS_MU = threading.Lock()
 #: else
 LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "segment_reduce": 0,
                             "present_compact": 0, "equi_join": 0,
-                            "lex_order": 0}
+                            "lex_order": 0, "csr_reduce": 0,
+                            "dense_probe": 0}
 #: plain-version calls per wrapper (CPU tensors)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
@@ -965,6 +971,235 @@ def sort_lanes(keys, descs, valid: torch.Tensor,
     if not lanes:
         lanes = [(~valid).to(I64)]
     return lanes
+
+
+# =========================================================================
+# HK5 csr_reduce
+# =========================================================================
+
+#: HK5 reserves one lane slot for its presence pseudo-lane
+_MAX_CSR_LANES = _MAX_LANES - 1
+
+
+def csr_reduce(order: torch.Tensor, ends: torch.Tensor,
+               valid: torch.Tensor, lanes, n_rows: int,
+               ng: int) -> torch.Tensor:
+    """Per-group reduction over a precomputed sorted order (a group
+    index).  ``order`` int64[nb] maps sorted positions to rows (positions
+    at or past ``n_rows`` are padding); ``ends`` int64[ngb] holds each
+    group's last sorted position (groups at or past ``ng`` are padding);
+    ``valid`` and the lanes are in row space.  Returns HK2's table layout,
+    int64[(2 + 2 * len(lanes)), ngb]: presence, first valid row (sentinel
+    ``n_rows`` when none), then per lane its values (float64 bit-cast;
+    identity when empty) and live counts."""
+    nb = int(order.shape[0])
+    ngb = int(ends.shape[0])
+    dev = order.device
+    on_card = _on_card(order, "csr_reduce")
+    order, ends, valid = order.contiguous(), ends.contiguous(), \
+        valid.contiguous()
+    _need(order, I64, nb, dev, "csr_reduce order")
+    _need(ends, I64, ngb, dev, "csr_reduce ends")
+    _need(valid, torch.bool, nb, dev, "csr_reduce valid")
+    lanes = _norm_lanes(lanes, nb, dev, "csr_reduce")
+    if ngb < 1 or not 0 <= ng <= ngb or not 0 <= n_rows <= nb:
+        raise ValueError(f"csr_reduce: bad sizes n_rows={n_rows} nb={nb} "
+                         f"ng={ng} ngb={ngb}")
+    if not on_card:
+        return csr_reduce_plain(order, ends, valid, lanes, n_rows, ng)
+    from . import _ext
+    lib = _ext.lib("csr_reduce")
+    tables = []
+    for c0 in range(0, max(len(lanes), 1), _MAX_CSR_LANES):
+        chunk = lanes[c0:c0 + _MAX_CSR_LANES]
+        out = torch.empty((2 + 2 * len(chunk), ngb), dtype=I64, device=dev)
+        scratch = torch.empty(max(lib.hk5_scratch_bytes(n_rows, len(chunk)),
+                                  8), dtype=torch.uint8, device=dev)
+        cl = _c_lanes(chunk)
+        _ext.check(lib.hk5_csr_reduce(
+            order.data_ptr(), ends.data_ptr(), valid.data_ptr(), n_rows, ng,
+            ngb, ctypes.byref(cl), scratch.data_ptr(), out.data_ptr(),
+            _stream()), "csr_reduce")
+        _count(LAUNCHES, "csr_reduce")
+        tables.append(out if not tables else out[2:])
+    return tables[0] if len(tables) == 1 else torch.cat(tables)
+
+
+def _order_flip(b: torch.Tensor) -> torch.Tensor:
+    """float64 bits <-> int64 order keys whose signed order is the float
+    order (-0.0 < +0.0), as the kernels' f64_order_key (an involution)."""
+    return torch.where(b < 0, b ^ I64_MAX, b)
+
+
+def csr_reduce_plain(order, ends, valid, lanes, n_rows: int,
+                     ng: int) -> torch.Tensor:
+    """Plain torch version of HK5 (same contract, any device): a group id
+    per sorted position from ``ends``, then index_add_ / scatter_reduce_
+    in sorted order.  Float min/max compare order keys and propagate NaN,
+    as the kernel does."""
+    _count(PLAIN_CALLS, "csr_reduce")
+    nb = int(order.shape[0])
+    ngb = int(ends.shape[0])
+    dev = order.device
+    pos = torch.arange(nb, dtype=I64, device=dev)
+    gpos = torch.searchsorted(ends[:ng].contiguous(), pos)
+    in_table = (pos < n_rows) & (gpos < ng)
+    rows = torch.where(in_table, order, torch.zeros_like(order))
+    vs = in_table & valid[rows]
+    g, r = gpos[vs], rows[vs]
+    pres = torch.zeros(ngb, dtype=I64, device=dev).index_add_(
+        0, g, torch.ones_like(g))
+    first = torch.full((ngb,), n_rows, dtype=I64, device=dev).scatter_reduce_(
+        0, g, r, "amin", include_self=True)
+    out = [pres, first]
+    for v, m, op in lanes:
+        live = vs if m is None else vs & ~m[rows]
+        gl, rl = gpos[live], rows[live]
+        cnt = torch.zeros(ngb, dtype=I64, device=dev).index_add_(
+            0, gl, torch.ones_like(gl))
+        if op == "count":
+            val = torch.zeros(ngb, dtype=I64, device=dev)
+        elif op == "sum":
+            val = _bits(torch.zeros(ngb, dtype=v.dtype, device=dev)
+                        .index_add_(0, gl, v[rl]))
+        else:
+            red = "amin" if op == "min" else "amax"
+            fill = I64_MAX if op == "min" else I64_MIN
+            x = v[rl]
+            if v.dtype == F64:
+                nan = torch.isnan(x)
+                k = torch.full((ngb,), fill, dtype=I64, device=dev) \
+                    .scatter_reduce_(0, gl[~nan], _order_flip(
+                        x[~nan].view(I64)), red, include_self=True)
+                ident = torch.tensor(_lane_fill(v, op), dtype=F64,
+                                     device=dev).view(I64)
+                val = torch.where(cnt == 0, ident, _order_flip(k))
+                has_nan = torch.zeros(ngb, dtype=torch.bool, device=dev)
+                has_nan[gl[nan]] = True
+                val = torch.where(has_nan, torch.tensor(
+                    float("nan"), dtype=F64, device=dev).view(I64), val)
+            else:
+                val = torch.full((ngb,), fill, dtype=I64, device=dev) \
+                    .scatter_reduce_(0, gl, x, red, include_self=True)
+        out += [val, cnt]
+    return torch.stack(out)
+
+
+# =========================================================================
+# HK6 dense_probe
+# =========================================================================
+
+_PROBE_MODES = {"inner": 0, "left": 1, "semi": 2, "anti": 3}
+
+
+class _CGather(ctypes.Structure):
+    _fields_ = [("vals", ctypes.c_void_p * _MAX_LANES),
+                ("nulls", ctypes.c_void_p * _MAX_LANES),
+                ("out_vals", ctypes.c_void_p * _MAX_LANES),
+                ("out_nulls", ctypes.c_void_p * _MAX_LANES),
+                ("width", ctypes.c_int * _MAX_LANES),
+                ("n", ctypes.c_int)]
+
+
+def _probe_checks(kp, knull, pvalid, tbl, bvalid, blanes, mode):
+    nb = int(kp.shape[0])
+    dev = kp.device
+    kp, knull, pvalid = kp.contiguous(), knull.contiguous(), \
+        pvalid.contiguous()
+    _need(kp, I64, nb, dev, "dense_probe key")
+    _need(knull, torch.bool, nb, dev, "dense_probe key null")
+    _need(pvalid, torch.bool, nb, dev, "dense_probe valid")
+    tbl = tbl.contiguous()
+    _need(tbl, torch.int32, int(tbl.shape[0]), dev, "dense_probe table")
+    bvalid = bvalid.contiguous()
+    nbb = int(bvalid.shape[0])
+    _need(bvalid, torch.bool, nbb, dev, "dense_probe build valid")
+    if nbb < 1 or mode not in _PROBE_MODES:
+        raise ValueError(f"dense_probe: nbb={nbb} mode={mode}")
+    lanes = []
+    for v, m in blanes:
+        v = v.contiguous()
+        _need(v, v.dtype, nbb, dev, "dense_probe build lane")
+        if m is not None:
+            m = m.contiguous()
+            _need(m, torch.bool, nbb, dev, "dense_probe build null")
+        lanes.append((v, m))
+    return kp, knull, pvalid, tbl, bvalid, lanes
+
+
+def dense_probe(kp, knull, pvalid, lo: int, hi: int, tbl, bvalid, blanes,
+                mode: str):
+    """Probe int64 keys (``kp``, NULL flags ``knull``, probe validity
+    ``pvalid``) through a dense table ``tbl`` int32[hi - lo + 1] mapping
+    key - lo to a build row (-1 = absent), live where ``bvalid`` holds.
+    ``mode`` is inner, left, semi or anti.  Returns (valid_out, gathered):
+    valid_out is pvalid (left), pvalid and matched (inner, semi) or pvalid
+    and unmatched (anti); for inner and left, ``gathered`` holds each
+    build lane (values, null) gathered per probe row, NULL where
+    unmatched; for semi and anti it is empty."""
+    kp, knull, pvalid, tbl, bvalid, blanes = _probe_checks(
+        kp, knull, pvalid, tbl, bvalid, blanes, mode)
+    if not _on_card(kp, "dense_probe"):
+        return dense_probe_plain(kp, knull, pvalid, lo, hi, tbl, bvalid,
+                                 blanes, mode)
+    from . import _ext
+    lib = _ext.lib("dense_probe")
+    nb = int(kp.shape[0])
+    dev = kp.device
+    lanes = blanes if mode in ("inner", "left") else []
+    valid_out = torch.empty(nb, dtype=torch.bool, device=dev)
+    outs = []
+    for c0 in range(0, max(len(lanes), 1), _MAX_LANES):
+        chunk = lanes[c0:c0 + _MAX_LANES]
+        cg = _CGather()
+        cg.n = len(chunk)
+        for j, (v, m) in enumerate(chunk):
+            ov = torch.empty(nb, dtype=v.dtype, device=dev)
+            om = torch.empty(nb, dtype=torch.bool, device=dev)
+            cg.vals[j] = v.data_ptr()
+            cg.nulls[j] = _ptr(m)
+            cg.out_vals[j] = ov.data_ptr()
+            cg.out_nulls[j] = om.data_ptr()
+            cg.width[j] = v.element_size()
+            outs.append((ov, om))
+        _ext.check(lib.hk6_dense_probe(
+            kp.data_ptr(), knull.data_ptr(), pvalid.data_ptr(), nb, int(lo),
+            int(hi), tbl.data_ptr(), int(tbl.shape[0]), bvalid.data_ptr(),
+            int(bvalid.shape[0]), _PROBE_MODES[mode], ctypes.byref(cg),
+            valid_out.data_ptr(), _stream()), "dense_probe")
+        _count(LAUNCHES, "dense_probe")
+    return valid_out, outs
+
+
+def dense_probe_plain(kp, knull, pvalid, lo: int, hi: int, tbl, bvalid,
+                      blanes, mode: str):
+    """Plain torch version of HK6 (same contract, any device)."""
+    _count(PLAIN_CALLS, "dense_probe")
+    tbl_len = int(tbl.shape[0])
+    nbb = int(bvalid.shape[0])
+    inr = (kp >= lo) & (kp <= hi) & ~knull
+    if tbl_len:
+        # key - lo only for keys inside [lo, hi]: nothing wraps
+        off = (torch.where(inr, kp, torch.full_like(kp, lo)) - lo).clamp(
+            max=tbl_len - 1)
+        pos = torch.where(inr, tbl[off].to(I64), torch.full_like(kp, -1))
+    else:
+        pos = torch.full_like(kp, -1)
+    ps = pos.clamp(0, nbb - 1)
+    match = (pos >= 0) & bvalid[ps]
+    if mode == "left":
+        valid_out = pvalid.clone()
+    elif mode == "anti":
+        valid_out = pvalid & ~match
+    else:
+        valid_out = pvalid & match
+    if mode not in ("inner", "left"):
+        return valid_out, []
+    outs = []
+    for v, m in blanes:
+        gn = ~match if m is None else m[ps] | ~match
+        outs.append((v[ps], gn))
+    return valid_out, outs
 
 
 # =========================================================================
