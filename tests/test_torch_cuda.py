@@ -166,10 +166,94 @@ def test_dense_probe_matches_plain(dev):
                                    y.view(torch.uint8)), mode
 
 
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units in the last place between two float64
+    tensors (equal NaNs count 0)."""
+    ia, ib = a.view(torch.int64), b.view(torch.int64)
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    d = (ia - ib).abs()
+    d = torch.where(both_nan | (ia == ib), torch.zeros_like(d), d)
+    return int(d.max()) if d.numel() else 0
+
+
+def _same_expr(a, b, what, float_ulps=0):
+    """HK7 against its plain version: the mask and every output lane byte
+    for byte (float lanes within ``float_ulps``)."""
+    (ma, oa), (mb, ob) = a, b
+    assert (ma is None) == (mb is None), what
+    if ma is not None:
+        assert torch.equal(ma, mb), f"{what}: mask"
+    assert len(oa) == len(ob), what
+    for j, ((va, na), (vb, nb)) in enumerate(zip(oa, ob)):
+        assert torch.equal(na, nb), f"{what}: NULL lane {j}"
+        assert (va is None) == (vb is None), what
+        if va is None:
+            continue
+        assert va.dtype == vb.dtype, what
+        if va.dtype == torch.float64 and float_ulps:
+            assert _ulps(va, vb) <= float_ulps, f"{what}: lane {j}"
+        else:
+            assert torch.equal(va.view(torch.int64), vb.view(torch.int64)), \
+                f"{what}: lane {j}"
+
+
+def test_expr_eval_matches_plain(dev):
+    """HK7 over the expression battery (every SQL function the device
+    evaluates, NULLs, int64 extremes, zeros, unsigned words), K14's code
+    compares, K15's layouts and the programs split past its limits: byte
+    for byte against the plain interpreter (float % within 1 ulp), with
+    and without a row cut and an incoming mask, and byte-stable."""
+    from tinysql_tpu_torch.bench import exprcases as EC
+    from tinysql_tpu_torch.ops import exprjit as X
+    rng = np.random.default_rng(7)
+    n = 5000
+    vals, nulls = EC.columns(0, n)
+    cols = [(_t(v, dev), _t(m, dev)) for v, m in zip(vals, nulls)]
+    keep = _t(rng.random(n) < 0.8, dev)
+    specs = [(name, s) for name, ss in EC.CASES.items() for s in ss]
+    specs += list(EC.SPLIT_CASES.items())
+    for name, spec in specs:
+        e = EC.build(spec)
+        pt = X.ParamTable()
+        prog = X.compile_program([e], [e, ("null", e)], pt)
+        pr = K._params_dev(pt.arrays())
+        for kw in ({}, {"n_rows": n - 77, "mask_in": keep}):
+            a = K.expr_eval(prog, cols, pr, n, **kw)
+            _same_expr(a, K.expr_eval(prog, cols, pr, n, **kw), name)
+            _same_expr(a, K.expr_eval_plain(prog, cols, pr, n, **kw),
+                       f"{name} {spec}", 1 if name == "%" else 0)
+    codes, cnull = EC.code_column(1, n)
+    ccols = [(_t(codes, dev), _t(cnull, dev))]
+    for op in EC.CODE_CMP_OPS:
+        pt = X.ParamTable()
+        prog = X.ExprProgram()
+        r = prog.code_cmp(0, op, EC.CODE_LO, EC.CODE_HI, EC.CODE_CARD, pt)
+        prog.cond(r)
+        prog.store(r)
+        pr = K._params_dev(pt.arrays())
+        _same_expr(K.expr_eval(prog, ccols, pr, n),
+                   K.expr_eval_plain(prog, ccols, pr, n), f"code {op}")
+    ids = _t(rng.integers(0, 7 * 14 + 1, n), dev, torch.int64)
+    lcols = [(ids, None), (ids < 7 * 14, None),
+             (_t(rng.normal(size=n), dev), _t(rng.random(n) < 0.1, dev)),
+             (_t(rng.integers(0, 4, n), dev, torch.int64), None)]
+    pt = X.ParamTable()
+    prog = X.ExprProgram()
+    for stride, card, base in ((14, 6, -3), (1, 13, 1 << 40)):
+        prog.store(prog.key_decode(prog.load(0, "i"), prog.load(1, "b"),
+                                   stride, card, base, pt))
+    prog.store(prog.avg(prog.load(2, "f"), prog.load(3, "i")))
+    prog.store(prog.to_real(prog.load(3, "i")))
+    pr = K._params_dev(pt.arrays())
+    _same_expr(K.expr_eval(prog, lcols, pr, n),
+               K.expr_eval_plain(prog, lcols, pr, n), "layout")
+
+
 def test_tpch_on_the_card_matches_the_cpu_tier(dev):
     """Both device tiers on the card — the pipeline (the default) and the
     per-operator tier — launch every kernel between them, run no plain
-    version, and give the CPU tier's rows."""
+    version, and give the CPU tier's rows, for Q1, Q3, Q6 and the
+    workload trio Q5, Q10, Q18."""
     from tinysql_tpu_torch.bench import tpch
     from tinysql_tpu_torch.session import new_session
     s = new_session()
@@ -182,14 +266,14 @@ def test_tpch_on_the_card_matches_the_cpu_tier(dev):
         s.execute(f"set tidb_devpipe = {devpipe}")
         K.reset_kernel_counts()
         gpu[devpipe] = {q: s.query(sql).rows
-                        for q, sql in tpch.QUERIES.items()}
+                        for q, sql in tpch.ALL_QUERIES.items()}
         counts = K.kernel_counts()
         assert not any(counts["plain_calls"].values()), counts
         for k, v in counts["launches"].items():
             launched[k] += v
     assert all(launched.values()), launched
     s.execute("set tidb_use_tpu = 0")
-    for q, sql in tpch.QUERIES.items():
+    for q, sql in tpch.ALL_QUERIES.items():
         cpu = tpch.canon_rows(s.query(sql).rows)
         for devpipe in (-1, 0):
             assert cpu == tpch.canon_rows(gpu[devpipe][q]), (devpipe, q)

@@ -4,8 +4,8 @@ inputs, modelled on the direct-kernel tests of tests/test_tpu_ops.py.
 
 On the CPU each hand kernel's wrapper runs its plain torch version (the
 tensors lie on the CPU), so these tests hold the plain versions of HK1-HK4
-to the reference: fused_scalar_aggregate (HK1), fused_segment_aggregate
-and its device-resident variant (HK2), unique_join_match and join_match
+and HK7 to the reference: fused_scalar_aggregate (HK7 + HK1),
+fused_segment_aggregate and its device-resident variant (HK7 + HK2), unique_join_match and join_match
 (HK3), sort_permutation and top_k (HK4).  The reference's join kernels run
 as its device programs (TINYSQL_DEVICE_JOIN_ONLY=1), not its numpy twins.
 
@@ -84,6 +84,21 @@ def _args(nspecs):
     return [None] + [(lambda cols, pr: cols[0])] * (nspecs - 1)
 
 
+def _port_program(specs, dtype):
+    """The port's fused paths take ONE HK7 expression program: every
+    aggregate reads slot 0.  Returns (program, lane_of, params)."""
+    from tinysql_tpu_torch.executor.gpu_executors import _agg_program
+    from tinysql_tpu_torch.expression import Column
+    from tinysql_tpu_torch.mytypes import new_int_type, new_real_type
+    from tinysql_tpu_torch.ops.exprjit import ParamTable
+    col = Column(new_int_type() if dtype == "int" else new_real_type(),
+                 index=0)
+    pt = ParamTable()
+    prog, lane_of, _ = _agg_program(
+        specs, [col if has else None for _, has in specs], [], pt)
+    return prog, lane_of, pt.arrays()
+
+
 @pytest.mark.parametrize("dtype", ["int", "float"])
 @pytest.mark.parametrize("n,sel", [(1000, 0.7), (37, 0.0), (5, 1.0)])
 def test_fused_scalar_aggregate_matches_reference(dtype, n, sel):
@@ -96,9 +111,10 @@ def test_fused_scalar_aggregate_matches_reference(dtype, n, sel):
     want = ref.fused_scalar_aggregate(
         [_pair(None, v, m, nb, "ref")], SPECS, _args(len(SPECS)), n, nb,
         ("host", jnp.asarray(mask)), program_key=("t", dtype))
+    prog, lane_of, params = _port_program(SPECS, dtype)
     got = port.fused_scalar_aggregate(
-        [_pair(None, v, m, nb, "port")], SPECS, _args(len(SPECS)), n, nb,
-        ("host", port.h2d(mask)), program_key=("t", dtype))
+        [_pair(None, v, m, nb, "port")], SPECS, prog, lane_of, n, nb,
+        ("host", port.h2d(mask)), program_key=("t", dtype), params=params)
     _assert_aggs(got[0], want[0], "scalar")
     np.testing.assert_array_equal(got[1], want[1])
 
@@ -120,10 +136,11 @@ def test_fused_segment_aggregate_matches_reference(dtype, n_segments):
         [_pair(None, v, m, nb, "ref")], jnp.asarray(gid_pad), n_segments,
         SPECS, _args(len(SPECS)), n, ("host", jnp.asarray(mask)),
         program_key=("t", dtype))
+    prog, lane_of, params = _port_program(SPECS, dtype)
     got = port.fused_segment_aggregate(
         [_pair(None, v, m, nb, "port")], port.h2d(gid_pad), n_segments,
-        SPECS, _args(len(SPECS)), n, ("host", port.h2d(mask)),
-        program_key=("t", dtype))
+        SPECS, prog, lane_of, n, ("host", port.h2d(mask)),
+        program_key=("t", dtype), params=params)
     np.testing.assert_array_equal(got[0], want[0])
     _assert_aggs(got[1], want[1], "segment")
     np.testing.assert_array_equal(got[2], want[2])
@@ -133,10 +150,11 @@ def test_fused_segment_aggregate_matches_reference(dtype, n_segments):
         [_pair(None, v, m, nb, "ref")], jnp.asarray(gid_pad), n_segments,
         SPECS[1:], _args(len(SPECS))[1:], ("host", jnp.asarray(mask)),
         program_key=("k", dtype))
+    prog, lane_of, params = _port_program(SPECS[1:], dtype)
     pk = port.fused_segment_aggregate_keep(
         [_pair(None, v, m, nb, "port")], port.h2d(gid_pad), n_segments,
-        SPECS[1:], _args(len(SPECS))[1:], ("host", port.h2d(mask)),
-        program_key=("k", dtype))
+        SPECS[1:], prog, lane_of, n, ("host", port.h2d(mask)),
+        program_key=("k", dtype), params=params)
     assert pk[3:] == rk[3:]
     np.testing.assert_array_equal(pk[0].numpy(), np.asarray(rk[0]))
     np.testing.assert_array_equal(pk[1].numpy(), np.asarray(rk[1]))

@@ -1,14 +1,18 @@
-"""Where the time of TPC-H Q1, Q3 and Q6 goes on the card.
+"""Where the time of TPC-H Q1, Q3, Q6 and the workload trio Q5, Q10, Q18
+goes on the card.
 
     python3 -m tinysql_tpu_torch.bench.trace_tpch [--out FILE]
 
 Loads TPC-H at SF=1 (seed 7, the main path's data) into a session on the
 current CUDA device, then for each device tier (the pipeline tier,
 tidb_devpipe=-1, the default; the per-operator tier, tidb_devpipe=0) and
-each query: the first run's wall, the best of three warm walls,
-and one more warm run under torch.profiler (CPU + CUDA activities) giving
+each query (Q1, Q3, Q6 on both tiers, then the trio on both): the first
+run's wall, the best of three warm walls,
+and one more warm run under torch.profiler (CPU + CUDA activities; taken
+again, up to three times, when its trace holds no device event) giving
 the device time summed over its kernels (one stream, so kernels do not
-overlap), the device idle share of the wall, the kernels by device time,
+overlap), the device idle share of the wall, the number of CUDA kernels
+and of copies it launched, the kernels by device time,
 and the per-operator walls and device counters the session records
 (obs/context.py).  Prints one JSON object per (tier, query) and, with
 --out, writes them all to that file.  The tiers share the replica's
@@ -61,13 +65,21 @@ def trace_query(sess, sql: str, torch) -> dict:
         sess.query(sql)
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sess.query(sql)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+    for _ in range(3):  # a trace without device events is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sess.query(sql)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        evts = [e for e in prof.key_averages()
+                if "CUDA" in str(getattr(e, "device_type", ""))]
+        if evts:
+            break
     stats = sess.last_query_stats.summary()
+    n_copies = sum(e.count for e in evts
+                   if e.key.startswith(("Memcpy", "Memset")))
+    n_kernels = sum(e.count for e in evts) - n_copies
     kernels = [(e.key, device_us(e), e.count)
                for e in prof.key_averages() if device_us(e) > 0]
     kernels.sort(key=lambda k: -k[1])
@@ -78,6 +90,8 @@ def trace_query(sess, sql: str, torch) -> dict:
         "device_s": device_s if kernels else None,
         "device_idle_share": (max(0.0, 1.0 - device_s / wall_s)
                               if kernels else None),
+        "cuda_kernels": n_kernels if evts else None,
+        "copies": n_copies if evts else None,
         "top_kernels": [{"name": n[:80], "device_ms": us / 1e3, "calls": c}
                         for n, us, c in kernels[:10]],
         "operators": [{k: op[k] for k in ("label", "time_ms", "act_rows",
@@ -100,15 +114,18 @@ def main(argv=None) -> int:
     from ..session import new_session
     sess = new_session()
     tpch.load(sess, sf=SF, seed=SEED)
-    out = {"card": _card(), "sf": SF, "seed": SEED, "tiers": {}}
-    for tier in TIERS:
-        sess.execute(f"set tidb_devpipe = {TIERS[tier]}")
-        out["tiers"][tier] = {}
-        for q, sql in tpch.QUERIES.items():
-            rec = trace_query(sess, sql, torch)
-            out["tiers"][tier][q] = rec
-            print(json.dumps({"tier": tier, "query": q, **rec},
-                             default=str), flush=True)
+    out = {"card": _card(), "sf": SF, "seed": SEED,
+           "tiers": {tier: {} for tier in TIERS}}
+    # Q1, Q3 and Q6 on both tiers before the trio: after Q5's run,
+    # torch.profiler loses some kernel events of later traces
+    for queries in (tpch.QUERIES, tpch.WORKLOAD):
+        for tier in TIERS:
+            sess.execute(f"set tidb_devpipe = {TIERS[tier]}")
+            for q, sql in queries.items():
+                rec = trace_query(sess, sql, torch)
+                out["tiers"][tier][q] = rec
+                print(json.dumps({"tier": tier, "query": q, **rec},
+                                 default=str), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -3,8 +3,8 @@
 //
 // Replaces tinysql_tpu/ops/kernels.py:1388 fused_scalar_aggregate (K1),
 // whose XLA program AND-ed the filter mask into masked count / sum / min /
-// max reductions.  Here the filter mask arrives already evaluated (the
-// expression tree runs as torch tensor ops in this slice) and one launch
+// max reductions.  Here the filter mask arrives already evaluated (HK7,
+// csrc/expr_eval.cu, runs the expression program) and one launch
 // reduces every aggregate lane, plus the valid-row count and the first
 // valid row.
 //

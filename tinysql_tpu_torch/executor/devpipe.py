@@ -30,8 +30,10 @@ eagerly as torch ops around the hand kernels:
 - K20 ``_ScalarAggNode``: HK1 :func:`kernels.masked_reduce`.
 - K21 ``_OrderNode``: HK4 :func:`kernels.lex_order` over
   :func:`kernels.sort_lanes` (top-k mode for TopN).
-- K22 ``_SelNode`` / ``_ProjNode``: expression closures of ops/exprjit.py
-  (torch ops); a large output compacts through HK2's
+- K22 ``_SelNode`` / ``_ProjNode`` (and the leaf's scan filters, the
+  aggregates' argument lanes and ``_OrderNode``'s key expressions): one
+  HK7 :func:`kernels.expr_eval` launch per node over the program
+  ops/exprjit.py compiles; a large output compacts through HK2's
   :func:`kernels.present_compact`.
 
 Strings ride order-preserving dictionary codes on the device (decoded on
@@ -69,7 +71,7 @@ from ..expression import Column as ExprColumn, Constant
 from ..expression.aggregation import AGG_COUNT, AGG_SUM
 from ..mytypes import EvalType
 from ..ops import kernels, progcache
-from ..ops.exprjit import (ParamTable, compile_expr_params, is_jittable,
+from ..ops.exprjit import (ParamTable, compile_program, is_jittable,
                            stable_shape_key)
 from ..planner.physical import (PhysicalHashAgg, PhysicalHashJoin,
                                 PhysicalLimit, PhysicalMergeJoin,
@@ -340,10 +342,11 @@ class _ReplicaLeaf:
         n = chk.full_rows()
         nb = kernels.bucket(max(n, 1))
         pt = ParamTable()
-        dm = _build_device_mask(self.ex, rep, chk, filters, pt)
+        dm = _build_device_mask(self.ex, rep, chk, filters)
         if dm is None:
             return None
-        mask_fn, mask_key, _needed = dm
+        conds, mask_key, _needed = dm
+        prog = compile_program(conds, (), pt, mask=True)
         slots = []
         meta: List[tuple] = []
         dts = []
@@ -367,11 +370,14 @@ class _ReplicaLeaf:
                 dts.append("f" if v.dtype == np.float64 else "i")
             slots.append((pb.add(dv), pb.add(dn)))
         ip, fp = pb.params(pt)
+        inr = pb.add(n)
         pb.key(("leaf", mask_key, nb, tuple(dts)))
 
         def emit(args):
             pairs = [(args[iv], args[im]) for iv, im in slots]
-            valid = mask_fn(pairs, (args[ip], args[fp]), kernels._arange(nb))
+            # HK7: the scan filters, rows past the table's count padding
+            valid, _ = kernels.expr_eval(prog, pairs, (args[ip], args[fp]),
+                                         nb, n_rows=args[inr])
             return valid, pairs
         return _TView(emit, nb, meta)
 
@@ -538,37 +544,43 @@ def _agg_out_map(plan):
     return out_map
 
 
-def _spec_programs(specs, pt: ParamTable):
-    """Per spec its argument closure (None for count_star) and its
-    shape key; constants ride ``pt``."""
-    arg_fns = []
+def _spec_program(specs, pt: ParamTable):
+    """ONE HK7 program computing every spec's argument lane (COUNT keeps
+    only the NULL mask), per spec its output index (None for
+    count_star), and the specs' shape key; constants ride ``pt``."""
+    outs = []
+    lane_of = []
     keys = []
     for kind, a in specs:
         if a is None:
-            arg_fns.append(None)
+            lane_of.append(None)
             keys.append(kind)
-        else:
-            arg_fns.append(compile_expr_params(a, pt))
-            keys.append(f"{kind}:{stable_shape_key(a)}")
-    return arg_fns, tuple(keys)
-
-
-def _spec_lanes(spec_kinds, arg_fns, pairs, pr):
-    """The reduction lanes of the specs — (values, null, op) with sum0
-    summing and count reading only the NULL mask — and, per spec, its
-    lane index (-1 for count_star, which is the presence row)."""
-    lanes, lane_of = [], []
-    for kind, af in zip(spec_kinds, arg_fns):
-        if kind == "count_star":
-            lane_of.append(-1)
             continue
-        av, an = af(pairs, pr)
+        outs.append(("null", a) if kind == "count" else a)
+        lane_of.append(len(outs) - 1)
+        keys.append(f"{kind}:{stable_shape_key(a)}")
+    return compile_program((), outs, pt), lane_of, tuple(keys)
+
+
+def _spec_lanes(spec_kinds, prog, lane_of, pairs, pr, nb: int):
+    """The reduction lanes of the specs — (values, null, op) with sum0
+    summing and count reading only the NULL mask — from one HK7 launch,
+    and per spec its lane index (-1 for count_star, which is the
+    presence row)."""
+    outs = kernels.expr_eval(prog, pairs, pr, nb)[1] if prog.outputs \
+        else []
+    lanes, lane_idx = [], []
+    for kind, j in zip(spec_kinds, lane_of):
+        if kind == "count_star":
+            lane_idx.append(-1)
+            continue
+        av, an = outs[j]
         if kind == "count":
             lanes.append((None, an, "count"))
         else:
             lanes.append((av, an, "sum" if kind == "sum0" else kind))
-        lane_of.append(len(lanes) - 1)
-    return lanes, lane_of
+        lane_idx.append(len(lanes) - 1)
+    return lanes, lane_idx
 
 
 def _spec_results(spec_kinds, lanes, lane_of, table):
@@ -719,7 +731,7 @@ class _AggIndexNode:
         ing = pb.add(ng)
         irows = pb.add(rep.n_rows)
         pt = ParamTable()
-        arg_fns, keys = _spec_programs(self.specs, pt)
+        prog, prog_lanes, keys = _spec_program(self.specs, pt)
         ip, fp = pb.params(pt)
         # the cache key must pin EVERYTHING the closure depends on: key
         # column ids + dtypes, the descriptor->spec slot mapping, and the
@@ -737,7 +749,8 @@ class _AggIndexNode:
             valid, pairs = tv.emit(args)
             pr = (args[ip], args[fp])
             n_groups = args[ing]
-            lanes, lane_of = _spec_lanes(spec_kinds, arg_fns, pairs, pr)
+            lanes, lane_of = _spec_lanes(spec_kinds, prog, prog_lanes, pairs,
+                                         pr, nb)
             # sorted positions past the table's rows are padding (they map
             # to row 0) and groups past n_groups are padding: HK5 reads
             # neither
@@ -976,10 +989,11 @@ class _ScalarAggNode:
             return None
         ob = 16  # minimal bucket; the one result row sits at slot 0
         pt = ParamTable()
-        arg_fns, keys = _spec_programs(self.specs, pt)
+        prog, prog_lanes, keys = _spec_program(self.specs, pt)
         ip, fp = pb.params(pt)
+        nb = tv.nb
         pb.key(("scalaragg", keys, tuple(self.slots), tuple(self.out_map),
-                tv.nb, len(tv.meta)))
+                nb, len(tv.meta)))
         spec_kinds = [k for k, _ in self.specs]
         slots = self.slots
         out_map = self.out_map
@@ -988,7 +1002,8 @@ class _ScalarAggNode:
         def emit(args):
             valid, pairs = tv.emit(args)
             pr = (args[ip], args[fp])
-            lanes, lane_of = _spec_lanes(spec_kinds, arg_fns, pairs, pr)
+            lanes, lane_of = _spec_lanes(spec_kinds, prog, prog_lanes, pairs,
+                                         pr, nb)
             red = kernels.masked_reduce(valid.contiguous(), lanes)
             # HK1's [n_valid, first, (value, count)...] as column 0 of a
             # table in HK2's layout: the shared per-spec semantics apply
@@ -1092,18 +1107,16 @@ class _SelNode:
         if tv is None:
             return None
         pt = ParamTable()
-        fns = [compile_expr_params(c, pt) for c in self.conds]
+        prog = compile_program(self.conds, (), pt)
         keys = tuple(stable_shape_key(c) for c in self.conds)
         ip, fp = pb.params(pt)
-        pb.key(("sel", keys, tv.nb, len(tv.meta)))
+        nb = tv.nb
+        pb.key(("sel", keys, nb, len(tv.meta)))
 
         def emit(args):
             valid, pairs = tv.emit(args)
-            pr = (args[ip], args[fp])
-            m = valid
-            for f in fns:
-                v, null = f(pairs, pr)
-                m = m & (v != 0) & ~null
+            m, _ = kernels.expr_eval(prog, pairs, (args[ip], args[fp]), nb,
+                                     mask_in=valid)
             return m, pairs
         return _TView(emit, tv.nb, tv.meta)
 
@@ -1138,31 +1151,31 @@ class _ProjNode:
         if tv is None:
             return None
         pt = ParamTable()
-        fns = []
+        srcs = []   # per output: ("col", slot) | ("fn", program output)
+        exprs = []
         keys = []
         meta = []
         for e, oc in zip(self.exprs, self.plan.schema.columns):
             if isinstance(e, ExprColumn):
-                fns.append(("col", e.index))
+                srcs.append(("col", e.index))
                 keys.append(f"@{e.index}")
                 meta.append((oc.ret_type, tv.meta[e.index][1]))
             else:
-                fns.append(("fn", compile_expr_params(e, pt)))
+                srcs.append(("fn", len(exprs)))
+                exprs.append(e)
                 keys.append(stable_shape_key(e))
                 meta.append((oc.ret_type, None))
+        prog = compile_program((), exprs, pt)
         ip, fp = pb.params(pt)
-        pb.key(("proj", tuple(keys), tv.nb, len(tv.meta)))
+        nb = tv.nb
+        pb.key(("proj", tuple(keys), nb, len(tv.meta)))
 
         def emit(args):
             valid, pairs = tv.emit(args)
-            pr = (args[ip], args[fp])
-            outs = []
-            for kind, f in fns:
-                if kind == "col":
-                    outs.append(pairs[f])
-                else:
-                    outs.append(f(pairs, pr))
-            return valid, outs
+            got = kernels.expr_eval(prog, pairs, (args[ip], args[fp]),
+                                    nb)[1] if exprs else []
+            return valid, [pairs[j] if kind == "col" else got[j]
+                           for kind, j in srcs]
         return _TView(emit, tv.nb, meta)
 
     def close(self):
@@ -1203,15 +1216,18 @@ class _OrderNode:
         if tv is None:
             return None
         pt = ParamTable()
-        fns = []
+        srcs = []   # per key: ("col", slot) | ("fn", program output)
+        exprs = []
         keys = []
         for e, desc in self.by:
             if isinstance(e, ExprColumn):
-                fns.append(("col", e.index))
+                srcs.append(("col", e.index))
                 keys.append(f"@{e.index}:{desc}")
             else:
-                fns.append(("fn", compile_expr_params(e, pt)))
+                srcs.append(("fn", len(exprs)))
+                exprs.append(e)
                 keys.append(f"{stable_shape_key(e)}:{desc}")
+        prog = compile_program((), exprs, pt)
         descs = tuple(d for _, d in self.by)
         nb = tv.nb
         if self.off is None:
@@ -1226,13 +1242,10 @@ class _OrderNode:
 
         def emit(args):
             valid, pairs = tv.emit(args)
-            pr = (args[ip], args[fp])
-            kvs = []
-            for kind, f in fns:
-                if kind == "col":
-                    kvs.append(pairs[f])
-                else:
-                    kvs.append(f(pairs, pr))
+            got = kernels.expr_eval(prog, pairs, (args[ip], args[fp]),
+                                    nb)[1] if exprs else []
+            kvs = [pairs[j] if kind == "col" else got[j]
+                   for kind, j in srcs]
             # the reference's _sort_ops order: NULL first ascending and
             # last descending, invalid rows last, ties by row
             perm = kernels.lex_order(kernels.sort_lanes(kvs, descs, valid),

@@ -32,11 +32,12 @@ import torch
 
 from .. import fail
 from ..chunk import Chunk, Column as CCol, MAX_CHUNK_SIZE
-from ..expression import vectorized_filter
+from ..expression import Column as ExprColumn, vectorized_filter
 from ..expression.aggregation import (AGG_AVG, AGG_COUNT, AGG_FIRST_ROW,
                                       AGG_MAX, AGG_MIN, AGG_SUM)
 from ..mytypes import EvalType
 from ..ops import kernels, progcache
+from ..ops.exprjit import ExprProgram, ParamTable, code_cmp, compile_program
 from ..planner.physical import (PhysicalHashAgg, PhysicalHashJoin,
                                 PhysicalProjection, PhysicalSelection,
                                 PhysicalSort, PhysicalTopN)
@@ -190,29 +191,16 @@ def _parse_string_cmp(chk, cond):
     return a, op, b.value
 
 
-def _code_cmp_fn(idx: int, op: str, lo_s: int, hi_s: int, card_s: int):
-    """Device closure (K14): a string compare as an int compare over the
-    slot's dictionary-code column, with per-query [lo, hi) bounds and the
-    NULL code as runtime params."""
-    def f(cols, params):
-        code, null = cols[idx]
-        pi = params[0]
-        r = _code_cmp(op, code, pi[lo_s], pi[hi_s], pi[card_s], null=null)
-        return r.to(torch.int64), torch.zeros_like(null)
-    return f
-
-
-def _build_device_mask(ex, rep, chk, conds, pt):
-    """Compile scan filters into an on-device mask program over the fused
-    kernels' dev_cols.  Returns (mask_fn, key, needed) — needed is a set
-    of (slot index, "codes" | "full") the program reads — or None when
-    some condition cannot run on device (host mask fallback).  The live
-    row count takes the first slot of ``pt`` (padding guard), then the
-    per-condition constants."""
-    from ..ops.exprjit import (compile_expr_params, is_jittable,
-                               stable_shape_key)
-    row_slot = pt.add_int(chk.full_rows())
-    fns = []
+def _build_device_mask(ex, rep, chk, conds):
+    """Scan filters as conditions of an HK7 program over the fused
+    kernels' dev_cols.  Returns (conds, key, needed): conditions for
+    exprjit.compile_program (a jittable expression, or ("codecmp", slot,
+    op, lo, hi, card): a string compare as an int compare over the
+    slot's dictionary codes, K14), their shape key, and the set of (slot
+    index, "codes" | "full") the program reads — or None when some
+    condition cannot run on the device (host mask)."""
+    from ..ops.exprjit import is_jittable, stable_shape_key
+    items = []
     keys = []
     needed = set()
     for cond in conds:
@@ -226,25 +214,17 @@ def _build_device_mask(ex, rep, chk, conds, pt):
             _codes, card, _, uniques = got
             lo = int(np.searchsorted(uniques, val, side="left"))
             hi = int(np.searchsorted(uniques, val, side="right"))
-            fns.append(_code_cmp_fn(idx, op, pt.add_int(lo),
-                                    pt.add_int(hi), pt.add_int(card)))
+            items.append(("codecmp", idx, op, lo, hi, card))
             keys.append(f"strcmp@{idx}:{op}")
             needed.add((idx, "codes"))
         elif is_jittable(cond):
-            fns.append(compile_expr_params(cond, pt))
+            items.append(cond)
             keys.append(stable_shape_key(cond))
             for c in cond.collect_columns():
                 needed.add((c.index, "full"))
         else:
             return None
-
-    def mask_fn(cols, params, row_idx):
-        m = row_idx < params[0][row_slot]
-        for f in fns:
-            v, null = f(cols, params)
-            m = m & (v != 0) & ~null
-        return m
-    return mask_fn, tuple(keys), needed
+    return items, tuple(keys), needed
 
 
 def rep_string_codes(rep, sid, v, null):
@@ -272,26 +252,9 @@ def _slot_id(ex, idx: int):
     return ci.id if ci is not None else "handle"
 
 
-def _code_cmp(op: str, code, lo, hi, card, null=None):
-    """The dictionary-code compare ladder over [lo, hi) bounds — one
-    implementation for numpy arrays (host filters) and torch tensors
-    (device masks)."""
-    live = code != card  # NULL code = card: comparisons exclude it
-    if null is not None:
-        live = live & ~null
-    if op == "=":
-        r = (code >= lo) & (code < hi)
-    elif op == "!=":
-        r = (code < lo) | (code >= hi)
-    elif op == "<":
-        r = code < lo
-    elif op == "<=":
-        r = code < hi
-    elif op == ">":
-        r = code >= hi
-    else:  # >=
-        r = code >= lo
-    return r & live
+#: the dictionary-code compare ladder (K14): one implementation for
+#: host filters and HK7's plain version
+_code_cmp = code_cmp
 
 
 def _string_cmp_mask(ex, rep, chk, cond):
@@ -342,32 +305,72 @@ def _child_input(ex: Executor) -> Chunk:
     return _drain_chunk(ex, ex.field_types()).compact()
 
 
-def _count_mask_program(slot: int):
-    """COUNT(col) consumes only the column's null mask; the value half of
-    the device pair may be absent (string columns upload masks only)."""
-    def fn(cols, params):
-        null = cols[slot][1]
-        return null, null
-    return fn
-
-
-def _lower_agg_args(arg_exprs, pt):
-    """Aggregate-argument entries -> ((cols, params) programs, shape-keyed
-    program_key tuple); constants ride ``pt``."""
-    from ..ops.exprjit import compile_expr_params, stable_shape_key
-    progs = []
+def _agg_program(specs, arg_exprs, mask_conds, pt: ParamTable):
+    """ONE HK7 program for a fused aggregate: the filter conditions AND-ed
+    into the valid mask and, per spec with an argument, its lane (COUNT
+    keeps only the NULL mask; ("mask", slot) is a column's NULL mask).
+    Returns (program, per spec its output index or None, the shape-keyed
+    program_key); constants ride ``pt``."""
+    from ..ops.exprjit import stable_shape_key
+    outs = []
+    lane_of = []
     pk_parts = []
-    for a in arg_exprs:
-        if isinstance(a, tuple):
-            progs.append(_count_mask_program(a[1]))
-            pk_parts.append(f"mask@{a[1]}")
-        elif a is None:
-            progs.append(None)
+    for (func, has_arg), a in zip(specs, arg_exprs):
+        if not has_arg or a is None:
+            lane_of.append(None)
             pk_parts.append("-")
+            continue
+        if isinstance(a, tuple):
+            outs.append(("nullof", a[1]))
+            pk_parts.append(f"mask@{a[1]}")
+        elif func == "count":
+            outs.append(("null", a))
+            pk_parts.append(f"null:{stable_shape_key(a)}")
         else:
-            progs.append(compile_expr_params(a, pt))
+            outs.append(a)
             pk_parts.append(stable_shape_key(a))
-    return progs, tuple(pk_parts)
+        lane_of.append(len(outs) - 1)
+    prog = compile_program(mask_conds, outs, pt, mask=True)
+    return prog, lane_of, tuple(pk_parts)
+
+
+def _device_arg_ok(e, chk) -> bool:
+    """Can HK7 evaluate aggregate argument ``e`` over the chunk: a
+    jittable tree whose columns are int64 / float64 lanes."""
+    from ..ops.exprjit import is_jittable
+    if not is_jittable(e):
+        return False
+    for c in e.collect_columns():
+        v = chk.columns[c.index].values()
+        want = np.float64 if c.eval_type is EvalType.REAL else np.int64
+        if v.dtype != want:
+            return False
+    return True
+
+
+def _device_args(chk, n: int, arg_cols, dev_args):
+    """The deferred argument lanes of the generic aggregate path as ONE
+    HK7 launch over the chunk's referenced columns (uploaded padded to
+    the row bucket); returns ``arg_cols`` with each deferred entry
+    replaced by its device (values, NULL) pair."""
+    nb = kernels.bucket(max(n, 1))
+    outs = [o for _, o in dev_args]
+    slots = sorted({c.index for o in outs
+                    for c in (o[1] if isinstance(o, tuple) else o)
+                    .collect_columns()})
+    cols = [None] * len(chk.columns)
+    for i in slots:
+        c = chk.columns[i]
+        cols[i] = (kernels.h2d_pad(c.values(), nb),
+                   kernels.h2d_pad(c.null_mask(), nb, True))
+    pt = ParamTable()
+    prog = compile_program((), outs, pt)
+    _, lanes = kernels.expr_eval(prog, cols, kernels._params_dev(
+        pt.arrays()), nb, n_rows=n)
+    got = list(arg_cols)
+    for (j, _), pair in zip(dev_args, lanes):
+        got[j] = pair
+    return got
 
 
 def _composite_key_lanes(lkeys, lchk, rkeys, rchk):
@@ -386,7 +389,15 @@ def _composite_key_lanes(lkeys, lchk, rkeys, rchk):
     lv, lnull = stack(lkeys, lchk)
     rv, rnull = stack(rkeys, rchk)
     both = np.concatenate([lv, rv], axis=0)
-    _, inv = np.unique(both, axis=0, return_inverse=True)
+    # one key column at a time: 1-D integer sorts (np.unique over rows
+    # sorts a structured view, several times slower).  Each step's codes
+    # are dense ranks below len(both), so code * card + rank stays
+    # inside int64
+    inv = np.zeros(len(both), dtype=np.int64)
+    for j in range(both.shape[1]):
+        _, rank = np.unique(both[:, j], return_inverse=True)
+        card = int(rank.max()) + 1 if len(rank) else 1
+        _, inv = np.unique(inv * card + rank.ravel(), return_inverse=True)
     inv = np.asarray(inv, dtype=np.int64).ravel()
     return (inv[:len(lv)], lnull), (inv[len(lv):], rnull)
 
@@ -490,7 +501,7 @@ class GPUHashAggExec(Executor):
         one hand-kernel reduction.  Returns an output Chunk or None to fall
         back to the generic path."""
         from .executors import TableReaderExec
-        from ..ops.exprjit import ParamTable, is_jittable
+        from ..ops.exprjit import is_jittable
         plan = self.plan
         child = self.children[0]
         if not isinstance(child, TableReaderExec):
@@ -618,18 +629,17 @@ class GPUHashAggExec(Executor):
         if budget > 0 and n > budget:
             raise NotImplementedError(_BLOCKWISE_TODO)
 
-        # ---- filter mask: on-device program when every condition lowers
+        # ---- filter mask: HK7 conditions when every one lowers
         # (constants as runtime params); host numpy + upload otherwise.
-        # ONE ParamTable serves the mask AND the aggregate arguments.
-        pt = ParamTable()
-        dev_mask = _build_device_mask(child, rep, chk, filters, pt)
+        # ONE program (and ParamTable) serves the mask AND the aggregate
+        # arguments.
+        dev_mask = _build_device_mask(child, rep, chk, filters)
         if dev_mask is None:
-            pt = ParamTable()  # discard half-consumed mask slots
             fmask = _fold_filter_masks(child, rep, chk, filters) \
                 if filters else None
-            mask_needed = set()
+            mask_conds, mask_prog_key, mask_needed = [], ("hostmask",), set()
         else:
-            mask_fn, mask_prog_key, mask_needed = dev_mask
+            mask_conds, mask_prog_key, mask_needed = dev_mask
             fmask = None
 
         # ---- device columns (memoized per replica + bucket + device) ----
@@ -665,11 +675,13 @@ class GPUHashAggExec(Executor):
             if dev_cols[idx] is None or dv is not None:
                 dev_cols[idx] = (dv, dn)
 
-        progs, program_key = _lower_agg_args(arg_exprs, pt)
+        pt = ParamTable()
+        prog, lane_of, program_key = _agg_program(specs, arg_exprs,
+                                                  mask_conds, pt)
         params = pt.arrays()
 
         if dev_mask is not None:
-            mask_spec = ("dev", mask_fn, mask_prog_key)
+            mask_spec = ("dev", mask_prog_key)
         else:
             mask = np.zeros(nb, dtype=bool)
             mask[:n] = fmask if fmask is not None else True
@@ -679,7 +691,7 @@ class GPUHashAggExec(Executor):
         if not plan.group_by:
             out_keys = []
             out_aggs, first_orig = kernels.fused_scalar_aggregate(
-                dev_cols, specs, progs, n, nb, mask_spec,
+                dev_cols, specs, prog, lane_of, n, nb, mask_spec,
                 program_key=program_key, params=params)
         else:
             gid_dev = _dev_memo(
@@ -690,13 +702,14 @@ class GPUHashAggExec(Executor):
             if self._can_device_passthrough(plan, slots, key_layouts):
                 ids, live, out_aggs_d, np_, ob = \
                     kernels.fused_segment_aggregate_keep(
-                        dev_cols, gid_dev, n_segments, specs, progs,
-                        mask_spec, program_key=program_key, params=params)
+                        dev_cols, gid_dev, n_segments, specs, prog, lane_of,
+                        n, mask_spec, program_key=program_key,
+                        params=params)
                 return self._assemble_device_output(
                     plan, slots, key_layouts, ids, live, out_aggs_d, np_)
             present, out_aggs, first_orig = \
                 kernels.fused_segment_aggregate(
-                    dev_cols, gid_dev, n_segments, specs, progs, n,
+                    dev_cols, gid_dev, n_segments, specs, prog, lane_of, n,
                     mask_spec, program_key=program_key, params=params)
             out_keys = self._decode_present(present, key_layouts)
         return self._assemble_output(chk, plan, slots, out_keys, out_aggs,
@@ -785,17 +798,29 @@ class GPUHashAggExec(Executor):
         arg_cols: List[Tuple[np.ndarray, np.ndarray]] = []
         slots: List[tuple] = []
 
+        dev_args: List[tuple] = []  # (arg index, HK7 program output)
+
         def add_arg(e, cast_real=False, order_map=False,
                     null_only=False) -> bool:
             """Returns True when the arg was XOR-sign-bit mapped (unsigned
-            min/max ordering) so the caller can un-map the result."""
+            min/max ordering) so the caller can un-map the result.  A
+            jittable argument over numeric columns is left to ONE HK7
+            launch for all of them (_device_args)."""
+            uns = (e.eval_type is EvalType.INT
+                   and getattr(e.ret_type, "is_unsigned", False))
+            if _device_arg_ok(e, chk) and not (order_map and uns):
+                if cast_real and e.eval_type is not EvalType.REAL:
+                    from ..expression.builtins import new_function
+                    e = new_function("cast_real", [e])
+                dev_args.append((len(arg_cols), ("null", e) if null_only
+                                 else e))
+                arg_cols.append(None)
+                return False
             v, m = e.vec_eval(chk)
             if null_only or v.dtype == object or v.dtype.kind == "U":
                 # COUNT only consumes the null mask; string values (and any
                 # non-numeric dtype) must not reach the device
                 v = np.zeros(len(m), dtype=np.int64)
-            uns = (e.eval_type is EvalType.INT
-                   and getattr(e.ret_type, "is_unsigned", False))
             was_mapped = False
             if cast_real and v.dtype != np.float64:
                 r = v.astype(np.float64)
@@ -854,6 +879,8 @@ class GPUHashAggExec(Executor):
             else:  # pragma: no cover — enforcer gates
                 raise ValueError(d.name)
 
+        if dev_args:
+            arg_cols = _device_args(chk, n, arg_cols, dev_args)
         _check_mesh(self.ctx)
         if not plan.group_by:
             out_keys = []
@@ -917,7 +944,7 @@ class GPUHashAggExec(Executor):
 
     def _assemble_device_output(self, plan, slots, key_layouts, ids, live,
                                 out_aggs, np_):
-        """Device-resident output chunk (K15 as tensor ops): decode group
+        """Device-resident output chunk (K15, one HK7 launch): decode group
         ids back to key values and finish the slots (avg divide, REAL
         cast), producing bucket-padded (values, null) pairs wrapped as
         DeviceColumns.  Nothing lands on host until a host consumer
@@ -941,36 +968,32 @@ class GPUHashAggExec(Executor):
                                  sl[2] if sl[0] == "avg" else None, real))
             else:
                 slot_sig.append(("gb", idx, None, False))
-        key = ("devout", int(ids.shape[0]), len(key_layouts),
-               tuple(slot_sig), tuple(str(v.dtype) for v, _ in out_aggs))
-
-        def build():
-            def program(ids_in, live_in, aggs, lay_in):
-                outs = []
-                for kind, i, extra, real in slot_sig:
-                    if kind == "gb":
-                        card, base, stride = lay_in[i]
-                        code = torch.remainder(
-                            torch.div(ids_in, stride, rounding_mode="floor"),
-                            card + 1)
-                        nullk = (code == card) | ~live_in
-                        outs.append((torch.where(nullk,
-                                                 torch.zeros_like(code),
-                                                 code + base), nullk))
-                    elif kind == "avg":
-                        sv, sm = aggs[i]
-                        cv, _ = aggs[extra]
-                        den = torch.clamp(cv, min=1).to(torch.float64)
-                        outs.append((sv.to(torch.float64) / den,
-                                     sm | (cv == 0)))
-                    else:  # dev / dev_mm (unsigned excluded by the gate)
-                        v, m = aggs[i]
-                        if real and v.dtype != torch.float64:
-                            v = v.to(torch.float64)
-                        outs.append((v, m))
-                return outs
-            return kernels.counted_launch(program)
-        outs = progcache.get(key, build)(ids, live, list(out_aggs), lay)
+        ob = int(ids.shape[0])
+        key = ("devout", ob, len(key_layouts), tuple(slot_sig),
+               tuple(str(v.dtype) for v, _ in out_aggs))
+        # K15 as ONE HK7 program: slot 0 the group ids, slot 1 their
+        # liveness, then each aggregate's (values, NULL) pair; the key
+        # layouts (stride, card, base) ride the parameter table
+        pt = ParamTable()
+        xp = ExprProgram()
+        for kind, i, extra, real in slot_sig:
+            if kind == "gb":
+                card, base, stride = lay[i]
+                r = xp.key_decode(xp.load(0, "i"), xp.load(1, "b"), stride,
+                                  card, base, pt)
+            elif kind == "avg":
+                s_dt = "f" if out_aggs[i][0].dtype == torch.float64 else "i"
+                r = xp.avg(xp.load(2 + i, s_dt), xp.load(2 + extra, "i"))
+            else:  # dev / dev_mm (unsigned excluded by the gate)
+                v = out_aggs[i][0]
+                r = xp.load(2 + i, "f" if v.dtype == torch.float64 else "i")
+                if real:
+                    r = xp.to_real(r)
+            xp.store(r)
+        run = progcache.get(key, lambda: kernels.counted_launch(
+            lambda cols, params: kernels.expr_eval(xp, cols, params, ob)[1]))
+        outs = run([(ids, None), (live, None)] + list(out_aggs),
+                   kernels._params_dev(pt.arrays()))
         cols = []
         for (src, idx), (v, m) in zip(plan.output_map, outs):
             ft = (plan.aggs[idx].ret_type if src == "agg"
@@ -1313,30 +1336,32 @@ class GPUTopNExec(Executor):
 
 
 class GPUProjectionExec(Executor):
-    """Projection expressions as device tensor ops (K16)."""
+    """Projection expressions as one HK7 launch per chunk (K16); an output
+    that only names an input column is that column's upload."""
 
     def __init__(self, plan: PhysicalProjection, child: Executor):
         super().__init__(plan.schema, [child])
         self.plan = plan
+        self._computed = [e for e in plan.exprs
+                          if not isinstance(e, ExprColumn)]
         self._fn = None
+        self._prog = None
         self._params = None
 
     def _compiled(self):
         if self._fn is None:
-            from ..ops.exprjit import (ParamTable, compile_expr_params,
-                                       stable_shape_key)
+            from ..ops.exprjit import stable_shape_key
             key = ("proj",) + tuple(stable_shape_key(e)
-                                    for e in self.plan.exprs)
+                                    for e in self._computed)
             pt = ParamTable()
-            fns = [compile_expr_params(e, pt) for e in self.plan.exprs]
-            self._params = tuple(kernels.h2d(a) for a in pt.arrays())
+            prog = self._prog = compile_program((), self._computed, pt)
+            self._params = kernels._params_dev(pt.arrays())
 
             def build():
-                def program(cols, params, fns):
-                    return [f(cols, params) for f in fns]
+                def program(cols, params, n):
+                    return kernels.expr_eval(prog, cols, params, n)[1]
                 return kernels.counted_launch(program)
-            prog = progcache.get(key, build)
-            self._fn = lambda cols, params, fns=fns: prog(cols, params, fns)
+            self._fn = progcache.get(key, build)
         return self._fn
 
     def next(self) -> Optional[Chunk]:
@@ -1353,14 +1378,17 @@ class GPUProjectionExec(Executor):
                 v, m = e.vec_eval(chk)
                 cols.append(HostCol.from_numpy(oc.ret_type, v, m))
             return Chunk.from_columns(cols)
-        cols_dev = _marshal(chk)
-        fn = self._compiled()
-        outs = fn(cols_dev, self._params)
-        n = chk.num_rows()
-        flat = []
-        for v, m in outs:
-            flat.extend((v.expand(n).contiguous(), m.expand(n).contiguous()))
-        host = kernels.d2h_many(flat) if flat else []
+        slots = {e.index for e in self.plan.exprs
+                 if isinstance(e, ExprColumn)}
+        fn = self._compiled() if self._computed else None
+        if fn is not None:
+            slots |= {s for s, _ in self._prog.inputs}
+        cols = _marshal(chk, slots)
+        got = iter(fn(cols, self._params, chk.num_rows())
+                   if fn is not None else ())
+        outs = [cols[e.index] if isinstance(e, ExprColumn) else next(got)
+                for e in self.plan.exprs]
+        host = kernels.d2h_many([x for vm in outs for x in vm])
         out_cols = []
         for i, oc in enumerate(self.plan.schema.columns):
             out_cols.append(CCol.from_numpy(oc.ret_type, host[2 * i],
@@ -1369,37 +1397,31 @@ class GPUProjectionExec(Executor):
 
 
 class GPUSelectionExec(Executor):
-    """Filters as device tensor ops (K16); the mask comes back in one
-    counted pull."""
+    """Filters as one HK7 launch per chunk (K16); the mask comes back in
+    one counted pull."""
 
     def __init__(self, plan: PhysicalSelection, child: Executor):
         super().__init__(plan.schema, [child])
         self.plan = plan
         self._fn = None
+        self._prog = None
         self._params = None
 
     def _compiled(self):
         if self._fn is None:
-            from ..ops.exprjit import (ParamTable, compile_expr_params,
-                                       stable_shape_key)
+            from ..ops.exprjit import stable_shape_key
             key = ("filter",) + tuple(stable_shape_key(c)
                                       for c in self.plan.conditions)
             pt = ParamTable()
-            fns = [compile_expr_params(c, pt) for c in self.plan.conditions]
-            self._params = tuple(kernels.h2d(a) for a in pt.arrays())
+            prog = self._prog = compile_program(self.plan.conditions, (),
+                                                pt, mask=True)
+            self._params = kernels._params_dev(pt.arrays())
 
             def build():
-                def program(cols, params, fns):
-                    n = cols[0][1].shape[0] if cols else 0
-                    mask = torch.ones(n, dtype=torch.bool,
-                                      device=kernels.device())
-                    for f in fns:
-                        v, null = f(cols, params)
-                        mask = mask & (v != 0) & ~null
-                    return mask
+                def program(cols, params, n):
+                    return kernels.expr_eval(prog, cols, params, n)[0]
                 return kernels.counted_launch(program)
-            prog = progcache.get(key, build)
-            self._fn = lambda cols, params, fns=fns: prog(cols, params, fns)
+            self._fn = progcache.get(key, build)
         return self._fn
 
     def next(self) -> Optional[Chunk]:
@@ -1413,21 +1435,27 @@ class GPUSelectionExec(Executor):
             if not chk.columns:
                 mask = vectorized_filter(self.plan.conditions, chk)
             else:
-                mask = kernels.d2h(
-                    self._compiled()(_marshal(chk), self._params))
+                fn = self._compiled()
+                mask = kernels.d2h(fn(
+                    _marshal(chk, {s for s, _ in self._prog.inputs}),
+                    self._params, chk.num_rows()))
             if not mask.any():
                 continue
             chk.set_sel(np.nonzero(mask)[0])
             return chk.compact()
 
 
-def _marshal(chk: Chunk):
-    """Chunk columns -> device (values, null) pairs.  String columns are
+def _marshal(chk: Chunk, slots=None):
+    """Chunk columns -> device (values, null) pairs, for the slots in
+    ``slots`` (every slot when None; None elsewhere).  String columns are
     never touched by device exprs (enforcer), but must still occupy their
     index slot — pass zeros."""
     out = []
     n = chk.num_rows()
-    for c in chk.columns:
+    for i, c in enumerate(chk.columns):
+        if slots is not None and i not in slots:
+            out.append(None)
+            continue
         v = c.values()
         if v.dtype == object or v.dtype.kind == "U":
             out.append((torch.zeros(n, dtype=torch.int64,

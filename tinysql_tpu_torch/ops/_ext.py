@@ -21,13 +21,17 @@ import time
 from typing import Dict, Optional
 
 SOURCES = ("masked_reduce", "segment_reduce", "equi_join", "lex_order",
-           "csr_reduce", "dense_probe")
+           "csr_reduce", "dense_probe", "expr_eval")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+#: flags of one source beside NVCC_FLAGS: HK7 must round after every
+#: float operation as the plain torch version does, so nvcc may not
+#: contract a*b+c into a fused multiply-add there
+SOURCE_FLAGS = {"expr_eval": ["-fmad=false"]}
 
 _mu = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -76,6 +80,10 @@ _SIGNATURES = {
         "hk6_dense_probe": (_int, [_vp, _vp, _vp, _i64, _i64, _i64, _vp, _i64,
                                    _vp, _i64, _int, _vp, _vp, _vp]),
     },
+    "expr_eval": {
+        "hk7_expr_eval": (_int, [_vp, _int, _vp, _vp, _vp, _vp, _vp, _vp,
+                                 _i64, _i64, _vp]),
+    },
 }
 
 
@@ -94,6 +102,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in sorted(os.listdir(CSRC)):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, name), "rb") as f:
@@ -115,8 +124,8 @@ def build(out_dir: Optional[str] = None) -> str:
     procs = {}
     for s in SOURCES:
         tmp = os.path.join(out_dir, f"lib{s}.so.tmp{os.getpid()}")
-        cmd = [nvcc] + NVCC_FLAGS + ["-I", CSRC, "-o", tmp,
-                                     os.path.join(CSRC, f"{s}.cu")]
+        cmd = [nvcc] + NVCC_FLAGS + SOURCE_FLAGS.get(s, []) + [
+            "-I", CSRC, "-o", tmp, os.path.join(CSRC, f"{s}.cu")]
         procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT), tmp)
     errors = []

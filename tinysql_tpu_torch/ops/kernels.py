@@ -1,11 +1,10 @@
 """Device core of the port and the relational kernels it runs.
 
 The port of tinysql_tpu/ops/kernels.py.  The JAX package compiled every
-operator family into XLA programs; here each family's core is one of six
-kernels written by hand for Hopper (csrc/*.cu, built by ops/_ext.py), and
-the elementwise work around them (the filter and argument expression
-trees of ops/exprjit.py, key normalisation, output layout) runs as plain
-torch tensor operations:
+operator family into XLA programs; here each family's core is one of
+seven kernels written by hand for Hopper (csrc/*.cu, built by
+ops/_ext.py), and the glue around them (key normalisation, packing,
+present-row extraction) runs as plain torch tensor operations:
 
 - HK1 :func:`masked_reduce` (csrc/masked_reduce.cu) — global aggregates
   (K1 fused_scalar_aggregate, K5 scalar_aggregate);
@@ -21,7 +20,12 @@ torch tensor operations:
   GROUP BY over a memoized group index (K17, executor/devpipe.py);
 - HK6 :func:`dense_probe` (csrc/dense_probe.cu) — the pipeline tier's
   join probe through a dense key -> row table (K18's unique, semi and
-  anti modes).
+  anti modes);
+- HK7 :func:`expr_eval` (csrc/expr_eval.cu) — every expression evaluated
+  on the device: filter masks, aggregate argument lanes, projections and
+  sort keys, string compares on dictionary codes and the grouped
+  aggregate's output layout (K13-K16, K22), as programs compiled by
+  ops/exprjit.compile_program.
 
 Every kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain torch version (same contract: inputs, outputs, NULL, sentinel and
@@ -49,6 +53,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import exprjit as _xj
 from . import profiler, progcache
 from .. import fail
 from ..obs import context as _obs
@@ -140,7 +145,7 @@ _STATS_MU = threading.Lock()
 LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "segment_reduce": 0,
                             "present_compact": 0, "equi_join": 0,
                             "lex_order": 0, "csr_reduce": 0,
-                            "dense_probe": 0}
+                            "dense_probe": 0, "expr_eval": 0}
 #: plain-version calls per wrapper (CPU tensors)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
@@ -251,6 +256,14 @@ def h2d(a) -> torch.Tensor:
 def h2d_pad(a: np.ndarray, n: int, fill=0) -> torch.Tensor:
     """Counted upload of ``pad1(a, n, fill)``."""
     return h2d(pad1(a, n, fill))
+
+
+def _arg_dev(v, m, n: int):
+    """An aggregate argument pair on the device: host arrays upload
+    padded, device pairs (already padded) pass."""
+    if isinstance(m, torch.Tensor):
+        return v, m
+    return h2d_pad(v, n), h2d_pad(m, n, True)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -1203,38 +1216,279 @@ def dense_probe_plain(kp, knull, pvalid, lo: int, hi: int, tbl, bvalid,
 
 
 # =========================================================================
+# HK7 expr_eval
+# =========================================================================
+# An expression program (ops/exprjit.ExprProgram) over the columns of a
+# view: ``cols`` is indexed by schema slot, each entry a (values, NULL
+# mask) pair of device tensors (None where the program reads nothing);
+# ``params`` the (int64, float64) parameter arrays on the same device.
+
+class _CInLanes(ctypes.Structure):
+    _fields_ = [("vals", ctypes.c_void_p * _xj.MAX_IN),
+                ("nulls", ctypes.c_void_p * _xj.MAX_IN),
+                ("n", ctypes.c_int)]
+
+
+class _COutLanes(ctypes.Structure):
+    _fields_ = [("vals", ctypes.c_void_p * _xj.MAX_OUT),
+                ("nulls", ctypes.c_void_p * _xj.MAX_OUT),
+                ("guard", ctypes.c_int * _xj.MAX_OUT),
+                ("n", ctypes.c_int)]
+
+
+_LANE_DTYPE = {"i": I64, "f": F64, "b": torch.bool}
+
+
+def _expr_lanes(prog, cols, n: int, dev):
+    """The program's input lanes, checked: (values or None, NULL mask or
+    None) per (slot, kind) of ``prog.inputs``."""
+    out = []
+    for slot, kind in prog.inputs:
+        pair = cols[slot] if slot < len(cols) else None
+        if pair is None:
+            raise ValueError(f"expr_eval: no column at slot {slot}")
+        v, m = pair
+        if kind == "n":
+            v = None
+        else:
+            if v is None:
+                raise ValueError(f"expr_eval: slot {slot} has no values")
+            v = v.contiguous()
+            _need(v, _LANE_DTYPE[kind], n, dev, f"expr_eval slot {slot}")
+        if m is not None:
+            m = m.contiguous()
+            _need(m, torch.bool, n, dev, f"expr_eval slot {slot} NULLs")
+        out.append((v, m))
+    return out
+
+
+def expr_eval(prog, cols, params, n: int, n_rows: Optional[int] = None,
+              mask_in: Optional[torch.Tensor] = None):
+    """HK7: run an expression program over ``n`` rows.  Returns (mask,
+    outs): the bool mask (``mask_in`` AND every condition; None when the
+    program has no condition) and per output lane (values or None for a
+    NULL-only lane, bool NULL mask).  Rows at or past ``n_rows`` (default
+    n) are not evaluated: mask False, outputs 0 and NULL."""
+    pi, pf = params
+    dev = pi.device
+    on_card = _on_card(pi, "expr_eval")
+    n_rows = n if n_rows is None else max(0, min(int(n_rows), n))
+    lanes = _expr_lanes(prog, cols, n, dev)
+    if mask_in is not None:
+        mask_in = mask_in.contiguous()
+        _need(mask_in, torch.bool, n, dev, "expr_eval mask_in")
+    if not on_card:
+        return _expr_plain(prog, lanes, params, n, n_rows, mask_in)
+    from . import _ext
+    lib = _ext.lib("expr_eval")
+    pi = pi.contiguous()
+    pf = pf.contiguous().view(I64)
+    code, offs = prog.device_code(dev)
+    outs = [(None if dt == "n" else
+             torch.empty(n, dtype=_LANE_DTYPE[dt], device=dev),
+             torch.empty(n, dtype=torch.bool, device=dev))
+            for dt in prog.outputs]
+    tmps = [(torch.empty(n, dtype=I64, device=dev),
+             torch.empty(n, dtype=torch.bool, device=dev))
+            for _ in range(prog.n_tmp())]
+    mask = torch.empty(n, dtype=torch.bool, device=dev) \
+        if prog.has_mask else None
+    m_in = mask_in
+    for seg, off in zip(prog.segments(), offs):
+        ci = _CInLanes()
+        ci.n = len(seg.in_refs)
+        for j, (src, k) in enumerate(seg.in_refs):
+            v, m = lanes[k] if src == "in" else tmps[k]
+            ci.vals[j] = _ptr(v)
+            ci.nulls[j] = _ptr(m)
+        co = _COutLanes()
+        co.n = len(seg.out_refs)
+        for j, (src, k) in enumerate(seg.out_refs):
+            v, m = outs[k] if src == "out" else tmps[k]
+            co.vals[j] = _ptr(v)
+            co.nulls[j] = _ptr(m)
+            co.guard[j] = int(src == "out")
+        _ext.check(lib.hk7_expr_eval(
+            code.data_ptr() + 4 * off, int(seg.code.shape[0]),
+            ctypes.byref(ci), ctypes.byref(co), _ptr(pi), _ptr(pf),
+            _ptr(m_in), _ptr(mask), n_rows, n, _stream()), "expr_eval")
+        if mask is not None:
+            m_in = mask
+    _count(LAUNCHES, "expr_eval")
+    return mask, outs
+
+
+def expr_eval_plain(prog, cols, params, n: int,
+                    n_rows: Optional[int] = None,
+                    mask_in: Optional[torch.Tensor] = None):
+    """Plain torch version of HK7 (same contract, any device)."""
+    pi = params[0]
+    n_rows = n if n_rows is None else max(0, min(int(n_rows), n))
+    return _expr_plain(prog, _expr_lanes(prog, cols, n, pi.device),
+                       params, n, n_rows, mask_in)
+
+
+def _as_bool(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dtype == torch.bool else x != 0
+
+
+def _expr_plain(prog, lanes, params, n: int, n_rows: int, mask_in):
+    """Run the program's segments instruction by instruction with
+    ops/exprjit's own functions: _apply for every SQL function, its
+    CASE / IN steps, code_cmp for K14 and the K15 layout formulas."""
+    X = _xj
+    _count(PLAIN_CALLS, "expr_eval")
+    pi, pf = params
+    dev = pi.device
+    zeros_b = torch.zeros(n, dtype=torch.bool, device=dev)
+    want = {"i": I64, "f": F64}
+    outs: List = [None] * len(prog.outputs)
+    tmps: Dict[int, tuple] = {}
+    mask = None
+    if prog.has_mask:
+        mask = mask_in.clone() if mask_in is not None else \
+            torch.ones(n, dtype=torch.bool, device=dev)
+    for seg in prog.segments():
+        R: List = [None] * X.MAX_REGS
+        for kind, d, u, meta, ddt in seg.plain:
+            a = [R[x] for x in u]
+            if kind == "ld":
+                src, k = seg.in_refs[meta[0]]
+                if src == "tmp":
+                    R[d[0]] = tmps[k]
+                    continue
+                v, m = lanes[k]
+                if v is None:
+                    v = torch.zeros(n, dtype=I64, device=dev)
+                R[d[0]] = (v, zeros_b if m is None else m)
+                continue
+            if kind == "st":
+                dst, k = seg.out_refs[meta[0]]
+                v, m = a[0]
+                if dst == "tmp":
+                    if v.dtype == torch.bool:
+                        v = v.to(I64)
+                    tmps[k] = (v.expand(n).contiguous(),
+                               m.expand(n).contiguous())
+                else:
+                    outs[k] = (None if meta[1] else v.expand(n).contiguous(),
+                               m.expand(n).contiguous())
+                continue
+            if kind == "mask":
+                v, m = a[0]
+                mask = mask & (v != 0) & ~m
+                continue
+            if kind == "ldc":
+                which, slot, is_null = meta
+                R[d[0]] = (params[which][slot].expand(n),
+                           torch.full((n,), bool(is_null), dtype=torch.bool,
+                                      device=dev))
+            elif kind == "fn":
+                name, arg_types, arg_uns, ret_int = meta
+                R[d[0]] = X._apply(name, a, list(arg_types), ret_int,
+                                   list(arg_uns))
+            elif kind == "case_init":
+                v, m, dec = X.case_init(n, want[meta[0]], dev)
+                R[d[0]], R[d[1]] = (v, m), (dec, zeros_b)
+                continue
+            elif kind == "case_arm":
+                (v, m), (dec, _), c, r = a
+                v, m, dec = X.case_arm(v, m, _as_bool(dec), c, r,
+                                       want[meta[0]])
+                R[d[0]], R[d[1]] = (v, m), (dec, zeros_b)
+            elif kind == "case_else":
+                (v, m), (dec, _), r = a
+                R[d[0]] = X.case_else(v, m, _as_bool(dec), r, want[meta[0]])
+            elif kind == "in_init":
+                R[d[0]] = X.in_init(n, dev)
+                continue
+            elif kind == "in_item":
+                (hit, saw), x, it = a
+                R[d[0]] = X.in_item(_as_bool(hit), saw, x, it, *meta)
+                continue
+            elif kind == "in_end":
+                (hit, saw), x = a
+                R[d[0]] = X.in_end(_as_bool(hit), saw, x[1])
+            elif kind == "codecmp":
+                op, lo, hi, card = meta
+                code, null = a[0]
+                r = X.code_cmp(op, code, pi[lo], pi[hi], pi[card], null=null)
+                R[d[0]] = (r.to(I64), torch.zeros_like(null))
+            elif kind == "keydec":
+                stride, card, base = meta
+                (ids, _), (live, _) = a
+                code = torch.remainder(
+                    torch.div(ids, pi[stride], rounding_mode="floor"),
+                    pi[card] + 1)
+                nullk = (code == pi[card]) | ~_as_bool(live)
+                R[d[0]] = (torch.where(nullk, torch.zeros_like(code),
+                                       code + pi[base]), nullk)
+            elif kind == "avg":
+                (sv, sm), (cv, _) = a
+                den = torch.clamp(cv, min=1).to(F64)
+                R[d[0]] = (sv.to(F64) / den, sm | (cv == 0))
+            elif kind == "cvt":
+                v, m = a[0]
+                R[d[0]] = (X._to_real_u(v, meta[0] == X.CV_U2F), m)
+            else:  # pragma: no cover
+                raise ValueError(f"expr_eval: unknown instruction {kind}")
+            got = R[d[0]][0].dtype
+            if ddt in want and got != want[ddt]:
+                raise RuntimeError(f"expr_eval: {kind} {meta} gave {got}, "
+                                   f"the program says {ddt}")
+    if n_rows < n:
+        keep = torch.arange(n, device=dev) < n_rows
+        outs = [(None if v is None else
+                 torch.where(keep, v, torch.zeros_like(v)),
+                 torch.where(keep, m, torch.ones_like(m)))
+                for v, m in outs]
+        if mask is not None:
+            mask = mask & keep
+    return mask, outs
+
+
+# =========================================================================
 # operator families (the reference's host entry points)
 # =========================================================================
-# mask spec accepted by the fused entry points:
-#   ("host", bool_mask_dev)  — host-evaluated mask, uploaded
-#   ("dev", mask_fn, key)    — mask_fn(cols, params, row_idx) evaluated
-#                              on the device; `key` joins the program key
+# The fused entry points take ONE HK7 expression program (exprjit.
+# compile_program with mask=True) evaluating the filter conditions and the
+# aggregate arguments, with ``lane_of`` giving per spec its output lane
+# (None: no argument), and a mask spec:
+#   ("host", bool_mask_dev)  — host-evaluated mask, uploaded: the
+#                              program's incoming mask
+#   ("dev", key)             — the program's own conditions; `key`
+#                              joins the program key
 
 def _mask_parts(mask):
     if mask[0] == "host":
-        return None, ("hostmask",), mask[1]
-    _, mask_fn, key = mask[:3]
-    return mask_fn, ("devmask", key), None
+        return ("hostmask",), mask[1]
+    return ("devmask", mask[1]), None
 
 
 def _params_dev(params):
+    """The (int64, float64) parameter arrays on the device in ONE upload
+    (the float64 slots travel as their bits)."""
     if params is None:
         dev = device()
         return (torch.zeros(0, dtype=I64, device=dev),
                 torch.zeros(0, dtype=F64, device=dev))
     pi, pf = params
-    return (h2d(pi), h2d(pf))
+    pi = np.asarray(pi, dtype=np.int64)
+    t = h2d(np.concatenate([pi, np.asarray(pf, dtype=np.float64)
+                            .view(np.int64)]))
+    return t[:len(pi)], t[len(pi):].view(F64)
 
 
-def _spec_lanes(agg_specs, arg_fns, cols, pr):
+def _spec_lanes(agg_specs, arg_pairs):
     """(lanes, plan): the reduction lanes of a list of aggregate specs and,
     per spec, how to read its output: ("nvalid",) for count_star or
-    (func, lane index, float?)."""
+    (func, lane index, float?).  ``arg_pairs``: per spec its argument's
+    (values, NULL) pair, or None."""
     lanes, plan = [], []
-    for (func, has_arg), af in zip(agg_specs, arg_fns):
+    for (func, has_arg), ap in zip(agg_specs, arg_pairs):
         av = an = None
-        if has_arg and af is not None:
-            av, an = af(cols, pr)
+        if has_arg and ap is not None:
+            av, an = ap
         if func == "count_star":
             plan.append(("count_star", -1, False))
             continue
@@ -1249,6 +1503,15 @@ def _spec_lanes(agg_specs, arg_fns, cols, pr):
         is_f = av is not None and av.dtype == F64 and func != "count"
         plan.append((func, len(lanes) - 1, is_f))
     return lanes, plan
+
+
+def _run_agg_program(prog, lane_of, cols, mask_in, pr, nb: int,
+                     n_rows: int):
+    """HK7 over a fused aggregate's program: (valid mask, per spec its
+    argument pair or None)."""
+    valid, outs = expr_eval(prog, cols, pr, nb, n_rows=n_rows,
+                            mask_in=mask_in)
+    return valid, [None if j is None else outs[j] for j in lane_of]
 
 
 def _lane_outputs(plan, value_row, count_row, presence):
@@ -1274,27 +1537,27 @@ def _np_value(bits: np.ndarray, is_f: bool) -> np.ndarray:
     return bits.view(np.float64) if is_f else bits
 
 
-def fused_scalar_aggregate(dev_cols, agg_specs, arg_exprs, n_rows: int,
-                           nb: int, mask, program_key: tuple = (),
-                           params=None):
-    """Global-group fused path (K1 -> HK1): the filter mask and the
-    argument expressions evaluate on the device, one masked reduction
-    produces every aggregate, one pull brings them back.  Returns
-    (out_aggs, first_orig) with zero or one output row."""
-    mask_fn, mask_key, mask_arr = _mask_parts(mask)
+def fused_scalar_aggregate(dev_cols, agg_specs, prog, lane_of,
+                           n_rows: int, nb: int, mask,
+                           program_key: tuple = (), params=None):
+    """Global-group fused path (K1 -> HK7 + HK1): one HK7 launch
+    evaluates the filter mask and the argument expressions, one masked
+    reduction produces every aggregate, one pull brings them back.
+    Returns (out_aggs, first_orig) with zero or one output row."""
+    mask_key, mask_arr = _mask_parts(mask)
     key = ("scalar", tuple(agg_specs), program_key, mask_key, nb)
 
     def build():
-        arg_fns = list(arg_exprs)
+        xp, lo = prog, list(lane_of)
 
-        def program(cols, mask_in, pr):
-            valid = mask_fn(cols, pr, _arange(nb)) if mask_fn is not None \
-                else mask_in
-            lanes, plan = _spec_lanes(agg_specs, arg_fns, cols, pr)
-            return masked_reduce(valid.contiguous(), lanes), plan
+        def program(cols, mask_in, pr, n):
+            valid, pairs = _run_agg_program(xp, lo, cols, mask_in, pr, nb,
+                                            n)
+            lanes, plan = _spec_lanes(agg_specs, pairs)
+            return masked_reduce(valid, lanes), plan
         return counted_launch(program)
     fn = progcache.get(key, build)
-    out, plan = fn(dev_cols, mask_arr, _params_dev(params))
+    out, plan = fn(dev_cols, mask_arr, _params_dev(params), n_rows)
     vals = d2h(out)
     return _scalar_contract(vals, plan)
 
@@ -1312,42 +1575,42 @@ def _scalar_contract(vals: np.ndarray, plan):
 
 def scalar_aggregate(agg_specs, arg_cols, n_rows: int,
                      filter_mask: np.ndarray = None):
-    """Global aggregate over host argument columns (K5 -> HK1).  Returns
+    """Global aggregate over argument pairs (host arrays, or device lanes
+    HK7 computed) (K5 -> HK1).  Returns
     (out_aggs, first_orig) with one row when any row survives."""
     nb = bucket(max(n_rows, 1))
     valid = np.zeros(nb, dtype=bool)
     valid[:n_rows] = filter_mask if filter_mask is not None else True
-    dev_args = [(h2d_pad(v, nb), h2d_pad(m, nb, True)) for v, m in arg_cols]
-    it = iter(dev_args)
-    arg_fns = [((lambda c, p, a=next(it): a) if has else None)
-               for _, has in agg_specs]
+    it = iter([_arg_dev(v, m, nb) for v, m in arg_cols])
     stats_add("dispatches", 1)
-    lanes, plan = _spec_lanes(agg_specs, arg_fns, None, None)
+    lanes, plan = _spec_lanes(agg_specs, [next(it) if has else None
+                                          for _, has in agg_specs])
     out = masked_reduce(h2d(valid), lanes)
     return _scalar_contract(d2h(out), plan)
 
 
 def _fused_segment_raw(dev_cols, gid_dev, n_segments: int, agg_specs,
-                       arg_exprs, mask, program_key: tuple = (),
-                       params=None):
-    """The fused segment program (K2 -> HK2) without extraction: returns
-    (table, plan, ns) with the HK2 output table on the device."""
+                       prog, lane_of, n_rows: int, mask,
+                       program_key: tuple = (), params=None):
+    """The fused segment program (K2 -> HK7 + HK2) without extraction:
+    returns (table, plan, ns) with the HK2 output table on the device."""
     nb = int(gid_dev.shape[0])
     ns = bucket(max(n_segments, 1))
-    mask_fn, mask_key, mask_arr = _mask_parts(mask)
+    mask_key, mask_arr = _mask_parts(mask)
     key = ("seg", tuple(agg_specs), program_key, mask_key, ns, nb)
 
     def build():
-        arg_fns = list(arg_exprs)
+        xp, lo = prog, list(lane_of)
 
-        def program(cols, gid, mask_in, pr):
-            valid = mask_fn(cols, pr, _arange(nb)) if mask_fn is not None \
-                else mask_in
-            lanes, plan = _spec_lanes(agg_specs, arg_fns, cols, pr)
-            return segment_reduce(gid, valid.contiguous(), ns, lanes), plan
+        def program(cols, gid, mask_in, pr, n):
+            valid, pairs = _run_agg_program(xp, lo, cols, mask_in, pr, nb,
+                                            n)
+            lanes, plan = _spec_lanes(agg_specs, pairs)
+            return segment_reduce(gid, valid, ns, lanes), plan
         return counted_launch(program)
     fn = progcache.get(key, build)
-    table, plan = fn(dev_cols, gid_dev, mask_arr, _params_dev(params))
+    table, plan = fn(dev_cols, gid_dev, mask_arr, _params_dev(params),
+                     n_rows)
     return table, plan, ns
 
 
@@ -1380,27 +1643,28 @@ def _present_extract(table, plan, ns: int, nb: int, limit: int = None):
 
 
 def fused_segment_aggregate(dev_cols, gid_dev, n_segments: int,
-                            agg_specs, arg_exprs, n_rows: int, mask,
+                            agg_specs, prog, lane_of, n_rows: int, mask,
                             program_key: tuple = (), params=None):
-    """Grouped fused path (K2 -> HK2).  Returns (present_ids, out_aggs,
-    first_orig) host arrays, present segments ascending."""
+    """Grouped fused path (K2 -> HK7 + HK2).  Returns (present_ids,
+    out_aggs, first_orig) host arrays, present segments ascending."""
     table, plan, ns = _fused_segment_raw(
-        dev_cols, gid_dev, n_segments, agg_specs, arg_exprs, mask,
-        program_key=program_key, params=params)
+        dev_cols, gid_dev, n_segments, agg_specs, prog, lane_of, n_rows,
+        mask, program_key=program_key, params=params)
     return _present_extract(table, plan, ns, int(gid_dev.shape[0]),
                             limit=n_segments)
 
 
 def fused_segment_aggregate_keep(dev_cols, gid_dev, n_segments: int,
-                                 agg_specs, arg_exprs, mask,
-                                 program_key: tuple = (), params=None):
+                                 agg_specs, prog, lane_of, n_rows: int,
+                                 mask, program_key: tuple = (),
+                                 params=None):
     """Device-resident variant (late materialization): compacts present
     segments on the device and returns (ids [ob], live [ob], out_aggs as
     device (values, null) pairs, n_present, ob); only n_present syncs.
     Padding rows carry id = ns and live = False."""
     table, plan, ns = _fused_segment_raw(
-        dev_cols, gid_dev, n_segments, agg_specs, arg_exprs, mask,
-        program_key=program_key, params=params)
+        dev_cols, gid_dev, n_segments, agg_specs, prog, lane_of, n_rows,
+        mask, program_key=program_key, params=params)
     np_, packed = present_compact(table, ns)
     ob = int(packed.shape[1])
     ids = packed[0]
@@ -1423,12 +1687,10 @@ def segment_group_aggregate(gids: np.ndarray, n_segments: int, agg_specs,
     valid[:n_rows] = filter_mask if filter_mask is not None else True
     ns = bucket(max(n_segments, 1))
     g = h2d_pad(gids.astype(np.int64), nb)
-    dev_args = [(h2d_pad(v, nb), h2d_pad(m, nb, True)) for v, m in arg_cols]
-    it = iter(dev_args)
-    arg_fns = [((lambda c, p, a=next(it): a) if has else None)
-               for _, has in agg_specs]
+    it = iter([_arg_dev(v, m, nb) for v, m in arg_cols])
     stats_add("dispatches", 1)
-    lanes, plan = _spec_lanes(agg_specs, arg_fns, None, None)
+    lanes, plan = _spec_lanes(agg_specs, [next(it) if has else None
+                                          for _, has in agg_specs])
     table = segment_reduce(g, h2d(valid), ns, lanes)
     return _present_extract(table, plan, ns, nb)
 
@@ -1460,11 +1722,9 @@ def group_aggregate(key_cols: List[Tuple[np.ndarray, np.ndarray]],
     gid_sorted = torch.cumsum(boundary.to(I64), 0) - 1
     gid = torch.empty_like(gid_sorted)
     gid[perm] = torch.where(vs, gid_sorted, torch.full_like(gid_sorted, nb))
-    dev_args = [(h2d_pad(v, nb), h2d_pad(m, nb, True)) for v, m in arg_cols]
-    it = iter(dev_args)
-    arg_fns = [((lambda c, p, a=next(it): a) if has else None)
-               for _, has in agg_specs]
-    lanes, plan = _spec_lanes(agg_specs, arg_fns, None, None)
+    it = iter([_arg_dev(v, m, nb) for v, m in arg_cols])
+    lanes, plan = _spec_lanes(agg_specs, [next(it) if has else None
+                                          for _, has in agg_specs])
     table = segment_reduce(gid, valid, nb, lanes)
     present, out_aggs, _ = _present_extract(table, plan, nb, nb)
     # each group's representative is its FIRST row in sorted order (the
