@@ -7,7 +7,7 @@ Phases (any mismatch raises, and the script exits nonzero without a
 result line):
 
 1. the card's name and power limit (nvidia-smi) and the build of the
-   seven hand-written kernels (HK1-HK7) from tinysql_tpu_torch/csrc;
+   nine hand-written kernels (HK1-HK9) from tinysql_tpu_torch/csrc;
 2. each kernel against its plain torch version on the card, at the shapes
    the main path gives it at TPC-H SF=1 plus edge cases: integers, counts,
    NULL masks and row order exactly, float sums within 1e-6 relative; each
@@ -25,21 +25,28 @@ result line):
    (tinysql_tpu_torch/bench/exprcases.py: every SQL function, K14's code
    compares, K15's layouts, programs split past its limits), byte for
    byte against its plain version (float % within 1 ulp, the largest
-   distance printed);
+   distance printed); HK8 (csr_expand) runs Q13's join (150,000
+   customers LEFT JOIN 1.5M orders), HK9 (run_bounds) its two GROUP BYs,
+   HK6's composite mode a two-key probe of 2^21 rows;
 3. the main path: new_session() on cuda, tpch.load at SF=1 (seed 7), then
-   TPC-H Q1, Q3, Q6 and the workload trio Q5, Q10, Q18 through SQL with
-   tidb_use_tpu=1, on each device tier in turn: the pipeline tier
+   TPC-H Q1, Q3, Q6, Q13 and the workload trio Q5, Q10, Q18 through SQL
+   with tidb_use_tpu=1, on each device tier in turn: the pipeline tier
    (tidb_devpipe=-1, the default: plans with a join or a grouped
    aggregate run as executor/devpipe.py pipelines, whose compiled node
-   kinds are checked) and the per-operator tier (tidb_devpipe=0); Q1,
-   Q3 and Q6 on both tiers first, then the trio.  The launch counters
-   are set to 0 just before each such run and read just after it.  The rows must equal the port's own CPU tier
-   (tidb_use_tpu=0) under tpch.canon_rows, each wrapper's launch counter
-   (one count per launching wrapper call) must rise on the queries that
-   use it, and no plain version may run.  One more warm run of each
-   query under torch.profiler counts the CUDA kernels and copies it
-   launches (a warm Q6, which runs the per-operator executors on both
-   tiers, may launch at most six kernels);
+   kinds are checked, and Q13's single device->host copy) and the
+   per-operator tier (tidb_devpipe=0); Q1, Q3 and Q6 on both tiers
+   first, then Q13, then the trio.  The launch counters are set to 0
+   just before each such run and read just after it.  The rows must
+   equal the port's own CPU tier (tidb_use_tpu=0) under tpch.canon_rows
+   — Q13's and Q5's must equal numpy's answers over the generated
+   columns (tpch.q13_rows, tpch.q5_rows), because the CPU tier's
+   row-at-a-time joins take minutes on them at SF=1 —, each wrapper's
+   launch counter (one
+   count per launching wrapper call) must rise on the queries that use
+   it, and no plain version may run.  One more warm run of each query
+   under torch.profiler counts the CUDA kernels and copies it launches
+   (a warm Q6, which runs the per-operator executors on both tiers, may
+   launch at most six kernels);
 4. one JSON line listing the kernels ({"kernels": [...]}), then the
    result line {"ok": true, "device": {...}}.
 
@@ -78,6 +85,10 @@ KERNELS = {
                     "tinysql_tpu/executor/devpipe.py:1420"),
     "expr_eval": ("tinysql_tpu_torch/csrc/expr_eval.cu",
                   "tinysql_tpu/ops/exprjit.py:123"),
+    "csr_expand": ("tinysql_tpu_torch/csrc/csr_expand.cu",
+                   "tinysql_tpu/executor/devpipe.py:1502"),
+    "run_bounds": ("tinysql_tpu_torch/csrc/run_bounds.cu",
+                   "tinysql_tpu/executor/devpipe.py:1833"),
 }
 # per device tier (its tidb_devpipe value), the kernels each query of the
 # main path must launch
@@ -92,7 +103,9 @@ USES = {
                  "Q10": ("expr_eval", "dense_probe", "equi_join",
                          "segment_reduce", "lex_order"),
                  "Q18": ("expr_eval", "csr_reduce", "dense_probe",
-                         "equi_join", "segment_reduce", "lex_order")},
+                         "equi_join", "segment_reduce", "lex_order"),
+                 "Q13": ("expr_eval", "csr_expand", "run_bounds",
+                         "lex_order", "csr_reduce", "present_compact")},
     "per_op": {"Q1": ("expr_eval", "segment_reduce", "lex_order"),
                "Q3": ("expr_eval", "equi_join", "segment_reduce",
                       "present_compact", "lex_order"),
@@ -102,7 +115,9 @@ USES = {
                "Q10": ("expr_eval", "equi_join", "segment_reduce",
                        "lex_order"),
                "Q18": ("expr_eval", "equi_join", "segment_reduce",
-                       "present_compact", "lex_order")},
+                       "present_compact", "lex_order"),
+               "Q13": ("expr_eval", "equi_join", "segment_reduce",
+                       "lex_order")},
 }
 # node kinds each pipeline compiles (executor/devpipe.py COMPILED_NODE_KEYS).
 # Q5 compiles none at SF=1: under the default tidb_tpu_min_rows (8192)
@@ -114,7 +129,14 @@ PIPE_KINDS = {"Q1": {"leaf", "aggindex", "proj", "order"},
               "Q5": set(),
               "Q10": {"leaf", "join"},
               "Q18": {"leaf", "aggindex", "sel", "proj", "semijoin",
-                      "join"}}
+                      "join"},
+              "Q13": {"leaf", "joinm", "sortgroup", "proj", "order"}}
+#: pipeline queries that must pull their result in ONE device->host copy
+ONE_D2H = ("Q13",)
+#: queries whose rows are held to numpy's answer over the generated
+#: columns instead of the CPU tier's (whose row-at-a-time joins take
+#: minutes on them at SF=1)
+NUMPY_ROWS = {"Q13": "q13_rows", "Q5": "q5_rows"}
 #: warm repeats per query; the workload trio takes one on the
 #: per-operator tier (Q5's host joins take seconds a run at SF=1)
 WARM = 3
@@ -484,6 +506,10 @@ def phase_kernels(K, dev):
     lanes_q1 = K.sort_lanes(q1k, [False, False], t(np.arange(16) < 6))
     hk4_case(lanes_q1, 16, None, "lex_order Q1 sort")
     rec["lex_order"]["q1_ms"] = cuda_ms(lambda: K.lex_order(lanes_q1, 16))
+    rec["lex_order"]["q1_device_ms"] = device_ms(
+        lambda: K.lex_order(lanes_q1, 16))
+    rec["lex_order"]["q1_plain_ms"] = cuda_ms(
+        lambda: K.lex_order_plain(lanes_q1, 16))
     rec["lex_order"]["q1_bound_ms"] = (4 * 8 * 16 + 8 * 16) / MEM_BPS * 1e3
     # the pipeline's Q3 TopN: the first 16 of the 2^21-row join view,
     # ~11k of its rows valid
@@ -497,6 +523,10 @@ def phase_kernels(K, dev):
     hk4_case(lanes_p3, np3, 16, "lex_order pipeline Q3 top-16")
     rec["lex_order"]["pipe_q3_ms"] = cuda_ms(
         lambda: K.lex_order(lanes_p3, np3, 16))
+    rec["lex_order"]["pipe_q3_device_ms"] = device_ms(
+        lambda: K.lex_order(lanes_p3, np3, 16))
+    rec["lex_order"]["pipe_q3_plain_ms"] = cuda_ms(
+        lambda: K.lex_order_plain(lanes_p3, np3)[:16], reps=3, warm=1)
     rec["lex_order"]["pipe_q3_bound_ms"] = \
         (4 * 8 * np3 + 8 * 16) / MEM_BPS * 1e3
 
@@ -707,8 +737,241 @@ def phase_kernels(K, dev):
         "join2_plain_ms": cuda_ms(lambda: K.dense_probe_plain(*args2,
                                                               "inner")),
         "join2_bound_ms": probe_bytes(args2) / MEM_BPS * 1e3}
+    q13 = phase_q13_kernels(K, dev, t, rng)
+    rec["dense_probe"].update(q13.pop("dense_probe"))
+    rec.update(q13)
     rec["expr_eval"] = phase_hk7(K, dev, t, rng)
     rec["offpath"] = offpath(K, dev, t, rng)
+    return rec
+
+
+# -- HK8 csr_expand, HK9 run_bounds, HK6's composite mode: Q13's shapes -----
+
+def _lane_bytes(lanes, rows: int) -> int:
+    return rows * sum(v.element_size() + (m is not None) for v, m in lanes)
+
+
+def phase_q13_kernels(K, dev, t, rng) -> dict:
+    """HK8 at Q13's join (150,000 customers probe 1,500,000 orders through
+    the o_custkey group index, inner and LEFT), HK9 at its two GROUP BYs
+    (2^21 sorted rows, ~150,000 runs, then ~40), and HK6's composite mode
+    at 2^21 probe rows on two keys, each against its plain version."""
+    import numpy as np
+    import torch
+    from tinysql_tpu_torch.executor import devpipe
+    rec = {}
+    zeros = lambda n: t(np.zeros(n, bool))  # noqa: E731
+
+    def same_pairs(a, b, what):
+        if len(a) != len(b):
+            raise Mismatch(f"{what}: {len(a)} vs {len(b)} lanes")
+        for (x, xn), (y, yn) in zip(a, b):
+            if not torch.equal(xn, yn) or not torch.equal(
+                    x.view(torch.uint8), y.view(torch.uint8)):
+                raise Mismatch(f"{what}: a gathered lane differs")
+
+    def hk8_case(args, outer, ob, plns, blns, what):
+        a = K.csr_expand(*args, outer, ob, plns, blns)
+        b = K.csr_expand(*args, outer, ob, plns, blns)
+        if not torch.equal(a[0], b[0]):
+            raise Mismatch(f"{what}: two runs of the kernel differ")
+        same_pairs(a[1] + a[2], b[1] + b[2], f"{what} (two runs)")
+        c = K.csr_expand_plain(*args, outer, ob, plns, blns)
+        if not torch.equal(a[0], c[0]):
+            raise Mismatch(f"{what}: valid slots differ")
+        same_pairs(a[1] + a[2], c[1] + c[2], what)
+        return int(a[0].sum())
+
+    def hk8_bytes(args, ob, total, plns, blns):
+        """Bytes HK8 must move on this data: the build's order and
+        validity over its rows, its group ends, the probe validity over
+        its bucket, then the keys, one table entry and each probe lane
+        over the valid probe rows, each build lane over the build rows,
+        the bucket's valid flags over all ob slots and the gathered lanes
+        over the ``total`` live ones."""
+        (order, ends, ng, n_rows, _bv, _tbl, _lo, _hi, keys, _spec,
+         pvalid) = args
+        nbp = int(pvalid.shape[0])
+        nvp = int(pvalid.sum())
+        out = sum(v.element_size() + 1 for v, _m in plns + blns)
+        return (n_rows * 9 + 8 * ng + nbp + nvp * 4 + _lane_bytes(keys, nvp)
+                + _lane_bytes(plns, nvp) + _lane_bytes(blns, n_rows)
+                + ob + total * out)
+
+    # Q13: customer (150,000 rows, 2^18 bucket) LEFT JOIN orders (1.5M
+    # rows, 2^21 bucket) on c_custkey = o_custkey, o_custkey uniform
+    n_c, n_o = 150_000, 1_500_000
+    nbp, nbb = K.bucket(n_c), K.bucket(n_o)
+    o_cust = rng.integers(1, n_c + 1, n_o).astype(np.int64)
+    gi = devpipe.GroupIndex([(o_cust, np.zeros(n_o, bool))])
+    ngb = K.bucket(gi.n_groups)
+    ob = 1 << 21
+    ckey = t(K.pad1(np.arange(1, n_c + 1, dtype=np.int64), nbp))
+    args13 = (t(K.pad1(gi.order, nbb)),
+              t(K.pad1(gi.ends, ngb, fill=n_o - 1)), gi.n_groups, n_o,
+              t(np.arange(nbb) < n_o), t(gi.pos_table()), gi.lo, gi.hi,
+              [(ckey, zeros(nbp))], None, t(np.arange(nbp) < n_c))
+    plns = [(ckey, zeros(nbp))]
+    blns = [(t(K.pad1(np.arange(1, n_o + 1, dtype=np.int64) * 4, nbb)),
+             zeros(nbb)), (t(K.pad1(o_cust, nbb)), zeros(nbb))]
+    # the probe-row lane of the inner expansion alone, for the partial call
+    rows_p = torch.arange(nbp, device=dev)
+    per_p = t(K.pad1(np.bincount(o_cust, minlength=n_c + 1)[1:], nbp),
+              torch.int64)
+    pairs = {}
+    for outer in (True, False):
+        pairs[outer] = hk8_case(args13, outer, ob, plns, blns,
+                                f"csr_expand Q13 outer={outer}")
+    # edges: filtered build rows, NULL keys on both sides, keys out of the
+    # table's range, a skewed group, a two- and a three-key composite
+    # lane, a bucket larger than the output
+    for nk in (1, 2, 3):
+        ne = 5000
+        if nk == 1:
+            bk = rng.integers(1, 400, ne).astype(np.int64)
+            bk[:2000] = 11
+            gie = devpipe.GroupIndex([(bk, rng.random(ne) < 0.05)])
+            keys = [(t(rng.integers(-5, 420, 8192), torch.int64),
+                     t(rng.random(8192) < 0.05))]
+            spec = None
+        else:
+            cols = [(rng.integers(1, 9, ne).astype(np.int64),
+                     rng.random(ne) < 0.03) for _ in range(nk)]
+            los, his, strides, comp, null_any, _ = \
+                devpipe._composite_spec(cols)
+            gie = devpipe.GroupIndex([(comp, null_any)])
+            spec = list(zip(los, his, strides))
+            keys = [(t(rng.integers(0, 11, 8192), torch.int64),
+                     t(rng.random(8192) < 0.03)) for _ in range(nk)]
+        nbe = K.bucket(ne)
+        ngbe = K.bucket(max(gie.n_groups, 1))
+        argse = (t(K.pad1(gie.order, nbe)),
+                 t(K.pad1(gie.ends, ngbe, fill=ne - 1)), gie.n_groups, ne,
+                 t(rng.random(nbe) < 0.7), t(gie.pos_table()), gie.lo,
+                 gie.hi, keys, spec, t(rng.random(8192) < 0.9))
+        obe = K.bucket(int(gie.raw_counts().max()) * 8192 + 8192)
+        ple = [(t(rng.integers(0, 9, 8192).astype(np.int32)),
+                t(rng.random(8192) < 0.1))]
+        ble = [(t(rng.normal(size=nbe)), t(rng.random(nbe) < 0.1)),
+               (t(rng.random(nbe) < 0.5), None)]
+        for outer in (False, True):
+            hk8_case(argse, outer, obe, ple, ble,
+                     f"csr_expand edges nk={nk} outer={outer}")
+    rec["csr_expand"] = {
+        "max_abs_err": 0.0,
+        **timed(lambda: K.csr_expand(*args13, True, ob, plns, blns)),
+        "plain_ms": cuda_ms(lambda: K.csr_expand_plain(
+            *args13, True, ob, plns, blns)),
+        "library_ms": None,
+        "bytes": hk8_bytes(args13, ob, pairs[True], plns, blns),
+        "ops": pairs[True],
+        "shape": f"probe 2^18 ({n_c} customers), build 2^21 ({n_o} "
+                 f"orders, {gi.n_groups} groups), ob 2^21, 1 + 2 lanes, "
+                 f"LEFT {pairs[True]} / inner {pairs[False]} pairs (Q13)",
+        "inner_ms": cuda_ms(lambda: K.csr_expand(*args13, False, ob, plns,
+                                                 blns)),
+        "partial_repeat_interleave_ms": cuda_ms(
+            lambda: torch.repeat_interleave(rows_p, per_p, output_size=n_o))}
+
+    # HK9: Q13's first GROUP BY (the join's 2^21 bucket sorted by
+    # c_custkey: 1.5M valid rows, ~150,000 runs), its second (c_count over
+    # the 150,000 groups), and edges with NULLs and two lanes
+    def hk9_case(perm, valid, keys, what):
+        a = K.run_bounds(perm, valid, keys, want_gid=True)
+        b = K.run_bounds(perm, valid, keys, want_gid=True)
+        same_bytes(list(a), list(b), what)
+        c = K.run_bounds_plain(perm, valid, keys, want_gid=True)
+        for x, y, nm in zip(a, c, ("count", "lead", "ends", "gid")):
+            if not torch.equal(x, y):
+                raise Mismatch(f"{what}: {nm} differs")
+        return int(a[0][0])
+
+    def hk9_bytes(n, n_valid, n_groups, keys):
+        """perm and validity read at every position, the key lanes (value
+        and NULL flag) over the valid rows; the count, the leaders of the
+        groups and the padded ends (HK5 reads all n) written once."""
+        return n * (8 + 1) + _lane_bytes(keys, n_valid) + 8 * n_groups \
+            + 8 * n + 8
+
+    n9 = 1 << 21
+    valid9 = t(np.arange(n9) < n_o)
+    k9 = [(t(K.pad1(rng.integers(1, n_c + 1, n_o), n9), torch.int64),
+           zeros(n9))]
+    perm9 = K.lex_order(K.sort_lanes(k9, [False], valid9), n9)
+    runs9 = hk9_case(perm9, valid9, k9, "run_bounds Q13 c_custkey")
+    sorted9 = k9[0][0][perm9][:n_o].contiguous()
+    cnt9 = t(K.pad1(np.bincount(o_cust, minlength=n_c + 1)[1:], n9),
+             torch.int64)
+    validc = t(np.arange(n9) < n_c)
+    kc = [(cnt9, zeros(n9))]
+    permc = K.lex_order(K.sort_lanes(kc, [False], validc), n9)
+    runsc = hk9_case(permc, validc, kc, "run_bounds Q13 c_count")
+    f9 = t(rng.integers(-3, 4, n9).astype(np.float64))
+    f9[:4] = t([float("nan"), -0.0, 0.0, float("nan")])
+    k2 = [(t(rng.integers(0, 500, n9), torch.int64), t(rng.random(n9) < 0.1)),
+          (f9, t(rng.random(n9) < 0.1))]
+    for frac in (0.9, 0.0):
+        v2 = t(rng.random(n9) < frac)
+        p2 = K.lex_order(K.sort_lanes(k2, [False, False], v2), n9)
+        hk9_case(p2, v2, k2, f"run_bounds two keys valid={frac}")
+        hk9_case(p2, v2, k2[:1], f"run_bounds one key valid={frac}")
+    rec["run_bounds"] = {
+        "max_abs_err": 0.0,
+        **timed(lambda: K.run_bounds(perm9, valid9, k9)),
+        "plain_ms": cuda_ms(lambda: K.run_bounds_plain(perm9, valid9, k9)),
+        "library_ms": None,
+        "bytes": hk9_bytes(n9, n_o, runs9, k9), "ops": n9,
+        "shape": f"2^21 sorted rows ({n_o} valid), 1 int64 key, {runs9} "
+                 f"runs (Q13 GROUP BY c_custkey); c_count: {runsc} runs",
+        "c_count_ms": cuda_ms(lambda: K.run_bounds(permc, validc, kc)),
+        "partial_unique_consecutive_ms": cuda_ms(
+            lambda: torch.unique_consecutive(sorted9, return_counts=True))}
+
+    # HK6's composite mode: 2^21 probe rows on two keys (k1 in 1..4000,
+    # k2 in 1..500; 5% beyond either range, 5% NULL) through a 2*10^6-entry
+    # composite table of 2^20 unique build rows, 2 build lanes
+    np6 = 1 << 21
+    spec6 = [(1, 4000, 500), (1, 500, 1)]
+    nbb6 = 1 << 20
+    comp6 = rng.choice(4000 * 500, nbb6, replace=False)
+    tbl6 = np.full(4000 * 500, -1, np.int32)
+    tbl6[comp6] = np.arange(nbb6, dtype=np.int32)
+    keys6 = [(t(rng.integers(1, 4211, np6), torch.int64),
+              t(rng.random(np6) < 0.05)),
+             (t(rng.integers(1, 526, np6), torch.int64), None)]
+    bl6 = [(t(rng.integers(0, 1 << 40, nbb6), torch.int64), zeros(nbb6)),
+           (t(rng.normal(size=nbb6)), t(rng.random(nbb6) < 0.1))]
+    args6 = (keys6, spec6, t(rng.random(np6) < 0.9), t(tbl6),
+             t(rng.random(nbb6) < 0.8), bl6)
+    for mode in ("inner", "left"):
+        a = K.dense_probe_multi(*args6, mode)
+        b = K.dense_probe_multi(*args6, mode)
+        same_pairs([(a[0], a[0])] + a[1], [(b[0], b[0])] + b[1],
+                   f"dense_probe composite {mode} (two runs)")
+        c = K.dense_probe_multi_plain(*args6, mode)
+        if not torch.equal(a[0], c[0]):
+            raise Mismatch(f"dense_probe composite {mode}: valid differs")
+        same_pairs(a[1], c[1], f"dense_probe composite {mode}")
+    # bound: each probe row's keys, NULL flags and validity read and its
+    # valid flag and gathered lanes written; the table entry of each
+    # distinct in-range composite key and the build row it names read once
+    comp_k, ok = K.probe_keys_plain(keys6, spec6)
+    distinct = torch.unique(comp_k[ok])
+    hits = int((t(tbl6)[distinct] >= 0).sum())
+    out6 = sum(v.element_size() + 1 for v, _m in bl6)
+    bytes6 = (_lane_bytes(keys6, np6) + np6 * (1 + 1 + out6)
+              + 4 * int(distinct.shape[0]) + hits * (1 + out6))
+    rec["dense_probe"] = {
+        "composite_ms": cuda_ms(lambda: K.dense_probe_multi(*args6,
+                                                            "inner")),
+        "composite_device_ms": device_ms(lambda: K.dense_probe_multi(
+            *args6, "inner")),
+        "composite_plain_ms": cuda_ms(lambda: K.dense_probe_multi_plain(
+            *args6, "inner")),
+        "composite_bound_ms": bytes6 / MEM_BPS * 1e3,
+        "composite_shape": f"probe 2^21, 2 keys, table 2*10^6, build 2^20, "
+                           f"2 lanes, {int(distinct.shape[0])} distinct "
+                           f"in-range keys"}
     return rec
 
 
@@ -928,28 +1191,38 @@ def offpath(K, dev, t, rng) -> dict:
     zl, zr = t(np.zeros(n, bool)), t(np.zeros(1 << 15, bool))
     ol, orr = t(np.ones(n, bool)), t(np.ones(1 << 15, bool))
 
-    def k4():
-        # group_aggregate's two kernels: the key sort, then the segment
-        # reduction at as many segments as rows (its boundary scan
-        # between them is torch glue, left out)
-        K.lex_order(K.sort_lanes(key, [False], valid, zero_nulls=False), n)
-        return K.segment_reduce(key[0][0], valid, n, lanes)
+    def k4(plain=False):
+        # group_aggregate's three kernels: the key sort, the runs of equal
+        # keys, the segment reduction at as many segments as rows
+        sl = K.sort_lanes(key, [False], valid, zero_nulls=False)
+        if plain:
+            perm = K.lex_order_plain(sl, n)
+            gid = K.run_bounds_plain(perm, valid, key, want_gid=True)[3]
+            return K.segment_reduce_plain(gid, valid, n, lanes)
+        perm = K.lex_order(sl, n)
+        gid = K.run_bounds(perm, valid, key, want_gid=True)[3]
+        return K.segment_reduce(gid, valid, n, lanes)
     mult_pairs = int(K.equi_join_mult(lk, zl, ol, rk, zr, orr)[0].shape[0])
     out = {
         "K3 segment_reduce n=2^20 ns=2^16 2 lanes": (
             lambda: K.segment_reduce(gid, valid, ns, lanes),
+            lambda: K.segment_reduce_plain(gid, valid, ns, lanes),
             n * (8 + 1 + 8 + 1 + 1) + 6 * 8 * ns),
-        "K4 lex_order + segment_reduce n=2^20 1 key 2 lanes": (
-            k4, n * (8 + 1 + 1 + 8 + 1 + 1) + 6 * 8 * n),
+        "K4 lex_order + run_bounds + segment_reduce n=2^20 1 key 2 lanes": (
+            k4, lambda: k4(plain=True),
+            n * (8 + 1 + 1 + 8 + 1 + 1) + 6 * 8 * n),
         "K5 masked_reduce n=2^20 2 lanes": (
             lambda: K.masked_reduce(valid, lanes),
+            lambda: K.masked_reduce_plain(valid, lanes),
             n * (1 + 8 + 1 + 1) + 8 * 6),
         f"K7 equi_join_mult probe 2^20 build 2^15 ({mult_pairs} pairs)": (
             lambda: K.equi_join_mult(lk, zl, ol, rk, zr, orr),
+            lambda: K.equi_join_mult_plain(lk, zl, ol, rk, zr, orr),
             n * 10 + (1 << 15) * 10 + 16 * mult_pairs),
     }
-    return {name: {"ms": cuda_ms(fn), "bound_ms": b / MEM_BPS * 1e3}
-            for name, (fn, b) in out.items()}
+    return {name: {**timed(fn), "plain_ms": cuda_ms(fp, reps=3, warm=1),
+                   "bound_ms": b / MEM_BPS * 1e3}
+            for name, (fn, fp, b) in out.items()}
 
 
 # ---- phase 3 -------------------------------------------------------------
@@ -1007,6 +1280,11 @@ def run_tier(K, sess, tier: str, queries: dict, torch) -> tuple:
         if kinds != want:
             raise Mismatch(f"{tier} {q}: pipeline node kinds {kinds}, "
                            f"want {want}")
+        d2h = int(sess.last_query_stats.device_totals().get(
+            "d2h_transfers", 0))
+        if tier == "pipeline" and q in ONE_D2H and d2h != 1:
+            raise Mismatch(f"pipeline {q}: {d2h} device->host copies, "
+                           f"want 1")
         reps = TRIO_PER_OP_WARM if (tier == "per_op"
                                     and q in tpch.WORKLOAD) else WARM
         warm = []
@@ -1028,7 +1306,8 @@ def run_tier(K, sess, tier: str, queries: dict, torch) -> tuple:
               f"{first_s:.4f} s, warm best of {reps} {min(warm):.4f} s, "
               f"one warm run: {prof['kernels']} CUDA kernels + "
               f"{prof['copies']} copies, device {prof['device_ms']} ms; "
-              f"node kinds {sorted(kinds)}, launches {used}", flush=True)
+              f"node kinds {sorted(kinds)}, {d2h} D2H, launches {used}",
+              flush=True)
         # Q6 runs the per-operator executors on both tiers (no join, no
         # grouped aggregate); torch.profiler sometimes returns no device
         # event for it, so the bound is held wherever a trace has them
@@ -1043,8 +1322,17 @@ def run_tier(K, sess, tier: str, queries: dict, torch) -> tuple:
     return rows, counts["launches"]
 
 
-def phase_main_path(K, kinfo, device=None):
+def check_rows(rows, what: str, expect: int = None) -> None:
     import math
+    if not rows or (expect is not None and len(rows) != expect):
+        raise Mismatch(f"{what}: {len(rows)} rows")
+    for r in rows:
+        for v in r:
+            if isinstance(v, float) and not math.isfinite(v):
+                raise Mismatch(f"{what}: non-finite value {v}")
+
+
+def phase_main_path(K, kinfo, device=None):
     import torch
     from tinysql_tpu_torch.bench import tpch
     from tinysql_tpu_torch.session import new_session
@@ -1052,16 +1340,19 @@ def phase_main_path(K, kinfo, device=None):
     sess = new_session(device=device)
     if device is None and sess.device.type != "cuda":
         raise Mismatch(f"new_session() chose {sess.device}")
-    counts = tpch.load(sess, sf=SF, seed=SEED)
+    data = tpch.generate(SF, SEED)
+    counts = tpch.load(sess, sf=SF, seed=SEED, data=data)
+    numpy_rows = {q: getattr(tpch, fn)(data) for q, fn in NUMPY_ROWS.items()}
+    del data
     print(f"[main] tpch.load sf={SF} seed={SEED}: {counts} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     sess.execute("set tidb_use_tpu=1")
     if int(sess.get_sysvar("tidb_devpipe")) != TIERS["pipeline"]:
         raise Mismatch("the pipeline tier is not the default")
-    # Q1, Q3 and Q6 on both tiers before the trio: after Q5's run,
+    # Q1, Q3, Q6 and Q13 on both tiers before the trio: after Q5's run,
     # torch.profiler loses some kernel events of later traces
     tier_rows = {tier: {} for tier in TIERS}
-    for queries in (tpch.QUERIES, tpch.WORKLOAD):
+    for queries in (tpch.QUERIES, {"Q13": tpch.Q13}, tpch.WORKLOAD):
         for tier in TIERS:
             rows, launches = run_tier(K, sess, tier, queries, torch)
             tier_rows[tier].update(rows)
@@ -1072,10 +1363,21 @@ def phase_main_path(K, kinfo, device=None):
     for k, info in kinfo.items():
         if info["launches"] <= 0:
             raise Mismatch(f"kernel {k} never launched on the main path")
-    # the port's own CPU tier is the reference for the rows
+    # Q13 and Q5: numpy's answers from the generated columns, both tiers
+    for q, want in numpy_rows.items():
+        for tier, rows in tier_rows.items():
+            if tpch.canon_rows(rows[q]) != tpch.canon_rows(want):
+                raise Mismatch(f"{tier} {q} differs from numpy:\n"
+                               f"gpu {rows[q][:3]}\nnumpy {want[:3]}")
+            check_rows(rows[q], f"{tier} {q}")
+        print(f"[main] {q}: both tiers equal to numpy's {q}, "
+              f"{len(want)} rows", flush=True)
+    # the port's own CPU tier is the reference for the rows of the others
     sess.execute("set tidb_use_tpu=0")
     expect_rows = {"Q1": 6, "Q3": 10, "Q6": 1, "Q5": 5, "Q10": 20}
     for q, sql in tpch.ALL_QUERIES.items():
+        if q in numpy_rows:
+            continue
         t1 = time.perf_counter()
         cpu_rows = sess.query(sql).rows
         cpu_s = time.perf_counter() - t1
@@ -1084,15 +1386,11 @@ def phase_main_path(K, kinfo, device=None):
                 raise Mismatch(f"{tier} {q}: GPU rows differ from the CPU "
                                f"tier:\ngpu {rows[q][:3]}\n"
                                f"cpu {cpu_rows[:3]}")
-            if not rows[q] or len(rows[q]) != expect_rows.get(
-                    q, len(rows[q])):
-                raise Mismatch(f"{tier} {q}: {len(rows[q])} rows")
-            for r in rows[q]:
-                for v in r:
-                    if isinstance(v, float) and not math.isfinite(v):
-                        raise Mismatch(f"{tier} {q}: non-finite value {v}")
         print(f"[main] {q}: both tiers equal to the CPU tier, "
               f"{len(cpu_rows)} rows ({cpu_s:.3f} s there)", flush=True)
+    for tier, rows in tier_rows.items():
+        for q in tpch.ALL_QUERIES:
+            check_rows(rows[q], f"{tier} {q}", expect_rows.get(q))
 
 
 def main() -> int:
@@ -1128,7 +1426,8 @@ def main() -> int:
         rec = phase_kernels(K, dev)
     torch.cuda.synchronize()
     for name, r in rec.pop("offpath").items():
-        print(f"[offpath] {name}: ms {r['ms']:.4f}, bound "
+        print(f"[offpath] {name}: ms {r['ms']:.4f}, device "
+              f"{r['device_ms']}, plain {r['plain_ms']:.4f}, bound "
               f"{r['bound_ms']:.5f} ms (bytes)", flush=True)
     kinfo = {}
     for name, r in rec.items():

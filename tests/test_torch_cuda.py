@@ -166,6 +166,127 @@ def test_dense_probe_matches_plain(dev):
                                    y.view(torch.uint8)), mode
 
 
+def _same_pairs(a, b, what):
+    """Lists of (values, NULL mask) pairs byte for byte."""
+    assert len(a) == len(b), what
+    for (x, xn), (y, yn) in zip(a, b):
+        assert torch.equal(xn, yn), what
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8)), what
+
+
+def test_dense_probe_multi_matches_plain(dev):
+    """HK6's composite mode: two and three keys, NULL and out-of-range
+    parts, dead build rows, left and inner."""
+    rng = np.random.default_rng(5)
+    n, m = 6000, 512
+    for spans in ((20, 15), (7, 5, 9)):
+        los = [int(x) for x in rng.integers(-50, 50, len(spans))]
+        spec, st = [], 1
+        for lo, sp in reversed(list(zip(los, spans))):
+            spec.append((lo, lo + sp - 1, st))
+            st *= sp
+        spec.reverse()
+        total = st
+        tbl = np.full(total, -1, np.int32)
+        tbl[rng.choice(total, min(total, m), replace=False)] = \
+            np.arange(min(total, m))
+        keys = [(_t(rng.integers(lo - 3, hi + 4, n), dev, torch.int64),
+                 _t(rng.random(n) < 0.05, dev)) for lo, hi, _ in spec]
+        keys[0] = (keys[0][0], None)
+        args = (keys, spec, _t(rng.random(n) < 0.9, dev), _t(tbl, dev),
+                _t(rng.random(m) < 0.8, dev),
+                [(_t(rng.normal(size=m), dev), _t(rng.random(m) < 0.2, dev)),
+                 (_t(rng.integers(0, 9, m), dev, torch.int64), None)])
+        for mode in ("inner", "left"):
+            va, la = K.dense_probe_multi(*args, mode)
+            vb, lb = K.dense_probe_multi_plain(*args, mode)
+            assert torch.equal(va, vb), mode
+            _same_pairs(la, lb, mode)
+
+
+def _csr_case(rng, dev, n_build, n_probe, nk, skew=False):
+    """A build side with duplicate (and NULL) keys, its group index over
+    the key (or the composite lane), and a probe side."""
+    from tinysql_tpu_torch.executor import devpipe
+    nbb, nb = K.bucket(n_build), K.bucket(n_probe)
+    if nk == 1:
+        bk = rng.integers(1, 300, n_build).astype(np.int64)
+        if skew:
+            bk[: n_build // 2] = 7
+        bkn = rng.random(n_build) < 0.05
+        gi = devpipe.GroupIndex([(bk, bkn)])
+        keys = [(_t(K.pad1(rng.integers(-5, 320, n_probe), nb), dev,
+                    torch.int64), _t(K.pad1(rng.random(n_probe) < 0.05, nb,
+                                            True), dev))]
+        spec = None
+    else:
+        cols = [(rng.integers(1, 12, n_build).astype(np.int64),
+                 rng.random(n_build) < 0.03) for _ in range(nk)]
+        los, his, strides, comp, null_any, _tot = \
+            devpipe._composite_spec(cols)
+        gi = devpipe.GroupIndex([(comp, null_any)])
+        spec = list(zip(los, his, strides))
+        keys = [(_t(K.pad1(rng.integers(0, 14, n_probe), nb), dev,
+                    torch.int64), _t(K.pad1(rng.random(n_probe) < 0.03, nb,
+                                            True), dev)) for _ in range(nk)]
+    tbl = gi.pos_table()
+    ngb = K.bucket(max(gi.n_groups, 1))
+    order = _t(K.pad1(gi.order, nbb), dev)
+    ends = _t(K.pad1(gi.ends, ngb, fill=n_build - 1), dev)
+    raw = gi.raw_counts()
+    ob = K.bucket(int(raw.max()) * n_probe + n_probe)
+    blanes = [(_t(rng.normal(size=nbb), dev), _t(rng.random(nbb) < 0.1, dev)),
+              (_t(rng.integers(0, 99, nbb), dev, torch.int64), None)]
+    plns = [(_t(rng.integers(0, 99, nb).astype(np.int32), dev),
+             _t(rng.random(nb) < 0.1, dev))] + keys[:1]
+    return (order, ends, gi.n_groups, n_build, _t(rng.random(nbb) < 0.8, dev),
+            _t(tbl, dev), gi.lo, gi.hi, keys, spec,
+            _t(K.pad1(rng.random(n_probe) < 0.9, nb), dev)), ob, plns, blanes
+
+
+def test_csr_expand_matches_plain(dev):
+    """HK8 against its plain version: one key and the composite lane,
+    inner and LEFT, a skewed group, build-side filters, NULL keys, a
+    bucket larger than the output; the same bytes from run to run."""
+    rng = np.random.default_rng(6)
+    for nk, skew in ((1, False), (1, True), (2, False), (3, False)):
+        args, ob, plns, blanes = _csr_case(rng, dev, 3000, 2000, nk, skew)
+        for outer in (False, True):
+            a = K.csr_expand(*args, outer, ob, plns, blanes)
+            b = K.csr_expand_plain(*args, outer, ob, plns, blanes)
+            what = (nk, skew, outer)
+            assert torch.equal(a[0], b[0]), what
+            assert int(a[0].sum()) > 0, what
+            _same_pairs(a[1], b[1], what)
+            _same_pairs(a[2], b[2], what)
+            c = K.csr_expand(*args, outer, ob, plns, blanes)
+            assert torch.equal(a[0], c[0])
+            _same_pairs(a[2], c[2], what)
+
+
+def test_run_bounds_matches_plain(dev):
+    """HK9 against its plain version over HK4's group-by order: int and
+    float keys with NULLs, NaN, -0.0 and +0.0, invalid rows, one and two
+    lanes, no valid row at all."""
+    rng = np.random.default_rng(7)
+    n = 1 << 15
+    iv = _t(rng.integers(0, 40, n), dev, torch.int64)
+    fv = _t(rng.integers(-3, 3, n).astype(np.float64), dev)
+    fv[:6] = _t([float("nan"), -0.0, 0.0, float("nan"), -0.0, 1.5], dev)
+    inl = _t(rng.random(n) < 0.1, dev)
+    fnl = _t(rng.random(n) < 0.1, dev)
+    for frac in (0.9, 0.0):
+        valid = _t(rng.random(n) < frac, dev)
+        for keys in ([(iv, inl)], [(fv, fnl)], [(iv, inl), (fv, None)]):
+            perm = K.lex_order(K.sort_lanes(
+                [(v, torch.zeros_like(valid) if m is None else m)
+                 for v, m in keys], [False] * len(keys), valid), n)
+            a = K.run_bounds(perm, valid, keys, want_gid=True)
+            b = K.run_bounds_plain(perm, valid, keys, want_gid=True)
+            for x, y in zip(a, b):
+                assert torch.equal(x, y), (frac, len(keys))
+
+
 def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance in units in the last place between two float64
     tensors (equal NaNs count 0)."""
@@ -252,28 +373,30 @@ def test_expr_eval_matches_plain(dev):
 def test_tpch_on_the_card_matches_the_cpu_tier(dev):
     """Both device tiers on the card — the pipeline (the default) and the
     per-operator tier — launch every kernel between them, run no plain
-    version, and give the CPU tier's rows, for Q1, Q3, Q6 and the
-    workload trio Q5, Q10, Q18."""
+    version, and give the CPU tier's rows, for Q1, Q3, Q6, the workload
+    trio Q5, Q10, Q18 and Q13 (a LEFT join with a non-unique build side
+    and two GROUP BYs above it)."""
     from tinysql_tpu_torch.bench import tpch
     from tinysql_tpu_torch.session import new_session
     s = new_session()
     assert s.device.type == "cuda"
     tpch.load(s, sf=0.01, seed=7)
     s.execute("set tidb_tpu_min_rows = 0")
+    queries = {**tpch.ALL_QUERIES, "Q13": tpch.Q13}
     launched = dict.fromkeys(K.LAUNCHES, 0)
     gpu = {}
     for devpipe in (-1, 0):
         s.execute(f"set tidb_devpipe = {devpipe}")
         K.reset_kernel_counts()
         gpu[devpipe] = {q: s.query(sql).rows
-                        for q, sql in tpch.ALL_QUERIES.items()}
+                        for q, sql in queries.items()}
         counts = K.kernel_counts()
         assert not any(counts["plain_calls"].values()), counts
         for k, v in counts["launches"].items():
             launched[k] += v
     assert all(launched.values()), launched
     s.execute("set tidb_use_tpu = 0")
-    for q, sql in tpch.ALL_QUERIES.items():
+    for q, sql in queries.items():
         cpu = tpch.canon_rows(s.query(sql).rows)
         for devpipe in (-1, 0):
             assert cpu == tpch.canon_rows(gpu[devpipe][q]), (devpipe, q)

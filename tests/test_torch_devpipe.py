@@ -54,8 +54,9 @@ def _load(sessions, name, schema, cols):
 def _tables(pair):
     """The reference test battery's fixtures (tests/test_devpipe.py):
     t/u (pk join), g (multi-key group-by), w (three-way chain), the
-    miniature Q3 (cust/ord/line) and dup (non-unique build side); big
-    (70,000 rows) gives a join output past the small-pack bucket."""
+    miniature Q3 (cust/ord/line), p/dup (non-unique build side, its
+    _dup_tables) and dimk/factk/dupd (multi-key joins, its _mk_fixture);
+    big (70,000 rows) gives a join output past the small-pack bucket."""
     rng = np.random.default_rng(11)
     n = 3000
     _load(pair, "t", "a bigint primary key, b bigint, c double, fk bigint",
@@ -103,6 +104,14 @@ def _tables(pair):
                  rng.random(m) < 0.05),
            "v": (rng.integers(0, 1000, m).astype(np.int64), None),
            "w": (rng.random(m) * 10, rng.random(m) < 0.1)})
+    rng = np.random.default_rng(8)
+    n = 2500
+    _load(pair, "p", "a bigint primary key, fk bigint, x double",
+          {"a": (np.arange(1, n + 1, dtype=np.int64), None),
+           "fk": (rng.integers(1, 80, n).astype(np.int64),
+                  rng.random(n) < 0.05),
+           "x": (rng.random(n) * 100, None)})
+    _mk_tables(pair)
     rng = np.random.default_rng(9)
     n = 70000
     _load(pair, "big", "a bigint primary key, fk bigint, x double",
@@ -110,6 +119,36 @@ def _tables(pair):
            "fk": (rng.integers(1, 320, n).astype(np.int64),
                   rng.random(n) < 0.02),
            "x": (rng.random(n), None)})
+
+
+def _mk_tables(pair):
+    """The reference's _mk_fixture: dimk unique on (k1, k2), factk probing
+    it on two keys (some out of range, some NULL), dupd repeating every
+    (g1, g2) pair twice."""
+    rng = np.random.default_rng(13)
+    k1, k2 = np.meshgrid(np.arange(1, 21), np.arange(1, 16), indexing="ij")
+    k1, k2 = k1.reshape(-1).astype(np.int64), k2.reshape(-1).astype(np.int64)
+    _load(pair, "dimk", "id bigint primary key, k1 bigint, k2 bigint, "
+                        "v double",
+          {"id": (np.arange(1, len(k1) + 1, dtype=np.int64), None),
+           "k1": (k1, None), "k2": (k2, None), "v": (k1 * 100.0 + k2, None)})
+    for s in pair:
+        s.execute("create unique index uk on dimk (k1, k2)")
+    n = 3000
+    _load(pair, "factk", "fid bigint primary key, f1 bigint, f2 bigint, "
+                         "x double",
+          {"fid": (np.arange(1, n + 1, dtype=np.int64), None),
+           "f1": (rng.integers(1, 25, n).astype(np.int64), None),
+           "f2": (rng.integers(1, 18, n).astype(np.int64),
+                  rng.random(n) < 0.05),
+           "x": (rng.random(n) * 100, None)})
+    rng = np.random.default_rng(5)
+    _load(pair, "dupd", "id bigint primary key, g1 bigint, g2 bigint, "
+                        "w double",
+          {"id": (np.arange(1, 61, dtype=np.int64), None),
+           "g1": (np.repeat(np.arange(1, 11, dtype=np.int64), 6), None),
+           "g2": (np.tile(np.arange(1, 4, dtype=np.int64), 20), None),
+           "w": (rng.random(60) * 10, None)})
 
 
 @pytest.fixture(scope="module")
@@ -246,7 +285,71 @@ CASES = {
                                 "on big.fk = u.k", False),
     "large_output_left_join": ("select big.a, u.w from big left join u "
                                "on big.fk = u.k where big.x < 0.9", False),
+    # K18's multiplicity mode (HK8): the reference's _dup_tables shapes
+    "nonunique_build_inner": ("select p.a, dup.v, dup.w from p join dup "
+                              "on p.fk = dup.k where p.x < 60", False),
+    "nonunique_build_left_null_extend": ("select p.a, dup.v from p left "
+                                         "join dup on p.fk = dup.k", False),
+    "nonunique_build_filter_on_build": ("select p.a, dup.v from p join dup "
+                                        "on p.fk = dup.k where dup.v > 500 "
+                                        "and p.x > 20", False),
+    "nonunique_then_topn": ("select p.a, dup.v, p.x from p join dup "
+                            "on p.fk = dup.k order by p.x desc, p.a, dup.v "
+                            "limit 9", True),
+    "nonunique_large_output": ("select big.a, dup.v from big join dup "
+                               "on big.fk = dup.k where big.x < 0.3", False),
+    # K19 _SortGroupNode (HK4 + HK9 + HK5)
+    "sortgroup_final": ("select u.w, count(*), sum(t.c) from t join u "
+                        "on t.fk = u.k group by u.w", False),
+    "sortgroup_raw": ("select u.v, sum(t.c * u.w), avg(t.c), min(u.w) "
+                      "from t join u on t.fk = u.k group by u.v", False),
+    "sortgroup_multikey": ("select u.v, t.b, count(*), avg(t.c) from t "
+                           "join u on t.fk = u.k where t.c is not null "
+                           "group by u.v, t.b order by u.v, t.b limit 50",
+                           True),
+    "sortgroup_null_keys_group_together": (
+        "select t.fk, count(*), sum(u.w), max(t.c) from t left join u "
+        "on t.fk = u.k group by t.fk order by t.fk", True),
+    "sortgroup_null_float_and_int_keys": (
+        "select t.c, t.b, count(*) from t join u on t.fk = u.k "
+        "where t.a < 400 group by t.c, t.b", False),
+    "leaf_null_keys_group_together": ("select b, seg, count(*) from g "
+                                      "group by b, seg order by b, seg",
+                                      True),
+    "sortgroup_above_nonunique_join": (
+        "select p.fk, count(dup.v), sum(dup.w), min(p.x) from p left join "
+        "dup on p.fk = dup.k group by p.fk order by p.fk", True),
+    # K18's multi-key mode: the reference's _mk_fixture shapes
+    "multikey_join_inner": ("select factk.fid, dimk.v from factk join dimk "
+                            "on factk.f1 = dimk.k1 and factk.f2 = dimk.k2 "
+                            "where factk.x < 50 order by factk.fid limit 40",
+                            True),
+    "multikey_join_left_null_extend": (
+        "select factk.fid, dimk.v from factk left join dimk "
+        "on factk.f1 = dimk.k1 and factk.f2 = dimk.k2 "
+        "order by factk.fid limit 100", True),
+    "multikey_join_group_by_above": (
+        "select dimk.k1, count(*), sum(factk.x), avg(factk.x) from factk "
+        "join dimk on factk.f1 = dimk.k1 and factk.f2 = dimk.k2 "
+        "group by dimk.k1 order by dimk.k1", True),
+    "multikey_join_nonunique_build_csr": (
+        "select factk.fid, dupd.w from factk join dupd "
+        "on factk.f1 = dupd.g1 and factk.f2 = dupd.g2 "
+        "order by factk.fid, dupd.w limit 40", True),
+    "multikey_join_nonunique_build_csr_left": (
+        "select factk.fid, dupd.w from factk left join dupd "
+        "on factk.f1 = dupd.g1 and factk.f2 = dupd.g2 "
+        "order by factk.fid, dupd.w limit 60", True),
 }
+#: cases whose pipeline must have compiled the node kind named (the
+#: reference's own assertions, tests/test_devpipe.py)
+CASE_KINDS = {"nonunique_build_inner": "joinm",
+              "nonunique_build_left_null_extend": "joinm",
+              "sortgroup_final": "sortgroup", "sortgroup_raw": "sortgroup",
+              "sortgroup_null_keys_group_together": "sortgroup",
+              "sortgroup_above_nonunique_join": "sortgroup",
+              "multikey_join_inner": "joinmk",
+              "multikey_join_nonunique_build_csr": "joinm"}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -254,6 +357,24 @@ def test_pipeline_matches_reference(pair, kinds, case):
     sql, ordered = CASES[case]
     _both(pair, kinds, sql, ordered)
     assert kinds["port"] - {"host"}, kinds  # a pipeline ran
+    if case in CASE_KINDS:
+        assert CASE_KINDS[case] in kinds["port"], kinds
+
+
+def test_multikey_join_other_conds_stay_off_the_pipeline(pair, kinds):
+    """A non-equi ON conjunct puts other_conditions on the join: neither
+    package's pipeline takes it (the reference's
+    test_multikey_join_other_conds_cpu_guard), and the rows agree."""
+    ref, port = pair
+    sql = ("select factk.fid, dimk.v from factk join dimk "
+           "on factk.f1 = dimk.k1 and factk.f2 = dimk.k2 "
+           "and factk.x < dimk.v order by factk.fid limit 30")
+    want = ref.query(sql).rows
+    got = port.query(sql).rows
+    _same_rows(got, want, True, sql)
+    assert len(got) == 30
+    assert kinds["port"] == kinds["ref"]
+    assert not kinds["port"] & {"join", "joinm", "joinmk"}, kinds
 
 
 def test_pipeline_kernels_run_their_plain_versions_on_the_cpu(pair, kinds):
@@ -265,23 +386,29 @@ def test_pipeline_kernels_run_their_plain_versions_on_the_cpu(pair, kinds):
     assert not any(counts["launches"].values())
 
 
-@pytest.mark.parametrize("sql,item", [
-    ("select p.a, dup.v from t p join dup on p.fk = dup.k",
-     "non-unique build side"),
-    ("select u.v, count(*), sum(t.c) from t join u on t.fk = u.k "
-     "group by u.v", "_SortGroupNode"),
+@pytest.mark.parametrize("sysvar,sql,item", [
+    ("tidb_device_block_rows = 1000",
+     "select t.a, t.c from t where t.b > 0 order by t.c desc, t.a limit 5",
+     "tidb_device_block_rows.*ROADMAP queue 1, item 1"),
+    ("tidb_mesh_parallel = 1",
+     "select u.v, count(*), sum(t.c) from t join u on t.fk = u.k "
+     "group by u.v", "tidb_mesh_parallel.*ROADMAP queue 1, item 10"),
 ])
-def test_unported_modes_raise_when_forced(pair, sql, item):
+def test_unported_modes_raise_when_forced(pair, sysvar, sql, item):
+    """What the port has not built raises under tidb_devpipe=1, naming
+    its ROADMAP item: block-wise execution (a TopN over a table past
+    tidb_device_block_rows; a join or GROUP BY there takes the pipeline
+    through a host leaf, as in the reference) and the mesh tier.  Without
+    the sysvar the same statement runs as the reference runs it."""
     _, port = pair
-    with pytest.raises(NotImplementedError,
-                       match=f"{item}.*ROADMAP queue 1, item 1"):
-        port.query(sql)
-    # auto on the CPU is the per-operator tier, which serves both
-    port.execute("set @@tidb_devpipe = -1")
+    name = sysvar.split("=")[0].strip()
+    port.execute(f"set @@{sysvar}")
     try:
-        assert port.query(sql).rows
+        with pytest.raises(NotImplementedError, match=item):
+            port.query(sql)
     finally:
-        port.execute("set @@tidb_devpipe = 1")
+        port.execute(f"set @@{name} = 0")
+    _same_rows(port.query(sql).rows, pair[0].query(sql).rows, False, sql)
 
 
 def test_auto_on_the_cpu_runs_the_per_operator_tier(pair, kinds,
@@ -405,6 +532,70 @@ def test_r6_group_sums_are_exact_per_group(pair):
     assert repr(got) == repr(cpu)
     assert got[1][1:] == [3.75, 1.875] and got[4][1:] == [4.5, 2.25]
     want = ref.query(sql).rows  # the defect the port does not copy
+    assert want[1][1] == 0.0 and math.isnan(want[4][1])
+
+
+def test_keyorder_swapped_group_bys_no_cache_clobber(pair, kinds):
+    """Two group-bys differing only in key order (int64 <-> float64 key
+    lanes swap) must not share a registered pipeline; the first runs
+    again after the second (the reference's test of the same name), over
+    the leaf and above a join."""
+    for q1, q2 in (("select b, d, count(*) from g group by b, d",
+                    "select d, b, count(*) from g group by d, b"),
+                   ("select t.b, u.w, count(*) from t join u on t.fk = u.k "
+                    "group by t.b, u.w",
+                    "select u.w, t.b, count(*) from t join u on t.fk = u.k "
+                    "group by u.w, t.b")):
+        for sql in (q1, q2, q1):
+            _both(pair, kinds, sql, False)
+
+
+def test_large_view_with_few_rows_is_one_transfer(pair, kinds):
+    """A GROUP BY above a 70,000-row join keeps the join's 2^17-row
+    bucket; its few groups come back with their count in ONE transfer
+    (kernels.present_rows), where the reference pulls the count first
+    and the rows second."""
+    ref, port = pair
+    # arguments from both sides keep the aggregate above the join (no
+    # partial aggregate below it)
+    sql = ("select u.v, count(*), sum(big.x * u.w) from big join u "
+           "on big.fk = u.k group by u.v")
+    want = ref.query(sql).rows
+    assert _d2h(ref) == 2
+    got = port.query(sql).rows
+    _same_rows(got, want, False, sql)
+    assert kinds["port"] == kinds["ref"] and "sortgroup" in kinds["port"]
+    assert _d2h(port) == 1 and 0 < len(got) <= kernels.PRESENT_HEAD
+
+
+def test_r7_sortgroup_sums_are_exact_per_group(pair, kinds):
+    """R7: the reference's _SortGroupNode sums a group as the difference
+    of one cumsum over the whole sorted lane, so above a join a group
+    after a large one loses its value to cancellation and a NaN poisons
+    every later group.  HK5 over HK9's runs sums each group's own rows:
+    the port equals its CPU tier, which sums per group too."""
+    ref, port = pair
+    x = np.array([1e17, 1e17, 1.5, 2.25, 0.125, np.nan, 4.0, 0.5])
+    k = np.array([1, 1, 2, 2, 3, 4, 5, 5], dtype=np.int64)
+    _load((ref, port), "zs", "id bigint primary key, k bigint, x double",
+          {"id": (np.arange(1, 9, dtype=np.int64), None), "k": (k, None),
+           "x": (x, None)})
+    _load((ref, port), "zg", "k bigint primary key, g bigint",
+          {"k": (np.arange(1, 6, dtype=np.int64), None),
+           "g": (np.array([10, 20, 30, 40, 50], dtype=np.int64), None)})
+    sql = ("select zg.g, sum(zs.x), avg(zs.x) from zs join zg "
+           "on zs.k = zg.k group by zg.g order by zg.g")
+    got = port.query(sql).rows
+    assert "sortgroup" in kinds["port"], kinds
+    port.execute("set @@tidb_use_tpu = 0")
+    try:
+        cpu = port.query(sql).rows
+    finally:
+        port.execute("set @@tidb_use_tpu = 1")
+    assert repr(got) == repr(cpu)
+    assert got[1][1:] == [3.75, 1.875] and got[4][1:] == [4.5, 2.25]
+    want = ref.query(sql).rows  # the defect the port does not copy
+    assert "sortgroup" in kinds["ref"], kinds
     assert want[1][1] == 0.0 and math.isnan(want[4][1])
 
 
@@ -543,12 +734,12 @@ TPCH_KINDS = {"Q1": {"leaf", "aggindex", "proj", "order"},
               "Q3": {"leaf", "join", "aggindex", "order"}}
 
 
-@pytest.fixture(scope="module")
-def tpch_pair():
-    mp = pytest.MonkeyPatch()
-    mp.setenv("TINYSQL_DEVICE_JOIN_ONLY", "1")
+def _tpch_pair(sf):
+    """The reference session loaded with TPC-H at ``sf`` (seed 7) and the
+    port's, reading a replica built from the reference's own columns;
+    both force the pipeline."""
     ref = ref_new_session()
-    ref_tpch.load(ref, sf=SF, seed=SEED)
+    ref_tpch.load(ref, sf=sf, seed=SEED)
     port = port_new_session(device="cpu")
     port.execute("create database tpch")
     port.execute("use tpch")
@@ -564,7 +755,14 @@ def tpch_pair():
     for s in (ref, port):
         s.execute("set tidb_tpu_min_rows = 0")
         s.execute("set tidb_devpipe = 1")
-    yield ref, port
+    return ref, port
+
+
+@pytest.fixture(scope="module")
+def tpch_pair():
+    mp = pytest.MonkeyPatch()
+    mp.setenv("TINYSQL_DEVICE_JOIN_ONLY", "1")
+    yield _tpch_pair(SF)
     mp.undo()
 
 
@@ -582,6 +780,53 @@ def test_tpch_pipeline_matches_reference(tpch_pair, kinds, q):
     port.execute("set tidb_devpipe = 0")
     try:
         per_op = port.query(port_tpch.QUERIES[q]).rows
+    finally:
+        port.execute("set tidb_devpipe = 1")
+    assert port_tpch.canon_rows(per_op) == port_tpch.canon_rows(got)
+
+
+# ---- TPC-H Q13 at SF=0.02: the slice's own query ------------------------
+
+SF13 = 0.02
+#: the reference's compiled node kinds (one pipeline each)
+KINDS13 = {"Q13": {"leaf", "joinm", "sortgroup", "proj", "order"},
+           "status": {"leaf", "aggindex", "join", "sortgroup"}}
+SQL13 = {"Q13": port_tpch.Q13,
+         "status": "select o_orderstatus, count(*), sum(l_extendedprice) "
+                   "from orders join lineitem on o_orderkey = l_orderkey "
+                   "group by o_orderstatus"}
+
+
+@pytest.fixture(scope="module")
+def tpch13_pair():
+    mp = pytest.MonkeyPatch()
+    mp.setenv("TINYSQL_DEVICE_JOIN_ONLY", "1")
+    yield _tpch_pair(SF13)
+    mp.undo()
+
+
+@pytest.mark.parametrize("q", ["Q13", "status"])
+def test_tpch_q13_pipeline_matches_reference(tpch13_pair, kinds, q):
+    """Q13 (customer LEFT JOIN orders through HK8, two GROUP BYs through
+    HK4 + HK9 + HK5) and the partial-below-join / FINAL-above shape: one
+    pipeline and one transfer each, the reference's rows and node kinds,
+    and for Q13 the numpy answer from the generated columns."""
+    ref, port = tpch13_pair
+    want = ref.query(SQL13[q]).rows
+    assert _d2h(ref) == 1
+    kernels.reset_kernel_counts()
+    got = port.query(SQL13[q]).rows
+    _same_rows(got, want, q == "Q13", q)
+    assert kinds["port"] == kinds["ref"] == KINDS13[q]
+    assert _d2h(port) == 1
+    plain = kernels.kernel_counts()["plain_calls"]
+    assert plain["run_bounds"] >= 1 and plain["csr_reduce"] >= 1
+    if q == "Q13":
+        assert plain["csr_expand"] == 1
+        assert got == port_tpch.q13_rows(port_tpch.generate(SF13, SEED))
+    port.execute("set tidb_devpipe = 0")
+    try:
+        per_op = port.query(SQL13[q]).rows
     finally:
         port.execute("set tidb_devpipe = 1")
     assert port_tpch.canon_rows(per_op) == port_tpch.canon_rows(got)

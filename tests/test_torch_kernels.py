@@ -398,3 +398,187 @@ def test_cpu_tensors_take_the_plain_versions():
     assert c["plain_calls"]["equi_join"] == 1
     with pytest.raises(RuntimeError):
         port._on_card(torch.zeros(1, device="meta"), "x")
+
+
+# ---- K18's multiplicity join (HK8) and K19's boundary scan (HK9) ---------
+# Each plain version against the reference's jnp formulation, copied line
+# for line from tinysql_tpu/executor/devpipe.py (_JoinNode._prepare_mult's
+# kernel, :1595-1656; _SortGroupNode's boundary scan, :1829-1851).
+
+def _ref_mult(order, ends, ng, n_rows, lo, hi, tbl, keys, spec, pvalid,
+              bvalid, outer, ob, plns, blns):
+    from jax import lax
+    jn = jnp
+    order, ends, tbl = jn.asarray(order), jn.asarray(ends), jn.asarray(tbl)
+    pvalid, bvalid = jn.asarray(pvalid), jn.asarray(bvalid)
+    nbb, ngb, nb, tbl_len = len(order), len(ends), len(pvalid), len(tbl)
+    in_table = jn.arange(nbb) < n_rows
+    vs = bvalid[order] & in_table
+    c = jn.cumsum(vs.astype(jn.int64))
+    gmask = jn.arange(ngb) < ng
+    prev = jn.concatenate([jn.full((1,), -1, dtype=jn.int64), ends[:-1]])
+    prev_safe = jn.maximum(prev, 0)
+    start_c = jn.where(prev >= 0, c[prev_safe], 0)
+    vcnt = jn.where(gmask, c[ends] - start_c, 0)
+    vidx = jn.nonzero(vs, size=nbb, fill_value=0)[0]
+    comp = order[vidx]
+    if spec is not None:
+        ok = pvalid
+        kp = jn.zeros(nb, dtype=jn.int64)
+        for (kvj, knj), (klo, khi, kst) in zip(keys, spec):
+            kvj, knj = jn.asarray(kvj), jn.asarray(knj)
+            ok = ok & (kvj >= klo) & (kvj <= khi) & ~knj
+            kp = kp + (kvj - klo) * kst
+        inr = ok & (kp >= lo) & (kp <= hi)
+        kp = jn.clip(kp, lo, hi)
+    else:
+        kp, knull = (jn.asarray(x) for x in keys[0])
+        inr = (kp >= lo) & (kp <= hi) & ~knull & pvalid
+    pos0 = jn.clip(kp - lo, 0, tbl_len - 1)
+    g = jn.where(inr, tbl[pos0].astype(jn.int64), -1)
+    gsafe = jn.clip(g, 0, ngb - 1)
+    m = jn.where(g >= 0, vcnt[gsafe], 0)
+    cnt = jn.where(pvalid, jn.maximum(m, 1), 0) if outer else m
+    offs = jn.cumsum(cnt) - cnt
+    total = offs[-1] + cnt[-1]
+    tgt = jn.where(cnt > 0, offs, ob)
+    base = jn.zeros(ob, dtype=jn.int64).at[tgt].set(
+        jn.arange(nb) + 1, mode="drop")
+    pidx = lax.cummax(base, axis=0) - 1
+    valid_out = (pidx >= 0) & (jn.arange(ob) < total)
+    ps = jn.clip(pidx, 0, nb - 1)
+    k = jn.arange(ob) - offs[ps]
+    gj = g[ps]
+    gjs = jn.clip(gj, 0, ngb - 1)
+    matched = (gj >= 0) & (k < m[ps]) & valid_out
+    brow = comp[jn.clip(start_c[gjs] + k, 0, nbb - 1)]
+    pcols = [(jn.asarray(pv)[ps], jn.asarray(pn)[ps]) for pv, pn in plns]
+    bcols = [(jn.asarray(bv)[brow], jn.asarray(bn)[brow] | ~matched)
+             for bv, bn in blns]
+    return valid_out, pcols, bcols
+
+
+def _mult_case(rng, nk, skew):
+    from tinysql_tpu_torch.executor import devpipe
+    nbuild, nprobe = 900, 700
+    nbb, nb = port.bucket(nbuild), port.bucket(nprobe)
+    if nk == 1:
+        bk = rng.integers(1, 60, nbuild).astype(np.int64)
+        if skew:
+            bk[:400] = 9
+        gi = devpipe.GroupIndex([(bk, rng.random(nbuild) < 0.05)])
+        keys = [(port.pad1(rng.integers(-3, 66, nprobe).astype(np.int64),
+                           nb), port.pad1(rng.random(nprobe) < 0.05, nb,
+                                          True))]
+        spec = None
+    else:
+        cols = [(rng.integers(1, 7, nbuild).astype(np.int64),
+                 rng.random(nbuild) < 0.03) for _ in range(nk)]
+        los, his, strides, comp, null_any, _ = devpipe._composite_spec(cols)
+        gi = devpipe.GroupIndex([(comp, null_any)])
+        spec = list(zip(los, his, strides))
+        keys = [(port.pad1(rng.integers(0, 9, nprobe).astype(np.int64), nb),
+                 port.pad1(rng.random(nprobe) < 0.03, nb, True))
+                for _ in range(nk)]
+    ngb = port.bucket(max(gi.n_groups, 1))
+    ob = port.bucket(int(gi.raw_counts().max()) * nprobe + nprobe)
+    common = (port.pad1(gi.order, nbb),
+              port.pad1(gi.ends, ngb, fill=nbuild - 1), gi.n_groups, nbuild,
+              gi.lo, gi.hi, gi.pos_table(), keys, spec,
+              port.pad1(rng.random(nprobe) < 0.9, nb),
+              rng.random(nbb) < 0.8)
+    plns = [(rng.integers(0, 99, nb), rng.random(nb) < 0.1), keys[0]]
+    blns = [(rng.normal(size=nbb), rng.random(nbb) < 0.1),
+            (rng.integers(0, 99, nbb), np.zeros(nbb, bool))]
+    return common, ob, plns, blns
+
+
+@pytest.mark.parametrize("outer", [False, True])
+@pytest.mark.parametrize("nk,skew", [(1, False), (1, True), (2, False),
+                                     (3, False)])
+def test_csr_expand_plain_matches_reference_mult_kernel(nk, skew, outer):
+    """HK8's plain version against the reference's _prepare_mult kernel
+    on the same group index and inputs: the valid slots, and at every
+    valid slot the probe lanes and the build lanes (values where not
+    NULL); slots past the total are the reference's padding."""
+    rng = np.random.default_rng(40 + nk + skew)
+    (order, ends, ng, n_rows, lo, hi, tbl, keys, spec, pvalid,
+     bvalid), ob, plns, blns = _mult_case(rng, nk, skew)
+    want = _ref_mult(order, ends, ng, n_rows, lo, hi, tbl, keys, spec,
+                     pvalid, bvalid, outer, ob, plns, blns)
+    t = torch.from_numpy
+    got = port.csr_expand(
+        t(order), t(ends), ng, n_rows, t(bvalid), t(tbl), lo, hi,
+        [(t(k), t(m)) for k, m in keys], spec, t(pvalid), outer, ob,
+        [(t(v), t(m)) for v, m in plns], [(t(v), t(m)) for v, m in blns])
+    live = np.asarray(want[0])
+    np.testing.assert_array_equal(got[0].numpy(), live)
+    assert live.sum() > 0
+    for (gv, gm), (wv, wm) in zip(got[1] + got[2], want[1] + want[2]):
+        gv, gm, wv, wm = gv.numpy(), gm.numpy(), np.asarray(wv), \
+            np.asarray(wm)
+        np.testing.assert_array_equal(gm[live], wm[live])
+        keep = live & ~wm
+        np.testing.assert_array_equal(gv[keep], wv[keep])
+
+
+def _ref_bounds(perm, valid, keys):
+    from jax import lax
+    jn = jnp
+    perm, valid = jn.asarray(perm), jn.asarray(valid)
+    nb = len(perm)
+    valid_s = valid[perm]
+    skeys = [(jn.asarray(v)[perm], jn.asarray(m)[perm]) for v, m in keys]
+    idx = jn.arange(nb)
+    diff = jn.zeros(nb, dtype=bool).at[0].set(True)
+    for sv, sn in skeys:
+        d = ((sv[1:] != sv[:-1]) & ~(sn[1:] & sn[:-1])) \
+            | (sn[1:] != sn[:-1])
+        diff = diff.at[1:].set(diff[1:] | d)
+    prev_invalid = jn.concatenate([jn.ones(1, dtype=bool), ~valid_s[:-1]])
+    lead = valid_s & (diff | prev_invalid)
+    gnum = jn.cumsum(lead.astype(jn.int64))
+    ng = gnum[-1]
+    sgid = jn.where(valid_s, gnum - 1, nb)
+    lp = jn.where(lead, idx, nb)
+    nxt = lax.cummin(lp[::-1])[::-1]
+    nxt_after = jn.concatenate([nxt[1:], jn.full((1,), nb, dtype=nxt.dtype)])
+    end = jn.clip(nxt_after - 1, 0, nb - 1)
+    lead_pos = jn.nonzero(lead, size=nb, fill_value=0)[0]
+    return int(ng), np.asarray(lead_pos), np.asarray(end[lead_pos]), \
+        np.asarray(sgid)
+
+
+@pytest.mark.parametrize("frac", [0.85, 0.0, 1.0])
+@pytest.mark.parametrize("keys", ["int", "float", "int_float"])
+def test_run_bounds_plain_matches_reference_boundary_scan(keys, frac):
+    """HK9's plain version against the reference's sortgroup boundary
+    scan over the same sorted order: the group count, the leaders, each
+    group's end (the reference's last window runs to the bucket's end,
+    over the invalid tail whose contributions it masks; HK9 ends it at
+    the last valid row) and the group numbers."""
+    rng = np.random.default_rng(len(keys) + int(frac * 10))
+    n = 2048
+    iv = rng.integers(0, 30, n).astype(np.int64)
+    fv = rng.integers(-3, 3, n).astype(np.float64)
+    fv[:8] = [np.nan, -0.0, 0.0, np.nan, -0.0, 1.5, 0.0, np.nan]
+    lanes = {"int": [(iv, rng.random(n) < 0.1)],
+             "float": [(fv, rng.random(n) < 0.1)],
+             "int_float": [(iv, rng.random(n) < 0.1),
+                           (fv, np.zeros(n, bool))]}[keys]
+    valid = rng.random(n) < frac
+    t = torch.from_numpy
+    tl = [(t(v), t(m)) for v, m in lanes]
+    perm = port.lex_order_plain(port.sort_lanes(tl, [False] * len(tl),
+                                                t(valid)), n)
+    count, lead, ends, gid = port.run_bounds(perm, t(valid), tl,
+                                             want_gid=True)
+    ng, lead_pos, end, sgid = _ref_bounds(perm.numpy(), valid, lanes)
+    assert int(count[0]) == ng
+    np.testing.assert_array_equal(lead.numpy()[:ng], lead_pos[:ng])
+    head = max(ng - 1, 0)
+    np.testing.assert_array_equal(ends.numpy()[:head], end[:head])
+    if ng:
+        assert int(ends[ng - 1]) == int(valid.sum()) - 1
+    assert (ends.numpy()[ng:] == (int(ends[ng - 1]) if ng else -1)).all()
+    np.testing.assert_array_equal(gid.numpy()[perm.numpy()], sgid)

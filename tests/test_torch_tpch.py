@@ -97,6 +97,24 @@ def test_tpch_matches_reference_device_tier(sessions, q, monkeypatch):
     assert port_tpch.canon_rows(cpu) == port_tpch.canon_rows(got)
 
 
+def test_q5_rows_match_cpu_tier_and_sqlite(sessions):
+    """tpch.q5_rows, the numpy answer Q5's rows are held to on the card at
+    SF=1, equals the port's CPU tier and the sqlite mirror on the same
+    data."""
+    _, port = sessions
+    data = port_tpch.generate(SF, SEED)
+    want = port_tpch.canon_rows(port_tpch.q5_rows(data))
+    assert len(want) == 5
+    port.execute("set tidb_use_tpu = 0")
+    try:
+        cpu = port.query(port_tpch.Q5).rows
+    finally:
+        port.execute("set tidb_use_tpu = 1")
+    assert port_tpch.canon_rows(cpu) == want
+    lite = port_tpch.sqlite_mirror(data).execute(port_tpch.Q5).fetchall()
+    assert port_tpch.canon_rows(lite) == want
+
+
 def test_generators_agree():
     a = ref_tpch.generate(0.001, SEED)
     b = port_tpch.generate(0.001, SEED)
@@ -106,13 +124,13 @@ def test_generators_agree():
 
 
 def test_not_ported_paths_fail_loudly(sessions):
-    """A non-unique join in the forced pipeline tier (its CSR mode is not
-    ported; Q3's unique joins are) and the mesh tier raise, naming their
-    ROADMAP items."""
+    """Block-wise execution (a TopN over a table past
+    tidb_device_block_rows) and the mesh tier raise, naming their ROADMAP
+    items."""
     _, port = sessions
-    nonunique = ("select o_orderkey, l_quantity from orders join lineitem "
-                 "on o_custkey = l_suppkey")
-    for var, item, sql in (("tidb_devpipe = 1", "item 1", nonunique),
+    topn = ("select l_orderkey from lineitem order by l_extendedprice desc, "
+            "l_orderkey limit 3")
+    for var, item, sql in (("tidb_device_block_rows = 1000", "item 1", topn),
                            ("tidb_mesh_parallel = 1", "item 10",
                             port_tpch.QUERIES["Q3"])):
         port.execute(f"set {var}")
@@ -120,8 +138,7 @@ def test_not_ported_paths_fail_loudly(sessions):
             with pytest.raises(NotImplementedError, match=item):
                 port.query(sql)
         finally:
-            port.execute("set " + var.split("=")[0] + "= " +
-                         ("-1" if "devpipe" in var else "0"))
+            port.execute("set " + var.split("=")[0] + "= 0")
 
 
 @pytest.mark.parametrize("point", ["kernelDispatchError", "kernelD2HError"])

@@ -17,6 +17,13 @@ Two query sets:
   restriction as an IN subquery so the planner's decorrelation ->
   device-semijoin path is exercised end-to-end; Q18 is the classic
   aggregate-subquery membership shape.
+
+``Q13`` (the customer distribution: how many customers have 0, 1, 2, ...
+orders) stands apart: a LEFT join with a non-unique build side and two
+GROUP BYs above it, one device pipeline.  It is written without TPC-H's
+``o_comment not like '%special%requests%'`` term, because ``orders`` here
+has no ``o_comment`` column.  :func:`q13_rows` computes its answer from
+the generated columns with numpy alone.
 """
 from __future__ import annotations
 
@@ -140,6 +147,13 @@ group by c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
 order by o_totalprice desc, o_orderdate
 limit 100"""
 
+Q13 = """select c_count, count(*) as custdist
+from (select c_custkey, count(o_orderkey) as c_count
+      from customer left outer join orders on c_custkey = o_custkey
+      group by c_custkey) as c_orders
+group by c_count
+order by custdist desc, c_count desc"""
+
 QUERIES = {"Q1": Q1, "Q3": Q3, "Q6": Q6}
 WORKLOAD = {"Q5": Q5, "Q10": Q10, "Q18": Q18}
 ALL_QUERIES = {**QUERIES, **WORKLOAD}
@@ -253,6 +267,51 @@ def generate(sf: float = 1.0, seed: int = 7):
     }
     return {"region": region, "nation": nation, "supplier": supplier,
             "customer": customer, "orders": orders, "lineitem": lineitem}
+
+
+def q13_rows(data) -> list:
+    """Q13's rows from the generated columns (numpy, independent of the
+    engine): orders per customer, then customers per order count, in
+    Q13's ORDER BY (custdist desc, c_count desc)."""
+    cks = np.sort(data["customer"]["c_custkey"])
+    ok = data["orders"]["o_custkey"]
+    per = np.bincount(np.searchsorted(cks, ok[np.isin(ok, cks)]),
+                      minlength=len(cks))
+    dist = np.bincount(per)
+    rows = [[int(c), int(k)] for c, k in enumerate(dist) if k]
+    rows.sort(key=lambda r: (-r[1], -r[0]))
+    return rows
+
+
+def q5_rows(data) -> list:
+    """Q5's rows from the generated columns (numpy, independent of the
+    engine): each 1994 order's line items whose supplier shares the
+    customer's nation, in an ASIA nation, summed per nation in revenue
+    order.  Sums are float64 in another order than the engine's; compare
+    through :func:`canon_rows`."""
+    def index(keys, probe):
+        order = np.argsort(keys, kind="stable")
+        return order[np.searchsorted(keys, probe, sorter=order)]
+    reg, nat = data["region"], data["nation"]
+    cust, orde = data["customer"], data["orders"]
+    supp, li = data["supplier"], data["lineitem"]
+    asia = np.isin(nat["n_regionkey"],
+                   reg["r_regionkey"][reg["r_name"] == "ASIA"])
+    od = orde["o_orderdate"]
+    o_in = (od >= "1994-01-01") & (od < "1995-01-01")
+    o_nat = cust["c_nationkey"][index(cust["c_custkey"], orde["o_custkey"])]
+    oi = index(orde["o_orderkey"], li["l_orderkey"])
+    s_nat = supp["s_nationkey"][index(supp["s_suppkey"], li["l_suppkey"])]
+    ni = index(nat["n_nationkey"], s_nat)
+    keep = o_in[oi] & (o_nat[oi] == s_nat) & asia[ni]
+    rev = li["l_extendedprice"][keep] * (1 - li["l_discount"][keep])
+    n = len(nat["n_nationkey"])
+    sums = np.bincount(ni[keep], weights=rev, minlength=n)
+    hits = np.bincount(ni[keep], minlength=n)
+    rows = [[str(nat["n_name"][i]), float(sums[i])]
+            for i in range(n) if hits[i]]
+    rows.sort(key=lambda r: -r[1])
+    return rows
 
 
 def sqlite_mirror(data):

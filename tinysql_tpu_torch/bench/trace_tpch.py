@@ -1,12 +1,12 @@
-"""Where the time of TPC-H Q1, Q3, Q6 and the workload trio Q5, Q10, Q18
-goes on the card.
+"""Where the time of TPC-H Q1, Q3, Q6, Q13 and the workload trio Q5, Q10,
+Q18 goes on the card.
 
     python3 -m tinysql_tpu_torch.bench.trace_tpch [--out FILE]
 
 Loads TPC-H at SF=1 (seed 7, the main path's data) into a session on the
 current CUDA device, then for each device tier (the pipeline tier,
 tidb_devpipe=-1, the default; the per-operator tier, tidb_devpipe=0) and
-each query (Q1, Q3, Q6 on both tiers, then the trio on both): the first
+each query (Q1, Q3, Q6 on both tiers, then Q13, then the trio): the first
 run's wall, the best of three warm walls,
 and one more warm run under torch.profiler (CPU + CUDA activities; taken
 again, up to three times, when its trace holds no device event) giving
@@ -116,9 +116,9 @@ def main(argv=None) -> int:
     tpch.load(sess, sf=SF, seed=SEED)
     out = {"card": _card(), "sf": SF, "seed": SEED,
            "tiers": {tier: {} for tier in TIERS}}
-    # Q1, Q3 and Q6 on both tiers before the trio: after Q5's run,
+    # Q1, Q3, Q6 and Q13 on both tiers before the trio: after Q5's run,
     # torch.profiler loses some kernel events of later traces
-    for queries in (tpch.QUERIES, tpch.WORKLOAD):
+    for queries in (tpch.QUERIES, {"Q13": tpch.Q13}, tpch.WORKLOAD):
         for tier in TIERS:
             sess.execute(f"set tidb_devpipe = {TIERS[tier]}")
             for q, sql in queries.items():

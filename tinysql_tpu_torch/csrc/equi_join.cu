@@ -19,8 +19,10 @@
 // Unique build side (K6):
 // - dense: when the live key range is small enough (the host twin's rule,
 //   card <= max(2^22, 4 * live rows)), a key -> row table indexed by
-//   key - kmin; the index is computed only for probe keys inside
-//   [kmin, kmax], so key - kmin never wraps (R4);
+//   key - kmin, in dense_table.cuh's format (int32, -1 absent) and probed
+//   by its in-range lookup, as HK6 and HK8 probe theirs; the index is
+//   computed only for probe keys inside [kmin, kmax], so key - kmin never
+//   wraps (R4);
 // - hash: otherwise, open addressing with linear probing over slots that
 //   hold row + 1; keys are compared through the build key column, so no key
 //   value is reserved as "empty".
@@ -33,9 +35,11 @@
 //   or every valid row for an outer join) writes li ascending and ri.
 // Any multiplicity (K7): the build side is sorted by HK4 (live rows first,
 // then key, then row); every probe row binary-searches its run of equal
-// keys, and an exclusive scan of the per-row output counts places the
-// expansion in probe-major order with build rows in stable key order.
-#include "common.cuh"
+// keys, and expand.cuh (shared with HK8) places the expansion in
+// probe-major order with build rows in stable key order: an inclusive scan
+// of the per-row output counts, then one thread per output slot.
+#include "dense_table.cuh"
+#include "expand.cuh"
 
 namespace {
 
@@ -98,14 +102,12 @@ __global__ void ej_stats_merge(const int64_t* __restrict__ part, int nblk,
 __global__ void ej_dense_build(const int64_t* __restrict__ k,
                                const uint8_t* __restrict__ nl,
                                const uint8_t* __restrict__ v, int64_t n,
-                               int64_t kmin, int64_t* __restrict__ table) {
+                               int64_t kmin, int32_t* __restrict__ table) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    if (!live_row(v, nl, i)) continue;
     // live keys lie in [kmin, kmax]: the difference is the table index
-    int64_t idx = (int64_t)((unsigned long long)k[i] - (unsigned long long)kmin);
-    atomic_min_i64(&table[idx], i);
+    if (live_row(v, nl, i)) table_insert_min(table, kmin, k[i], i);
   }
 }
 
@@ -113,21 +115,15 @@ __global__ void ej_dense_probe(const int64_t* __restrict__ k,
                                const uint8_t* __restrict__ nl,
                                const uint8_t* __restrict__ v, int64_t n,
                                int64_t kmin, int64_t kmax,
-                               const int64_t* __restrict__ table,
-                               int64_t* __restrict__ cand,
+                               const int32_t* __restrict__ table,
+                               int64_t card, int64_t* __restrict__ cand,
                                uint8_t* __restrict__ match) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    int64_t c = -1;
-    if (live_row(v, nl, i)) {
-      int64_t x = k[i];
-      if (x >= kmin && x <= kmax) {  // R4: index only for in-range keys
-        int64_t r = table[(int64_t)((unsigned long long)x -
-                                    (unsigned long long)kmin)];
-        if (r != kI64Max) c = r;
-      }
-    }
+    // R4: the lookup takes key - kmin only for keys inside [kmin, kmax]
+    const int64_t c =
+        live_row(v, nl, i) ? table_lookup(table, card, kmin, kmax, k[i]) : -1;
     cand[i] = c;
     match[i] = c >= 0;
   }
@@ -246,26 +242,31 @@ __global__ void ej_mult_count(const int64_t* __restrict__ lk,
   }
 }
 
-struct ExpandScan {
+// output rows of probe row i: its matches, or one for an unmatched valid
+// row of an outer join
+struct MultCount {
   const uint8_t* lv;
-  const int64_t* lo;
   const int64_t* cnt;
-  const int64_t* perm;
   int outer;
-  int64_t* li;
-  int64_t* ri;
-  __device__ int64_t count(int64_t i) const {
+  __device__ int64_t operator()(int64_t i) const {
     return (outer && lv[i] && cnt[i] == 0) ? 1 : cnt[i];
   }
-  __device__ void write(int64_t i, int64_t excl, int64_t v) const {
-    if (li == nullptr) return;
-    const int64_t c = cnt[i];
-    for (int64_t t = 0; t < v; ++t) {
-      li[excl + t] = i;
-      ri[excl + t] = c > 0 ? perm[lo[i] + t] : -1;
-    }
-  }
 };
+
+__global__ void ej_mult_fill(MultCount mc, const int64_t* __restrict__ incl,
+                             int64_t n_l, const int64_t* __restrict__ lo,
+                             const int64_t* __restrict__ perm, int64_t total,
+                             int64_t* __restrict__ li,
+                             int64_t* __restrict__ ri) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < total;
+       j += stride) {
+    const int64_t p = owner_of(incl, n_l, j);
+    const int64_t t = j - (incl[p] - mc(p));
+    li[j] = p;
+    ri[j] = mc.cnt[p] > 0 ? perm[lo[p] + t] : -1;
+  }
+}
 
 }  // namespace
 
@@ -279,23 +280,28 @@ TS_API int hk3_build_stats(const int64_t* k, const uint8_t* nl,
   return (int)cudaGetLastError();
 }
 
-// Unique build side.  dense != 0: table int64[card]; else slots int64[cap]
-// (cap a power of two).  Writes cand int64[n_l] (-1 = none) and match.
+// Unique build side.  dense != 0: tbuf is the table, int32[tsize] (tsize
+// the key range card, dense_table.cuh's format; n_r < 2^31); else the hash
+// slots, int64[tsize] (a power of two).  Writes cand int64[n_l] (-1 =
+// none) and match.
 TS_API int hk3_unique_match(const int64_t* lk, const uint8_t* ln,
                             const uint8_t* lv, int64_t n_l, const int64_t* rk,
                             const uint8_t* rn, const uint8_t* rv, int64_t n_r,
                             int dense, int64_t kmin, int64_t kmax,
-                            int64_t* table, int64_t tsize, int64_t* cand,
+                            void* tbuf, int64_t tsize, int64_t* cand,
                             uint8_t* match, cudaStream_t st) {
   if (dense) {
-    launch_fill(table, tsize, kI64Max, st);
+    if (n_r >= (1LL << 31)) return -1;
+    int32_t* table = (int32_t*)tbuf;
+    cudaMemsetAsync(table, 0xff, (size_t)tsize * sizeof(int32_t), st);
     if (n_r > 0)
       LAUNCH(ej_dense_build, grid_for(n_r, kThreads), kThreads, 0, st, rk, rn,
              rv, n_r, kmin, table);
     if (n_l > 0)
       LAUNCH(ej_dense_probe, grid_for(n_l, kThreads), kThreads, 0, st, lk, ln,
-             lv, n_l, kmin, kmax, (const int64_t*)table, cand, match);
+             lv, n_l, kmin, kmax, (const int32_t*)table, tsize, cand, match);
   } else {
+    int64_t* table = (int64_t*)tbuf;
     launch_fill(table, tsize, 0, st);
     if (n_r > 0)
       LAUNCH(ej_hash_build, grid_for(n_r, kThreads), kThreads, 0, st, rk, rn,
@@ -328,32 +334,30 @@ TS_API int hk3_pick(const uint8_t* keep, const uint8_t* match,
   return (int)cudaGetLastError();
 }
 
-// Any multiplicity, phase 1: per-row run (lo, cnt) and the output size.
+// Any multiplicity, phase 1: per-row run (lo, cnt), the inclusive ends of
+// the per-row output counts (incl int64[n_l]) and the output size.
 // perm: build rows sorted (live first, then key, then row); n_live of them
 // live.  btot: int64[ceil(n_l / 1024)].
 TS_API int hk3_mult_count(const int64_t* lk, const uint8_t* ln,
                           const uint8_t* lv, int64_t n_l, const int64_t* rk,
                           const int64_t* perm, int64_t n_live, int outer,
-                          int64_t* lo, int64_t* cnt, int64_t* btot,
-                          int64_t* total, cudaStream_t st) {
+                          int64_t* lo, int64_t* cnt, int64_t* incl,
+                          int64_t* btot, int64_t* total, cudaStream_t st) {
   if (n_l > 0)
     LAUNCH(ej_mult_count, grid_for(n_l, kThreads), kThreads, 0, st, lk, ln,
            lv, n_l, rk, perm, n_live, lo, cnt);
-  ExpandScan sc{lv, lo, cnt, perm, outer, nullptr, nullptr};
-  int64_t nb = scan_nblocks(n_l);
-  LAUNCH(scan_block_totals<ExpandScan>, (unsigned)nb, kScanThreads, 0, st,
-         sc, n_l, btot);
-  LAUNCH(scan_serial, 1, 1, 0, st, btot, nb, total);
+  launch_scan(InclusiveEnds<MultCount>{MultCount{lv, cnt, outer}, incl}, n_l,
+              btot, total, st);
   return (int)cudaGetLastError();
 }
 
 // Any multiplicity, phase 2: li/ri int64[total] in probe-major order.
 TS_API int hk3_mult_expand(const uint8_t* lv, int64_t n_l, const int64_t* lo,
-                           const int64_t* cnt, const int64_t* perm, int outer,
-                           const int64_t* btot, int64_t* li, int64_t* ri,
-                           cudaStream_t st) {
-  ExpandScan sc{lv, lo, cnt, perm, outer, li, ri};
-  LAUNCH(scan_apply<ExpandScan>, (unsigned)scan_nblocks(n_l), kScanThreads, 0,
-         st, sc, n_l, btot);
+                           const int64_t* cnt, const int64_t* incl,
+                           const int64_t* perm, int outer, int64_t total,
+                           int64_t* li, int64_t* ri, cudaStream_t st) {
+  if (total > 0)
+    LAUNCH(ej_mult_fill, grid_for(total, kThreads, 1 << 16), kThreads, 0, st,
+           MultCount{lv, cnt, outer}, incl, n_l, lo, perm, total, li, ri);
   return (int)cudaGetLastError();
 }

@@ -2,15 +2,17 @@
 tinysql_tpu/executor/devpipe.py.
 
 A supported physical subtree (scans -> filters -> grouped aggregates over
-the group index -> unique joins -> topn/sort/limit/projection -> a scalar
-aggregate) runs as ONE pipeline call on the device: every node splits
-into a host-side ``prepare`` (replica uploads, group indexes, position
-tables, parameter tables — memoized per replica version) and an ``emit``
-over the pipeline's positional inputs; DevPipeExec composes the emits,
-registers the composition once per (structure, shape) key and runs it.
-Intermediates stay on the device; the only device->host transfer of a
-query is the packed result, folded into the same call for small outputs —
-one dispatch, one download, as in the reference.
+the group index -> joins -> GROUP BYs above them -> topn/sort/limit/
+projection -> a scalar aggregate) runs as ONE pipeline call on the
+device: every node splits into a host-side ``prepare`` (replica uploads,
+group indexes, position tables, expansion bounds, parameter tables —
+memoized per replica version) and an ``emit`` over the pipeline's
+positional inputs; DevPipeExec composes the emits, registers the
+composition once per (structure, shape) key and runs it.  Intermediates
+stay on the device; the only device->host transfer of a query is the
+packed result, folded into the same call for small outputs, and the count
+and first rows of a large one in one transfer — one dispatch, one
+download, as in the reference.
 
 Where the reference traced the emits into one XLA program, here they run
 eagerly as torch ops around the hand kernels:
@@ -19,14 +21,20 @@ eagerly as torch ops around the hand kernels:
   table sorted once per replica version by its key) is one HK5
   :func:`kernels.csr_reduce` call over the index's order and group ends —
   no per-query sort, no scatter.  Float sums add each group's rows in
-  sorted order (the reference differenced a running prefix sum; both
-  stay within its 1e-6 relative bound); int64 sums are exact mod 2^64.
-- K18 ``_JoinNode``: a unique build side keyed by a bounded int64 key is
-  a dense key -> row table (memoized per replica version; the group
-  index's key -> group table for a group-index build side); probing it,
-  the validity checks and the gathers are one HK6
-  :func:`kernels.dense_probe` call.  Semi / anti joins are the same probe
-  folded into the probe side's validity.
+  sorted order (the reference differenced a running prefix sum: R6);
+  int64 sums are exact mod 2^64.
+- K18 ``_JoinNode``: a unique build side keyed by a bounded int64 key (or
+  the composite lane of several) is a dense key -> row table (memoized
+  per replica version; the group index's key -> group table for a
+  group-index build side); probing it, the validity checks and the
+  gathers are one HK6 :func:`kernels.dense_probe` call.  Semi / anti
+  joins are the same probe folded into the probe side's validity.  A
+  non-unique build side expands over its group index through HK8
+  :func:`kernels.csr_expand` into a bucket bounded on the host.
+- K19 ``_SortGroupNode``: GROUP BY above a join or another non-leaf view
+  is HK4 over the key lanes, HK9 :func:`kernels.run_bounds` for the runs
+  of equal keys, then HK5 over (sorted order, run ends) — each group sums
+  its own rows (the reference differenced one cumsum: R7).
 - K20 ``_ScalarAggNode``: HK1 :func:`kernels.masked_reduce`.
 - K21 ``_OrderNode``: HK4 :func:`kernels.lex_order` over
   :func:`kernels.sort_lanes` (top-k mode for TopN).
@@ -34,7 +42,7 @@ eagerly as torch ops around the hand kernels:
   aggregates' argument lanes and ``_OrderNode``'s key expressions): one
   HK7 :func:`kernels.expr_eval` launch per node over the program
   ops/exprjit.py compiles; a large output compacts through HK2's
-  :func:`kernels.present_compact`.
+  :func:`kernels.present_rows`.
 
 Strings ride order-preserving dictionary codes on the device (decoded on
 materialize only), the same codes the per-operator tier uses.
@@ -43,17 +51,15 @@ Routing (``tidb_devpipe``: -1 auto = the pipeline on CUDA, 0 off, 1
 force).  A plan shape the pipeline does not take (``compile`` or
 ``prepare`` returns None: a dirty transaction, a key range over
 MAX_DENSE_RANGE, a table over ``tidb_device_block_rows``) or spill
-pressure runs on the per-operator tier.  A node kind or mode the
-reference compiles but this port has not built raises ``_Unported``:
-``tidb_devpipe=1`` turns it into NotImplementedError naming ROADMAP queue
-1, item 1; auto runs the whole statement on the per-operator tier.  An
-exception while compiling or running a pipeline fails the statement in
-every mode: nothing re-runs behind the caller's back.
+pressure runs on the per-operator tier.  An exception while compiling
+or running a pipeline fails the statement in every mode: nothing re-runs
+behind the caller's back.
 
-Not ported in this slice (ROADMAP queue 1, item 1): ``BlockPipeline`` /
-``pipeline_depth`` (block-wise execution), ``_SortGroupNode`` (K19),
-``_JoinNode``'s multiplicity, multi-key and mesh-shuffle modes, the mesh
-TopN, and graph capture of a pipeline key.
+Not ported yet (ROADMAP queue 1): ``BlockPipeline`` / ``pipeline_depth``
+(block-wise execution; the per-operator tier raises for a table over
+``tidb_device_block_rows``), graph capture of a pipeline key, and the
+mesh modes (``_JoinNode``'s shuffle join, the mesh TopN:
+``tidb_mesh_parallel=1`` raises NotImplementedError).
 """
 from __future__ import annotations
 
@@ -80,8 +86,7 @@ from ..planner.physical import (PhysicalHashAgg, PhysicalHashJoin,
                                 PhysicalTopN)
 
 MAX_DENSE_RANGE = 1 << 25   # dense key->pos tables up to 32M slots (128MB)
-
-_TODO = "ROADMAP queue 1, item 1"
+MAX_EXPAND = 1 << 23        # CSR-join output bucket cap (8M rows)
 
 # structural node keys that have actually been compiled into some
 # pipeline — introspection surface for tests.  Guarded: concurrent
@@ -93,15 +98,6 @@ COMPILED_NODE_KEYS: set = set()
 def _note_compiled(kparts) -> None:
     with _CNK_MU:
         COMPILED_NODE_KEYS.update(kparts)
-
-
-class _Unported(Exception):
-    """A node kind or mode the reference compiles into a pipeline and this
-    port has not built yet (see the module docstring for the routing)."""
-
-    def __init__(self, what: str):
-        super().__init__(f"{what} in the devpipe pipeline tier is not "
-                         f"ported yet: {_TODO}")
 
 
 class _PipeBuilder:
@@ -228,6 +224,14 @@ class GroupIndex:
     def gkey_null(self) -> np.ndarray:
         return self.keycols[0][1]
 
+    def raw_counts(self) -> np.ndarray:
+        """Rows per group (host int64 [ng]) — the pre-filter group sizes
+        the CSR join uses for its expansion upper bound."""
+        if self.n_groups == 0:
+            return np.empty(0, dtype=np.int64)
+        prev = np.concatenate(([np.int64(-1)], self.ends[:-1]))
+        return self.ends - prev
+
     def pos_table(self) -> Optional[np.ndarray]:
         """Dense key -> group index (int32), -1 for absent keys; None when
         the key range is too wide for a dense table (single-int-key
@@ -282,7 +286,7 @@ def _rep_pos_table(rep, sid, vals, nulls):
 
 class _Ctx:
     """Per-query compile context; ``opened`` lists the executors the
-    leaves opened, so an _Unported bail can close them all."""
+    leaves opened, so a failed compile can close them all."""
 
     def __init__(self, exec_ctx):
         self.exec_ctx = exec_ctx
@@ -803,21 +807,35 @@ class _AggIndexNode:
 
 
 class _JoinNode:
-    """Equi-join on one int key through a dense key -> row table of a
-    unique build side (planner-proven pk/unique, or a group-index
-    aggregate): one HK6 probe per pipeline, probe-shaped output, no
-    expansion.  Semi / anti joins fold the same membership test into the
-    probe side's validity."""
+    """Equi-join on int keys — a single key directly, or several keys
+    combined into one COMPOSITE lane (sum((k_i - lo_i) * stride_i), a
+    bijection over the bounded cross range).  Device layouts:
 
-    def __init__(self, probe, build, probe_key, build_key, tp,
-                 probe_is_left, plan):
+    - unique build (planner-proven pk/unique, or a group-index
+      aggregate): a dense key -> row table, one HK6 probe per pipeline
+      (:func:`kernels.dense_probe`, :func:`kernels.dense_probe_multi` for
+      the composite lane), probe-shaped output, no expansion.  Semi / anti
+      joins fold the same membership test into the probe side's validity.
+    - general multiplicity: the build replica's group index is a CSR
+      layout; HK8 :func:`kernels.csr_expand` maps each probe key to its
+      group through the dense table, counts the group's valid rows and
+      expands into a static bucket the host bounds at prepare time from
+      the pre-filter group sizes (so no count is pulled mid-pipeline).
+    """
+
+    def __init__(self, probe, build, probe_keys, build_keys, tp,
+                 probe_is_left, plan, mult=False):
         self.probe = probe
         self.build = build
-        self.probe_key = probe_key
-        self.build_key = build_key
+        self.probe_keys = list(probe_keys)
+        self.build_keys = list(build_keys)
+        self.probe_key = self.probe_keys[0]
+        self.build_key = self.build_keys[0]
+        self.nk = len(self.probe_keys)
         self.tp = tp
         self.probe_is_left = probe_is_left
         self.plan = plan
+        self.mult = mult
 
     @staticmethod
     def compile(plan: PhysicalHashJoin, ctx: _Ctx):
@@ -838,6 +856,7 @@ class _JoinNode:
             return None  # side conds live in Selections below by now
         nk = len(plan.left_keys)
         lk, rk = plan.left_keys[0], plan.right_keys[0]
+        mult = False
         if plan.tp in ("semi", "anti"):
             # semi/anti = a VALIDITY filter on the probe view: the build
             # side's dense pos-table answers membership, so the build
@@ -856,26 +875,33 @@ class _JoinNode:
             if probe is None:
                 _close_node(build)
                 return None
-            return _JoinNode(probe, build, lk, rk, plan.tp, True, plan)
+            return _JoinNode(probe, build, [lk], [rk], plan.tp, True, plan)
         if nk > 1:
-            build_side, probe_side, build_key = 1, 0, rk
-            unported = "a multi-key join (composite lane, _JoinNode)"
+            # multi-key: composite lane over a dense range, leaf/sel
+            # build sides only; non-unique key sets ride the same CSR
+            # expansion as single keys, over the composite lane
+            build_side, probe_side = 1, 0
+            build_keys = list(plan.right_keys)
+            probe_keys = list(plan.left_keys)
+            mult = not getattr(plan, "right_unique", False)
         elif getattr(plan, "right_unique", False):
-            build_side, probe_side, build_key = 1, 0, rk
-            unported = None
+            build_side, probe_side = 1, 0
+            build_keys, probe_keys = [rk], [lk]
         elif getattr(plan, "left_unique", False) and plan.tp == "inner":
-            build_side, probe_side, build_key = 0, 1, lk
-            unported = None
+            build_side, probe_side = 0, 1
+            build_keys, probe_keys = [lk], [rk]
         else:
-            build_side, probe_side, build_key = 1, 0, rk
-            unported = "a join with a non-unique build side " \
-                "(CSR multiplicity, _JoinNode)"
-        probe_key = rk if build_side == 0 else lk
+            # general multiplicity: build stays the right child (the
+            # probe must stay the outer side of a LEFT join), CSR over
+            # the build replica's group index
+            build_side, probe_side = 1, 0
+            build_keys, probe_keys = [rk], [lk]
+            mult = True
         build = _compile_node(plan.children[build_side], ctx)
         if build is None:
             return None
-        ok = _leafish(build) is not None if unported \
-            else _has_build_key_info(build, build_key)
+        ok = _leafish(build) is not None if (nk > 1 or mult) \
+            else _has_build_key_info(build, build_keys[0])
         if not ok:
             _close_node(build)
             return None
@@ -883,12 +909,8 @@ class _JoinNode:
         if probe is None:
             _close_node(build)
             return None
-        if unported:
-            # the reference compiles this mode; DevPipeExec.open closes
-            # what the compile opened
-            raise _Unported(unported)
-        return _JoinNode(probe, build, probe_key, build_key, plan.tp,
-                         probe_side == 0, plan)
+        return _JoinNode(probe, build, probe_keys, build_keys, plan.tp,
+                         probe_side == 0, plan, mult=mult)
 
     def prepare(self, pb: _PipeBuilder) -> Optional[_TView]:
         btv = self.build.prepare(pb)
@@ -897,40 +919,36 @@ class _JoinNode:
         ptv = self.probe.prepare(pb)
         if ptv is None:
             return None
+        if self.tp in ("semi", "anti"):
+            return self._prepare_semi(pb, btv, ptv)
+        if self.mult:
+            return self._prepare_mult(pb, btv, ptv)
+        if self.nk > 1:
+            return self._prepare_unique_multi(pb, btv, ptv)
+        return self._prepare_unique(pb, btv, ptv)
+
+    def _joined(self, valid_out, pcols, bcols):
+        """The join's view: the probe side's columns first when it is
+        the plan's left child."""
+        if self.probe_is_left:
+            return valid_out, list(pcols) + list(bcols)
+        return valid_out, list(bcols) + list(pcols)
+
+    def _meta(self, ptv, btv):
+        return ptv.meta + btv.meta if self.probe_is_left \
+            else btv.meta + ptv.meta
+
+    # ---- semi / anti: membership folds into probe validity -------------
+
+    def _prepare_semi(self, pb, btv, ptv) -> Optional[_TView]:
+        """Semi/anti join as a validity AND over the probe view: the
+        probe's pairs pass through untouched, so a join chain with an
+        interleaved semijoin stays one pipeline."""
         info = _prepare_build_key_info(self.build, self.build_key, pb)
         if info is None:
             return None
         lo, hi, it, tbl_len = info
-        nb, nbb = ptv.nb, btv.nb
-        pk_slot = self.probe_key.index
         ilo, ihi = pb.add(lo), pb.add(hi)
-        if self.tp in ("semi", "anti"):
-            return self._semi_view(pb, btv, ptv, ilo, ihi, it, tbl_len)
-        mode = "left" if self.tp == "left" else "inner"
-        probe_is_left = self.probe_is_left
-        pb.key(("join", nb, nbb, tbl_len, pk_slot, mode == "left",
-                probe_is_left, len(btv.meta), len(ptv.meta)))
-
-        def emit(args):
-            bvalid, bpairs = btv.emit(args)
-            pvalid, ppairs = ptv.emit(args)
-            kp, knull = ppairs[pk_slot]
-            valid_out, gathered = kernels.dense_probe(
-                kp, knull, pvalid, args[ilo], args[ihi], args[it], bvalid,
-                bpairs, mode)
-            if probe_is_left:
-                return valid_out, list(ppairs) + gathered
-            return valid_out, gathered + list(ppairs)
-        if probe_is_left:
-            meta = ptv.meta + btv.meta
-        else:
-            meta = btv.meta + ptv.meta
-        return _TView(emit, nb, meta)
-
-    def _semi_view(self, pb, btv, ptv, ilo, ihi, it, tbl_len):
-        """Semi/anti join as a validity AND over the probe view: the
-        probe's pairs pass through untouched, so a join chain with an
-        interleaved semijoin stays one pipeline."""
         nb, nbb = ptv.nb, btv.nb
         pk_slot = self.probe_key.index
         mode = self.tp
@@ -949,9 +967,318 @@ class _JoinNode:
             return valid_out, list(ppairs)
         return _TView(emit, nb, ptv.meta)
 
+    # ---- multi-key unique build: composite lane + dense table ----------
+
+    def _host_raw_key_cols(self, node, keys):
+        """Raw host (vals, nulls) per key over a leaf/sel chain, plus the
+        (replica, stable slot ids)."""
+        leaf = _leafish(node)
+        if leaf is None:
+            return None
+        rep = leaf.replica()
+        if rep is None:
+            return None
+        from .gpu_executors import _slot_id
+        cols, sids = [], []
+        for k in keys:
+            sid = _slot_id(leaf.ex, k.index)
+            if sid == "handle":
+                kv = rep.handles
+                km = np.zeros(rep.n_rows, dtype=bool)
+            else:
+                kv, km = rep.columns[sid]
+            if kv.dtype != np.int64:
+                return None
+            cols.append((kv, km))
+            sids.append(sid)
+        return rep, tuple(sids), cols
+
+    def _prepare_unique_multi(self, pb, btv, ptv) -> Optional[_TView]:
+        got = self._host_raw_key_cols(self.build, self.build_keys)
+        if got is None:
+            return None
+        rep, sids, cols = got
+        # per replica version: the full-column min/max scans + composite
+        # lane build amortize like the single-key bounds/pos tables
+        spec = rep.memo(("composite_spec", sids),
+                        lambda: _composite_spec(cols))
+        if spec is None:
+            return None
+        los, his, strides, comp, null_any, total = spec
+        nb, nbb = ptv.nb, btv.nb
+        pk_slots = tuple(k.index for k in self.probe_keys)
+        mode = "left" if self.tp == "left" else "inner"
+
+        def mk():
+            # dense composite -> build row (uniqueness over the key SET
+            # is planner-proven; rows with any NULL key never match)
+            tbl = np.full(total, -1, dtype=np.int32)
+            live = ~null_any
+            tbl[comp[live]] = np.nonzero(live)[0].astype(np.int32)
+            return tbl
+        it = pb.add(_dev_upload(rep, ("postable_multi", sids), mk))
+        ispec = pb.add(tuple(zip(los, his, strides)))
+        pb.key(("joinmk", nb, nbb, total, pk_slots, mode == "left",
+                self.probe_is_left, len(btv.meta), len(ptv.meta)))
+
+        def emit(args):
+            bvalid, bpairs = btv.emit(args)
+            pvalid, ppairs = ptv.emit(args)
+            valid_out, gathered = kernels.dense_probe_multi(
+                [ppairs[i] for i in pk_slots], args[ispec], pvalid,
+                args[it], bvalid, bpairs, mode)
+            return self._joined(valid_out, ppairs, gathered)
+        return _TView(emit, nb, self._meta(ptv, btv))
+
+    # ---- unique build side: dense pos table + gather -------------------
+
+    def _prepare_unique(self, pb, btv, ptv) -> Optional[_TView]:
+        info = _prepare_build_key_info(self.build, self.build_key, pb)
+        if info is None:
+            return None
+        lo, hi, it, tbl_len = info
+        ilo, ihi = pb.add(lo), pb.add(hi)
+        nb, nbb = ptv.nb, btv.nb
+        pk_slot = self.probe_key.index
+        mode = "left" if self.tp == "left" else "inner"
+        pb.key(("join", nb, nbb, tbl_len, pk_slot, mode == "left",
+                self.probe_is_left, len(btv.meta), len(ptv.meta)))
+
+        def emit(args):
+            bvalid, bpairs = btv.emit(args)
+            pvalid, ppairs = ptv.emit(args)
+            kp, knull = ppairs[pk_slot]
+            valid_out, gathered = kernels.dense_probe(
+                kp, knull, pvalid, args[ilo], args[ihi], args[it], bvalid,
+                bpairs, mode)
+            return self._joined(valid_out, ppairs, gathered)
+        return _TView(emit, nb, self._meta(ptv, btv))
+
+    # ---- general multiplicity: CSR over the build group index ----------
+
+    def _prepare_mult(self, pb, btv, ptv) -> Optional[_TView]:
+        from .gpu_executors import _slot_id
+        leaf = _leafish(self.build)
+        rep = leaf.replica()
+        if rep is None:
+            return None
+        cspec = None
+        if self.nk > 1:
+            # multi-key CSR: group index over the composite lane
+            got = self._host_raw_key_cols(self.build, self.build_keys)
+            if got is None:
+                return None
+            rep, sids0, bcols_host = got
+            cspec = rep.memo(("composite_spec", sids0),
+                             lambda: _composite_spec(bcols_host))
+            if cspec is None:
+                return None
+            kv, km = cspec[3], cspec[4]
+            sids = ("comp",) + sids0
+        else:
+            sid = _slot_id(leaf.ex, self.build_key.index)
+            if sid == "handle":
+                kv, km = rep.handles, np.zeros(rep.n_rows, dtype=bool)
+            else:
+                kv, km = rep.columns[sid]
+            sids = (sid,)
+        gidx = _group_index(rep, sids, [(kv, km)])
+
+        def mk():
+            tbl = gidx.pos_table()
+            return None if tbl is None else (gidx.lo, gidx.hi, tbl)
+        got = rep.memo(("gi_postable", sids), mk)
+        if got is None:
+            return None
+        lo, hi, tbl = got
+        raw = gidx.raw_counts()
+        outer = self.tp == "left"
+        per_probe = self._per_probe_counts(raw, tbl, lo, hi, ptv, outer,
+                                           cspec=cspec)
+        ob = self._expand_bucket(raw, ptv, outer, per_probe)
+        if ob is None:
+            return None
+        nbb = btv.nb          # build bucket == leaf bucket (sel keeps nb)
+        ng = gidx.n_groups
+        ngb = kernels.bucket(max(ng, 1))
+        tbl_len = int(tbl.shape[0])
+        pk_slots = tuple(k.index for k in self.probe_keys)
+        io = pb.add(_dev_upload(rep, ("gi_order", sids, nbb),
+                                lambda: kernels.pad1(gidx.order, nbb)))
+        ie = pb.add(_dev_upload(rep, ("gi_ends", sids, ngb),
+                                lambda: kernels.pad1(
+                                    gidx.ends, ngb,
+                                    fill=max(rep.n_rows - 1, 0))))
+        it = pb.add(_dev_upload(rep, ("gi_postable_dev", sids),
+                                lambda: tbl))
+        # sizes and bounds are launch arguments: positional inputs, so a
+        # registered pipeline re-binds the current replica version's
+        iscal = pb.add((ng, rep.n_rows, lo, hi))
+        ispec = pb.add(None if cspec is None
+                       else tuple(zip(cspec[0], cspec[1], cspec[2])))
+        nb = ptv.nb
+        pb.key(("joinm", nb, nbb, ngb, ob, tbl_len, pk_slots, outer,
+                self.probe_is_left, len(btv.meta), len(ptv.meta)))
+
+        def emit(args):
+            bvalid, bpairs = btv.emit(args)
+            pvalid, ppairs = ptv.emit(args)
+            ng_, n_rows, lo_, hi_ = args[iscal]
+            valid_out, pcols, bcols = kernels.csr_expand(
+                args[io], args[ie], ng_, n_rows, bvalid, args[it], lo_, hi_,
+                [ppairs[i] for i in pk_slots], args[ispec], pvalid, outer,
+                ob, ppairs, bpairs)
+            return self._joined(valid_out, pcols, bcols)
+        return _TView(emit, ob, self._meta(ptv, btv))
+
+    def _per_probe_counts(self, raw, tbl, lo, hi, ptv, outer, cspec=None):
+        """Host per-probe-row match-count UPPER bounds (pre-filter group
+        sizes; filters only shrink), padded to the probe bucket.  None
+        when the probe side has no host-visible keys."""
+        from .gpu_executors import _slot_id
+        pkv = pkm = None
+        if cspec is not None:
+            got = self._host_raw_key_cols(self.probe, self.probe_keys)
+            if got is not None:
+                _, _, pcols = got
+                los, his, strides = cspec[0], cspec[1], cspec[2]
+                pkm = np.zeros(len(pcols[0][0]), dtype=bool)
+                pkv = np.zeros(len(pcols[0][0]), dtype=np.int64)
+                for (kvj, kmj), klo, khi, kst in zip(pcols, los, his,
+                                                     strides):
+                    pkm |= kmj | (kvj < klo) | (kvj > khi)
+                    pkv += (np.clip(kvj, klo, khi) - klo) * kst
+        else:
+            pleaf = _leafish(self.probe)
+            if pleaf is not None:
+                prep = pleaf.replica()
+                if prep is not None:
+                    psid = _slot_id(pleaf.ex, self.probe_key.index)
+                    if psid == "handle":
+                        pkv = prep.handles
+                        pkm = np.zeros(prep.n_rows, dtype=bool)
+                    else:
+                        pkv, pkm = prep.columns[psid]
+        if pkv is None:
+            return None
+        inr = (~pkm) & (pkv >= lo) & (pkv <= hi)
+        gsafe = np.where(inr, pkv - lo, 0)
+        g = np.where(inr, tbl[gsafe], -1)
+        per = np.where(g >= 0, raw[np.clip(g, 0, max(len(raw) - 1, 0))],
+                       0)
+        if outer:
+            per = np.maximum(per, 1)
+        return kernels.pad1(per.astype(np.int64), ptv.nb)
+
+    def _expand_bucket(self, raw, ptv, outer, per_probe):
+        """Static output bucket for the CSR expansion.  None = too large,
+        the per-operator tier takes the plan."""
+        if per_probe is None:
+            mx = int(raw.max()) if len(raw) else 0
+            bound = ptv.nb * max(mx, 1 if outer else 0)
+        else:
+            bound = int(per_probe.sum())
+        if bound > MAX_EXPAND:
+            return None
+        return kernels.bucket(max(bound, 1))
+
     def close(self):
         _close_node(self.probe)
         _close_node(self.build)
+
+
+class _SortGroupNode:
+    """GROUP BY above an arbitrary device view (join outputs included):
+    HK4 sorts the view by its key lanes (valid rows first, NULL first),
+    HK9 finds the runs of equal keys (their leaders, ends and count, all
+    on the card), and HK5 reduces each run in sorted order over
+    (perm, ends).  Each group sums only its own rows: the reference
+    differenced one cumsum over the whole sorted lane (R7).  Output view:
+    group g at slot g of the child-sized bucket, valid = g < the count."""
+
+    def __init__(self, child, key_cols, specs, slots, out_map, plan):
+        self.child = child
+        self.key_cols = key_cols
+        self.specs = specs
+        self.slots = slots
+        self.out_map = out_map
+        self.plan = plan
+
+    @staticmethod
+    def compile(plan: PhysicalHashAgg, ctx: _Ctx):
+        if not plan.group_by:
+            return None
+        if not all(_gb_key_ok(e) for e in plan.group_by):
+            return None
+        got = _assemble_agg_specs(plan)
+        out_map = _agg_out_map(plan)
+        if got is None or out_map is None:
+            return None
+        specs, slots = got
+        child = _compile_node(plan.children[0], ctx)
+        if child is None:
+            return None
+        return _SortGroupNode(child, list(plan.group_by), specs, slots,
+                              out_map, plan)
+
+    def prepare(self, pb: _PipeBuilder) -> Optional[_TView]:
+        tv = self.child.prepare(pb)
+        if tv is None:
+            return None
+        nb = tv.nb
+        key_idx = []
+        decodes = []
+        for e in self.key_cols:
+            if e.index >= len(tv.meta):
+                return None
+            decode = tv.meta[e.index][1]
+            if e.eval_type is EvalType.STRING and decode is None:
+                return None  # string key without device codes
+            key_idx.append(e.index)
+            decodes.append(decode)
+        pt = ParamTable()
+        prog, prog_lanes, keys = _spec_program(self.specs, pt)
+        ip, fp = pb.params(pt)
+        pb.key(("sortgroup", keys, tuple(key_idx), tuple(self.slots),
+                tuple(self.out_map), nb, len(tv.meta)))
+        spec_kinds = [k for k, _ in self.specs]
+        slots = self.slots
+        out_map = self.out_map
+        nkeys = len(key_idx)
+
+        def emit(args):
+            valid, pairs = tv.emit(args)
+            kvs = [pairs[i] for i in key_idx]
+            # the reference's _sort_ops: NULL first, invalid rows last,
+            # ties by row
+            perm = kernels.lex_order(
+                kernels.sort_lanes(kvs, (False,) * nkeys, valid), nb)
+            count, lead, ends, _ = kernels.run_bounds(perm, valid, kvs)
+            lanes, lane_of = _spec_lanes(spec_kinds, prog, prog_lanes, pairs,
+                                         (args[ip], args[fp]), nb)
+            # ends past the count repeat the last group's end: HK5 sees
+            # empty runs there, so the count never leaves the card
+            table = kernels.csr_reduce(perm, ends, valid, lanes, nb, nb)
+            res = _spec_results(spec_kinds, lanes, lane_of, table)
+            outs = _slot_outputs(res, slots)
+            gvalid = kernels._arange(nb) < count
+            lead_rows = perm[lead]
+            cols = []
+            for m in out_map:
+                if m[0] == "agg":
+                    cols.append(outs[m[1]])
+                else:
+                    v, n = kvs[m[1]]
+                    cols.append((v[lead_rows], n[lead_rows] | ~gvalid))
+            return gvalid, cols
+        meta = []
+        for oc, m in zip(self.plan.schema.columns, out_map):
+            decode = decodes[m[1]] if m[0] == "gb" else None
+            meta.append((oc.ret_type, decode))
+        return _TView(emit, nb, meta)
+
+    def close(self):
+        _close_node(self.child)
 
 
 class _ScalarAggNode:
@@ -1083,6 +1410,39 @@ def _prepare_build_key_info(node, build_key, pb: _PipeBuilder):
         d = _dev_upload(rep, ("postable_dev", sid), lambda: tbl)
         return lo, hi, pb.add(d), int(tbl.shape[0])
     return None
+
+
+def _composite_spec(cols):
+    """Multi-key composite lane: per-key (lo, hi, stride) such that
+    comp = sum((k_i - lo_i) * stride_i) is a bijection over the cross
+    range — the device-friendly replacement for a multi-column hash key.
+    None when the combined dense range exceeds MAX_DENSE_RANGE."""
+    los, his = [], []
+    total = 1
+    for kv, km in cols:
+        nn = kv[~km]
+        if len(nn):
+            lo, hi = int(nn.min()), int(nn.max())
+        else:
+            lo = hi = 0
+        span = hi - lo + 1
+        if span <= 0 or total > MAX_DENSE_RANGE // span:
+            return None
+        total *= span
+        los.append(lo)
+        his.append(hi)
+    strides = []
+    st = 1
+    for lo, hi in reversed(list(zip(los, his))):
+        strides.append(st)
+        st *= hi - lo + 1
+    strides.reverse()
+    comp = np.zeros(len(cols[0][0]), dtype=np.int64)
+    null_any = np.zeros(len(cols[0][0]), dtype=bool)
+    for (kv, km), lo, hi, stride in zip(cols, los, his, strides):
+        comp += (np.clip(kv, lo, hi) - lo) * stride
+        null_any |= km
+    return los, his, strides, comp, null_any, total
 
 
 class _SelNode:
@@ -1313,20 +1673,6 @@ def _compile_node(plan, ctx: _Ctx):
     return _HostLeaf.compile(plan, ctx)
 
 
-def _sort_group_unported(plan: PhysicalHashAgg, ctx: _Ctx) -> None:
-    """The reference's next choice for a GROUP BY the group index cannot
-    serve is its _SortGroupNode (K19); raise where that node would
-    compile."""
-    if not all(_gb_key_ok(e) for e in plan.group_by):
-        return
-    if _assemble_agg_specs(plan) is None or _agg_out_map(plan) is None:
-        return
-    if _compile_node(plan.children[0], ctx) is None:
-        return
-    raise _Unported("a GROUP BY above a join or another non-leaf view "
-                    "(_SortGroupNode, K19)")
-
-
 def _compile_device(plan, ctx: _Ctx):
     if isinstance(plan, PhysicalTableReader):
         return _ReplicaLeaf.compile(plan, ctx)
@@ -1335,7 +1681,7 @@ def _compile_device(plan, ctx: _Ctx):
             return _ScalarAggNode.compile(plan, ctx)
         node = _AggIndexNode.compile(plan, ctx)
         if node is None:
-            _sort_group_unported(plan, ctx)
+            node = _SortGroupNode.compile(plan, ctx)
         return node
     if isinstance(plan, PhysicalHashJoin):
         return _JoinNode.compile(plan, ctx)
@@ -1456,11 +1802,6 @@ class DevPipeExec:
         cctx = _Ctx(ctx)
         try:
             self._node = _compile_device(self.plan, cctx)
-        except _Unported as e:
-            for ex in cctx.opened:
-                ex.close()
-            if self._forced(ctx):
-                raise NotImplementedError(str(e)) from None
         except BaseException:
             for ex in cctx.opened:
                 ex.close()
@@ -1498,11 +1839,6 @@ class DevPipeExec:
             return b
 
         return _would_spill(max_bytes(self.plan))
-
-    @staticmethod
-    def _forced(ctx) -> bool:
-        raw = ctx.session_vars.get("tidb_devpipe", -1)
-        return raw is not None and int(raw) == 1
 
     @staticmethod
     def _enabled(ctx) -> bool:
@@ -1592,20 +1928,15 @@ class DevPipeExec:
             fn = progcache.get(key, build_big)
             res = fn(inputs)
             valid, items = res[0], list(res[1:])
-            n_valid = int(kernels.d2h(valid.sum()))
-            if n_valid == 0:
-                host = [(np.empty(0, dtype=np.int64),
-                         np.empty(0, dtype=bool))] * ncols
-            else:
-                # HK2's present-segment compaction over the view's rows:
-                # presence = validity, then every lane as int64 bits
-                table = torch.stack([valid.to(torch.int64)]
-                                    + [_as_i64(x) for x in items])
-                _np, packed = kernels.present_compact(table, nb)
-                rows = kernels.d2h(packed[2:, :n_valid])
-                host = [(_from_i64(rows[2 * i], items[2 * i].dtype),
-                         _from_i64(rows[2 * i + 1], items[2 * i + 1].dtype))
-                        for i in range(ncols)]
+            # HK2's present-segment compaction over the view's rows
+            # (presence = validity, then every lane as int64 bits): the
+            # count and the first rows come back in one transfer
+            table = torch.stack([valid.to(torch.int64)]
+                                + [_as_i64(x) for x in items])
+            rows = kernels.present_rows(table, nb)
+            host = [(_from_i64(rows[2 * i], items[2 * i].dtype),
+                     _from_i64(rows[2 * i + 1], items[2 * i + 1].dtype))
+                    for i in range(ncols)]
         return _to_chunk(host, tv.meta)
 
     def drain(self) -> List[list]:

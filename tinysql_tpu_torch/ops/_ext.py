@@ -21,7 +21,8 @@ import time
 from typing import Dict, Optional
 
 SOURCES = ("masked_reduce", "segment_reduce", "equi_join", "lex_order",
-           "csr_reduce", "dense_probe", "expr_eval")
+           "csr_reduce", "dense_probe", "expr_eval", "csr_expand",
+           "run_bounds")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -64,9 +65,9 @@ _SIGNATURES = {
         "hk3_pick_count": (_int, [_vp, _i64, _vp, _vp, _vp]),
         "hk3_pick": (_int, [_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp]),
         "hk3_mult_count": (_int, [_vp, _vp, _vp, _i64, _vp, _vp, _i64, _int,
-                                  _vp, _vp, _vp, _vp, _vp]),
-        "hk3_mult_expand": (_int, [_vp, _i64, _vp, _vp, _vp, _int, _vp, _vp,
-                                   _vp, _vp]),
+                                  _vp, _vp, _vp, _vp, _vp, _vp]),
+        "hk3_mult_expand": (_int, [_vp, _i64, _vp, _vp, _vp, _vp, _int, _i64,
+                                   _vp, _vp, _vp]),
     },
     "lex_order": {
         "hk4_lex_order": (_int, [_vp, _int, _i64, _i64, _vp, _vp, _vp, _vp]),
@@ -77,12 +78,23 @@ _SIGNATURES = {
                                   _vp, _vp]),
     },
     "dense_probe": {
-        "hk6_dense_probe": (_int, [_vp, _vp, _vp, _i64, _i64, _i64, _vp, _i64,
+        "hk6_dense_probe": (_int, [_vp, _vp, _i64, _i64, _i64, _vp, _i64,
                                    _vp, _i64, _int, _vp, _vp, _vp]),
     },
     "expr_eval": {
         "hk7_expr_eval": (_int, [_vp, _int, _vp, _vp, _vp, _vp, _vp, _vp,
                                  _i64, _i64, _vp]),
+    },
+    "csr_expand": {
+        "hk8_scratch_words": (_i64, [_i64, _i64]),
+        "hk8_csr_expand": (_int, [_vp, _i64, _i64, _vp, _i64, _vp, _vp, _i64,
+                                  _i64, _i64, _vp, _vp, _i64, _int, _i64,
+                                  _vp, _vp, _vp, _vp, _vp, _vp]),
+        "hk8_gather": (_int, [_vp, _vp, _vp, _i64, _vp, _vp]),
+    },
+    "run_bounds": {
+        "hk9_run_bounds": (_int, [_vp, _i64, _vp, _vp, _vp, _vp, _vp, _vp,
+                                  _vp, _vp]),
     },
 }
 

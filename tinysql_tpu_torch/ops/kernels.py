@@ -2,7 +2,7 @@
 
 The port of tinysql_tpu/ops/kernels.py.  The JAX package compiled every
 operator family into XLA programs; here each family's core is one of
-seven kernels written by hand for Hopper (csrc/*.cu, built by
+nine kernels written by hand for Hopper (csrc/*.cu, built by
 ops/_ext.py), and the glue around them (key normalisation, packing,
 present-row extraction) runs as plain torch tensor operations:
 
@@ -25,7 +25,12 @@ present-row extraction) runs as plain torch tensor operations:
   on the device: filter masks, aggregate argument lanes, projections and
   sort keys, string compares on dictionary codes and the grouped
   aggregate's output layout (K13-K16, K22), as programs compiled by
-  ops/exprjit.compile_program.
+  ops/exprjit.compile_program;
+- HK8 :func:`csr_expand` (csrc/csr_expand.cu) — the pipeline tier's join
+  with a non-unique build side, expanded over the build's group index
+  (K18's multiplicity mode, one key or the composite lane);
+- HK9 :func:`run_bounds` (csrc/run_bounds.cu) — the runs of equal keys
+  after an HK4 sort (K19's GROUP BY above a join, K4's boundary scan).
 
 Every kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain torch version (same contract: inputs, outputs, NULL, sentinel and
@@ -145,7 +150,8 @@ _STATS_MU = threading.Lock()
 LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "segment_reduce": 0,
                             "present_compact": 0, "equi_join": 0,
                             "lex_order": 0, "csr_reduce": 0,
-                            "dense_probe": 0, "expr_eval": 0}
+                            "dense_probe": 0, "expr_eval": 0,
+                            "csr_expand": 0, "run_bounds": 0}
 #: plain-version calls per wrapper (CPU tensors)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
@@ -660,31 +666,64 @@ def segment_reduce_plain(gid: torch.Tensor, valid: torch.Tensor, ns: int,
     return torch.stack(out)
 
 
+#: present columns a pipeline's large output brings to the host together
+#: with their count, in one transfer (:func:`present_rows`)
+PRESENT_HEAD = 1 << 12
+
+
+def _present_count(table: torch.Tensor, ns: int):
+    """The count pass of the compaction (HK2's scan on the card, the
+    present ids for a CPU table): (state for :func:`_present_pack_into`,
+    the count as an int64[1] tensor on the table's device)."""
+    if not _on_card(table, "present_compact"):
+        ids = torch.nonzero(table[0] > 0).reshape(-1)
+        return {"ids": ids}, torch.tensor([ids.shape[0]], dtype=I64)
+    from . import _ext
+    lib = _ext.lib("segment_reduce")
+    nblk = max((ns + 1023) // 1024, 1)
+    btot = torch.empty(nblk + 1, dtype=I64, device=table.device)
+    _ext.check(lib.hk2_present_count(table.data_ptr(), ns, btot.data_ptr(),
+                                     btot[nblk:].data_ptr(), _stream()),
+               "present_count")
+    return {"btot": btot}, btot[nblk:]
+
+
+def _present_pack_into(table: torch.Tensor, ns: int, ob: int, state):
+    """HK2's compaction of the present columns into ob slots (the first
+    ob of them), reusing the count pass kept in ``state``; plain version
+    for a CPU table."""
+    rows = int(table.shape[0])
+    dev = table.device
+    if not _on_card(table, "present_compact"):
+        _count(PLAIN_CALLS, "present_compact")
+        ids = state["ids"][:ob]
+        full = torch.full((ob,), ns, dtype=I64, device=dev)
+        full[:ids.shape[0]] = ids
+        return torch.cat([full[None, :],
+                          table[:, torch.clamp(full, max=ns - 1)]], dim=0)
+    from . import _ext
+    lib = _ext.lib("segment_reduce")
+    packed = torch.empty((1 + rows, ob), dtype=I64, device=dev)
+    _ext.check(lib.hk2_present_pack(table.data_ptr(), rows, ns, ob,
+                                    state["btot"].data_ptr(),
+                                    packed.data_ptr(), _stream()),
+               "present_pack")
+    _count(LAUNCHES, "present_compact")
+    return packed
+
+
 def present_compact(table: torch.Tensor, ns: int):
     """Present segments (presence row > 0) compacted to a static bucket:
     returns (n_present, packed int64[(1 + rows), ob]) — row 0 the
     ascending segment ids (fill ns past the count), then every table row
     gathered at min(id, ns - 1).  One scalar sync for the count."""
-    rows = int(table.shape[0])
-    dev = table.device
     table = table.contiguous()
     if not _on_card(table, "present_compact"):
         return present_compact_plain(table, ns)
-    from . import _ext
-    lib = _ext.lib("segment_reduce")
-    nb = max((ns + 1023) // 1024, 1)
-    btot = torch.empty(nb + 1, dtype=I64, device=dev)
-    _ext.check(lib.hk2_present_count(table.data_ptr(), ns, btot.data_ptr(),
-                                     btot[nb:].data_ptr(), _stream()),
-               "present_count")
-    np_ = int(btot[nb].item())
+    state, total = _present_count(table, ns)
+    np_ = int(total.item())
     ob = min(bucket(max(np_, 1)), ns)
-    packed = torch.empty((1 + rows, ob), dtype=I64, device=dev)
-    _ext.check(lib.hk2_present_pack(table.data_ptr(), rows, ns, ob,
-                                    btot.data_ptr(), packed.data_ptr(),
-                                    _stream()), "present_pack")
-    _count(LAUNCHES, "present_compact")
-    return np_, packed
+    return np_, _present_pack_into(table, ns, ob, state)
 
 
 def present_compact_plain(table: torch.Tensor, ns: int):
@@ -697,6 +736,27 @@ def present_compact_plain(table: torch.Tensor, ns: int):
     full[:np_] = ids
     safe = torch.clamp(full, max=ns - 1)
     return np_, torch.cat([full[None, :], table[:, safe]], dim=0)
+
+
+def present_rows(table: torch.Tensor, ns: int) -> np.ndarray:
+    """The columns of an int64 table [rows, ns] whose row 0 is positive,
+    rows 1.. brought to the host (int64[rows - 1, n_present], columns
+    ascending).  One transfer carries the count and the first
+    ``PRESENT_HEAD`` present columns, so a small result costs one D2H and
+    no count pull; a second transfer brings the rest only when there are
+    more."""
+    table = table.contiguous()
+    rows = int(table.shape[0])
+    hb = max(min(PRESENT_HEAD, ns), 1)
+    state, total = _present_count(table, ns)
+    packed = _present_pack_into(table, ns, hb, state)
+    got = d2h(torch.cat([total, packed[2:].reshape(-1)]))
+    n = int(got[0])
+    lead = got[1:].reshape(rows - 1, hb)
+    if n <= hb:
+        return lead[:, :n]
+    packed = _present_pack_into(table, ns, min(bucket(n), ns), state)
+    return np.concatenate([lead, d2h(packed[2:, hb:n])], axis=1)
 
 
 # =========================================================================
@@ -781,12 +841,14 @@ def equi_join_unique(lk, ln, lv, rk, rn, rv, outer: bool = False,
     card = kmax - kmin + 1 if n_live else 1
     dense = n_live > 0 and dense_ok(card, n_live)
     if dense:
+        # dense_table.cuh's format, shared with HK6 and HK8
         tsize = card
+        table = torch.empty(tsize, dtype=torch.int32, device=dev)
     else:
         tsize = 1024
         while tsize < 2 * max(n_live, 1):
             tsize <<= 1
-    table = torch.empty(tsize, dtype=I64, device=dev)
+        table = torch.empty(tsize, dtype=I64, device=dev)
     cand = torch.empty(nl, dtype=I64, device=dev)
     match = torch.empty(nl, dtype=torch.bool, device=dev)
     _ext.check(lib.hk3_unique_match(
@@ -841,20 +903,22 @@ def equi_join_mult(lk, ln, lv, rk, rn, rv, outer: bool = False):
         torch.empty(0, dtype=I64, device=dev)
     lo = torch.empty(nl, dtype=I64, device=dev)
     cnt = torch.empty(nl, dtype=I64, device=dev)
+    incl = torch.empty(nl, dtype=I64, device=dev)
     nb = max((nl + 1023) // 1024, 1)
     btot = torch.empty(nb + 1, dtype=I64, device=dev)
     _ext.check(lib.hk3_mult_count(
         lk.data_ptr(), ln.data_ptr(), lv.data_ptr(), nl, rk.data_ptr(),
         perm.data_ptr(), n_live, int(outer), lo.data_ptr(), cnt.data_ptr(),
-        btot.data_ptr(), btot[nb:].data_ptr(), _stream()), "mult_count")
+        incl.data_ptr(), btot.data_ptr(), btot[nb:].data_ptr(), _stream()),
+        "mult_count")
     total = int(btot[nb].item())
     li = torch.empty(total, dtype=I64, device=dev)
     ri = torch.empty(total, dtype=I64, device=dev)
     if total:
         _ext.check(lib.hk3_mult_expand(
-            lv.data_ptr(), nl, lo.data_ptr(), cnt.data_ptr(),
-            perm.data_ptr(), int(outer), btot.data_ptr(), li.data_ptr(),
-            ri.data_ptr(), _stream()), "mult_expand")
+            lv.data_ptr(), nl, lo.data_ptr(), cnt.data_ptr(), incl.data_ptr(),
+            perm.data_ptr(), int(outer), total, li.data_ptr(), ri.data_ptr(),
+            _stream()), "mult_expand")
     _count(LAUNCHES, "equi_join")
     return li, ri
 
@@ -1103,6 +1167,8 @@ def csr_reduce_plain(order, ends, valid, lanes, n_rows: int,
 # =========================================================================
 
 _PROBE_MODES = {"inner": 0, "left": 1, "semi": 2, "anti": 3}
+#: key lanes of one probe (dense_table.cuh's kMaxKeys)
+_MAX_KEYS = 8
 
 
 class _CGather(ctypes.Structure):
@@ -1111,16 +1177,106 @@ class _CGather(ctypes.Structure):
                 ("out_vals", ctypes.c_void_p * _MAX_LANES),
                 ("out_nulls", ctypes.c_void_p * _MAX_LANES),
                 ("width", ctypes.c_int * _MAX_LANES),
+                ("side", ctypes.c_int * _MAX_LANES),
                 ("n", ctypes.c_int)]
 
 
-def _probe_checks(kp, knull, pvalid, tbl, bvalid, blanes, mode):
-    nb = int(kp.shape[0])
-    dev = kp.device
-    kp, knull, pvalid = kp.contiguous(), knull.contiguous(), \
-        pvalid.contiguous()
-    _need(kp, I64, nb, dev, "dense_probe key")
-    _need(knull, torch.bool, nb, dev, "dense_probe key null")
+def _gathers(lanes, n_out: int, dev):
+    """dense_table.cuh's GatherLanes for ``lanes`` [(side, values, NULL
+    mask or None)], kMaxLanes a launch: yields (struct, [(side, out
+    values, out NULL flags)]) with the outputs of n_out slots; one empty
+    struct for no lanes."""
+    for c0 in range(0, max(len(lanes), 1), _MAX_LANES):
+        chunk = lanes[c0:c0 + _MAX_LANES]
+        cg = _CGather()
+        cg.n = len(chunk)
+        outs = []
+        for j, (side, v, m) in enumerate(chunk):
+            ov = torch.empty(n_out, dtype=v.dtype, device=dev)
+            om = torch.empty(n_out, dtype=torch.bool, device=dev)
+            cg.vals[j] = v.data_ptr()
+            cg.nulls[j] = _ptr(m)
+            cg.out_vals[j] = ov.data_ptr()
+            cg.out_nulls[j] = om.data_ptr()
+            cg.width[j] = v.element_size()
+            cg.side[j] = side
+            outs.append((side, ov, om))
+        yield cg, outs
+
+
+class _CKeySet(ctypes.Structure):
+    _fields_ = [("vals", ctypes.c_void_p * _MAX_KEYS),
+                ("nulls", ctypes.c_void_p * _MAX_KEYS),
+                ("lo", ctypes.c_int64 * _MAX_KEYS),
+                ("hi", ctypes.c_int64 * _MAX_KEYS),
+                ("stride", ctypes.c_int64 * _MAX_KEYS),
+                ("n", ctypes.c_int)]
+
+
+def _key_set(keys, spec) -> _CKeySet:
+    """keys: [(int64 values, bool NULL mask or None)]; spec: per key (lo,
+    hi, stride) of the composite lane (ignored for one key)."""
+    c = _CKeySet()
+    c.n = len(keys)
+    for j, (v, m) in enumerate(keys):
+        c.vals[j] = v.data_ptr()
+        c.nulls[j] = _ptr(m)
+        if spec is not None:
+            c.lo[j], c.hi[j], c.stride[j] = (int(x) for x in spec[j])
+    return c
+
+
+def _check_keys(keys, spec, nb: int, dev, what: str):
+    if not 1 <= len(keys) <= _MAX_KEYS or (
+            len(keys) > 1 and (spec is None or len(spec) != len(keys))):
+        raise ValueError(f"{what}: {len(keys)} keys, spec {spec}")
+    out = []
+    for v, m in keys:
+        v = v.contiguous()
+        _need(v, I64, nb, dev, f"{what} key")
+        if m is not None:
+            m = m.contiguous()
+            _need(m, torch.bool, nb, dev, f"{what} key null")
+        out.append((v, m))
+    return out
+
+
+def probe_keys_plain(keys, spec):
+    """The probe key lane of dense_table.cuh (same contract): (key, ok).
+    One key: the lane itself, ok where not NULL.  Several: the composite
+    lane sum((k_j - lo_j) * stride_j), ok where every part is not NULL
+    and inside [lo_j, hi_j] (the offsets of other rows are not taken)."""
+    if len(keys) == 1:
+        v, m = keys[0]
+        return v, (torch.ones_like(v, dtype=torch.bool) if m is None
+                   else ~m)
+    ok = torch.ones_like(keys[0][0], dtype=torch.bool)
+    for (v, m), (lo, hi, _st) in zip(keys, spec):
+        ok = ok & (v >= lo) & (v <= hi)
+        if m is not None:
+            ok = ok & ~m
+    comp = torch.zeros_like(keys[0][0])
+    for (v, _m), (lo, _hi, st) in zip(keys, spec):
+        comp = comp + (torch.where(ok, v, torch.full_like(v, lo)) - lo) * st
+    return comp, ok
+
+
+def table_lookup_plain(tbl, lo: int, hi: int, key, ok):
+    """dense_table.cuh's in-range lookup: tbl[min(key - lo, len - 1)] for
+    a usable key inside [lo, hi], else -1 (key - lo taken only there)."""
+    tbl_len = int(tbl.shape[0])
+    inr = ok & (key >= lo) & (key <= hi)
+    if not tbl_len:
+        return torch.full_like(key, -1)
+    off = (torch.where(inr, key, torch.full_like(key, lo)) - lo).clamp(
+        max=tbl_len - 1)
+    return torch.where(inr, tbl[off].to(I64), torch.full_like(key, -1))
+
+
+def _probe_checks(pvalid, tbl, bvalid, blanes, mode):
+    nb = int(pvalid.shape[0])
+    dev = pvalid.device
+    pvalid = pvalid.contiguous()
     _need(pvalid, torch.bool, nb, dev, "dense_probe valid")
     tbl = tbl.contiguous()
     _need(tbl, torch.int32, int(tbl.shape[0]), dev, "dense_probe table")
@@ -1137,7 +1293,7 @@ def _probe_checks(kp, knull, pvalid, tbl, bvalid, blanes, mode):
             m = m.contiguous()
             _need(m, torch.bool, nbb, dev, "dense_probe build null")
         lanes.append((v, m))
-    return kp, knull, pvalid, tbl, bvalid, lanes
+    return pvalid, tbl, bvalid, lanes
 
 
 def dense_probe(kp, knull, pvalid, lo: int, hi: int, tbl, bvalid, blanes,
@@ -1150,54 +1306,65 @@ def dense_probe(kp, knull, pvalid, lo: int, hi: int, tbl, bvalid, blanes,
     and unmatched (anti); for inner and left, ``gathered`` holds each
     build lane (values, null) gathered per probe row, NULL where
     unmatched; for semi and anti it is empty."""
-    kp, knull, pvalid, tbl, bvalid, blanes = _probe_checks(
-        kp, knull, pvalid, tbl, bvalid, blanes, mode)
-    if not _on_card(kp, "dense_probe"):
-        return dense_probe_plain(kp, knull, pvalid, lo, hi, tbl, bvalid,
-                                 blanes, mode)
+    return _dense_probe([(kp, knull)], None, pvalid, lo, hi, tbl, bvalid,
+                        blanes, mode)
+
+
+def dense_probe_multi(keys, spec, pvalid, tbl, bvalid, blanes, mode: str):
+    """K18's multi-key unique mode: :func:`dense_probe` keyed by the
+    composite lane of ``keys`` (spec: per key (lo, hi, stride)), through
+    a table indexed by the composite lane itself."""
+    return _dense_probe(keys, spec, pvalid, 0, int(tbl.shape[0]) - 1, tbl,
+                        bvalid, blanes, mode)
+
+
+def _dense_probe(keys, spec, pvalid, lo, hi, tbl, bvalid, blanes, mode):
+    pvalid, tbl, bvalid, blanes = _probe_checks(pvalid, tbl, bvalid, blanes,
+                                                mode)
+    nb = int(pvalid.shape[0])
+    dev = pvalid.device
+    keys = _check_keys(keys, spec, nb, dev, "dense_probe")
+    if not _on_card(pvalid, "dense_probe"):
+        return _dense_probe_plain(keys, spec, pvalid, lo, hi, tbl, bvalid,
+                                  blanes, mode)
     from . import _ext
     lib = _ext.lib("dense_probe")
-    nb = int(kp.shape[0])
-    dev = kp.device
-    lanes = blanes if mode in ("inner", "left") else []
+    ks = _key_set(keys, spec)
+    lanes = [(1, v, m) for v, m in blanes] if mode in ("inner", "left") \
+        else []
     valid_out = torch.empty(nb, dtype=torch.bool, device=dev)
     outs = []
-    for c0 in range(0, max(len(lanes), 1), _MAX_LANES):
-        chunk = lanes[c0:c0 + _MAX_LANES]
-        cg = _CGather()
-        cg.n = len(chunk)
-        for j, (v, m) in enumerate(chunk):
-            ov = torch.empty(nb, dtype=v.dtype, device=dev)
-            om = torch.empty(nb, dtype=torch.bool, device=dev)
-            cg.vals[j] = v.data_ptr()
-            cg.nulls[j] = _ptr(m)
-            cg.out_vals[j] = ov.data_ptr()
-            cg.out_nulls[j] = om.data_ptr()
-            cg.width[j] = v.element_size()
-            outs.append((ov, om))
+    for cg, got in _gathers(lanes, nb, dev):
         _ext.check(lib.hk6_dense_probe(
-            kp.data_ptr(), knull.data_ptr(), pvalid.data_ptr(), nb, int(lo),
-            int(hi), tbl.data_ptr(), int(tbl.shape[0]), bvalid.data_ptr(),
+            ctypes.byref(ks), pvalid.data_ptr(), nb, int(lo), int(hi),
+            tbl.data_ptr(), int(tbl.shape[0]), bvalid.data_ptr(),
             int(bvalid.shape[0]), _PROBE_MODES[mode], ctypes.byref(cg),
             valid_out.data_ptr(), _stream()), "dense_probe")
         _count(LAUNCHES, "dense_probe")
+        outs += [(v, m) for _s, v, m in got]
     return valid_out, outs
 
 
 def dense_probe_plain(kp, knull, pvalid, lo: int, hi: int, tbl, bvalid,
                       blanes, mode: str):
     """Plain torch version of HK6 (same contract, any device)."""
+    return _dense_probe_plain([(kp, knull)], None, pvalid, lo, hi, tbl,
+                              bvalid, blanes, mode)
+
+
+def dense_probe_multi_plain(keys, spec, pvalid, tbl, bvalid, blanes,
+                            mode: str):
+    """Plain torch version of HK6's composite mode."""
+    return _dense_probe_plain(keys, spec, pvalid, 0, int(tbl.shape[0]) - 1,
+                              tbl, bvalid, blanes, mode)
+
+
+def _dense_probe_plain(keys, spec, pvalid, lo, hi, tbl, bvalid, blanes,
+                       mode):
     _count(PLAIN_CALLS, "dense_probe")
-    tbl_len = int(tbl.shape[0])
     nbb = int(bvalid.shape[0])
-    inr = (kp >= lo) & (kp <= hi) & ~knull
-    if tbl_len:
-        # key - lo only for keys inside [lo, hi]: nothing wraps
-        off = (torch.where(inr, kp, torch.full_like(kp, lo)) - lo).clamp(
-            max=tbl_len - 1)
-        pos = torch.where(inr, tbl[off].to(I64), torch.full_like(kp, -1))
-    else:
-        pos = torch.full_like(kp, -1)
+    key, ok = probe_keys_plain(keys, spec)
+    pos = table_lookup_plain(tbl, lo, hi, key, ok)
     ps = pos.clamp(0, nbb - 1)
     match = (pos >= 0) & bvalid[ps]
     if mode == "left":
@@ -1213,6 +1380,232 @@ def dense_probe_plain(kp, knull, pvalid, lo: int, hi: int, tbl, bvalid,
         gn = ~match if m is None else m[ps] | ~match
         outs.append((v[ps], gn))
     return valid_out, outs
+
+
+# =========================================================================
+# HK8 csr_expand
+# =========================================================================
+
+def csr_expand(order, ends, ng: int, n_rows: int, bvalid, tbl, lo: int,
+               hi: int, keys, spec, pvalid, outer: bool, ob: int, probe_lanes,
+               build_lanes):
+    """K18's multiplicity join over the build's group index (HK8).
+
+    ``order`` int64[nbb] / ``ends`` int64[ngb]: the group index of the
+    build rows (sorted positions at or past ``n_rows`` and groups at or
+    past ``ng`` are padding); ``bvalid`` bool[nbb] the build validity in
+    row space; ``tbl`` int32 maps a key in [lo, hi] to its group (-1
+    absent).  ``keys`` / ``spec``: the probe key lanes (one key, or the
+    composite lane as :func:`dense_probe_multi` takes it); ``pvalid`` the
+    probe validity; ``outer`` LEFT's null extension.  Output: the static
+    bucket of ``ob`` slots, probe rows ascending and each one's valid
+    build rows in group-index order: (valid_out bool[ob], probe lanes
+    gathered, build lanes gathered with their NULL flag or-ed with
+    "unmatched").  Slots past the total are invalid and name probe row 0
+    and build row 0; ``ob`` must bound the total (the caller bounds it
+    from the pre-filter group sizes)."""
+    order, ends = order.contiguous(), ends.contiguous()
+    nbb, ngb = int(order.shape[0]), int(ends.shape[0])
+    dev = order.device
+    _need(order, I64, nbb, dev, "csr_expand order")
+    _need(ends, I64, ngb, dev, "csr_expand ends")
+    bvalid = bvalid.contiguous()
+    _need(bvalid, torch.bool, nbb, dev, "csr_expand build valid")
+    tbl = tbl.contiguous()
+    _need(tbl, torch.int32, int(tbl.shape[0]), dev, "csr_expand table")
+    pvalid = pvalid.contiguous()
+    nb = int(pvalid.shape[0])
+    _need(pvalid, torch.bool, nb, dev, "csr_expand probe valid")
+    keys = _check_keys(keys, spec, nb, dev, "csr_expand")
+    lanes = []
+    for side, (ls, n) in enumerate(((probe_lanes, nb), (build_lanes, nbb))):
+        for v, m in ls:
+            v = v.contiguous()
+            _need(v, v.dtype, n, dev, "csr_expand lane")
+            if m is not None:
+                m = m.contiguous()
+                _need(m, torch.bool, n, dev, "csr_expand lane null")
+            lanes.append((side, v, m))
+    if not (0 <= ng <= ngb and 0 <= n_rows <= nbb and ob >= 1):
+        raise ValueError(f"csr_expand: ng={ng} ngb={ngb} n_rows={n_rows} "
+                         f"nbb={nbb} ob={ob}")
+    if not _on_card(pvalid, "csr_expand"):
+        return csr_expand_plain(order, ends, ng, n_rows, bvalid, tbl, lo, hi,
+                                keys, spec, pvalid, outer, ob,
+                                [(v, m) for s_, v, m in lanes if s_ == 0],
+                                [(v, m) for s_, v, m in lanes if s_ == 1])
+    from . import _ext
+    lib = _ext.lib("csr_expand")
+    scratch = torch.empty(lib.hk8_scratch_words(nbb, nb), dtype=I64,
+                          device=dev)
+    prow = torch.empty(ob, dtype=I64, device=dev)
+    brow = torch.empty(ob, dtype=I64, device=dev)
+    matched = torch.empty(ob, dtype=torch.bool, device=dev)
+    valid_out = torch.empty(ob, dtype=torch.bool, device=dev)
+    ks = _key_set(keys, spec)
+    _ext.check(lib.hk8_csr_expand(
+        order.data_ptr(), nbb, n_rows, ends.data_ptr(), ng,
+        bvalid.data_ptr(), tbl.data_ptr(), int(tbl.shape[0]), int(lo),
+        int(hi), ctypes.byref(ks), pvalid.data_ptr(), nb, int(outer), ob,
+        scratch.data_ptr(), prow.data_ptr(), brow.data_ptr(),
+        matched.data_ptr(), valid_out.data_ptr(), _stream()), "csr_expand")
+    outs = []
+    for cg, got in _gathers(lanes, ob, dev):
+        _ext.check(lib.hk8_gather(prow.data_ptr(), brow.data_ptr(),
+                                  matched.data_ptr(), ob, ctypes.byref(cg),
+                                  _stream()), "csr_expand gather")
+        outs += got
+    _count(LAUNCHES, "csr_expand")
+    return (valid_out, [(v, m) for s_, v, m in outs if s_ == 0],
+            [(v, m) for s_, v, m in outs if s_ == 1])
+
+
+def csr_expand_plain(order, ends, ng: int, n_rows: int, bvalid, tbl,
+                     lo: int, hi: int, keys, spec, pvalid, outer: bool,
+                     ob: int, probe_lanes, build_lanes):
+    """Plain torch version of HK8 (same contract, any device): the
+    reference's kernel (valid counts from a cumsum over the sorted
+    validity, the compacted order, probe -> group -> multiplicity, an
+    exclusive scan), with each output slot's probe row found by a
+    search over the inclusive ends instead of a running max."""
+    _count(PLAIN_CALLS, "csr_expand")
+    dev = order.device
+    nbb, ngb = int(order.shape[0]), int(ends.shape[0])
+    pos = torch.arange(nbb, dtype=I64, device=dev)
+    vs = (pos < n_rows) & bvalid[order]
+    cx = torch.zeros(nbb + 1, dtype=I64, device=dev)
+    cx[1:] = torch.cumsum(vs.to(I64), 0)
+    comp = order[torch.nonzero(vs).reshape(-1)]
+    gidx = torch.arange(ngb, dtype=I64, device=dev)
+    start = torch.where(gidx > 0, torch.cat([ends[:1], ends[:-1]]) + 1,
+                        torch.zeros_like(ends))
+    key, ok = probe_keys_plain(keys, spec)
+    g = table_lookup_plain(tbl, lo, hi, key, ok & pvalid)
+    g = torch.where(g < ng, g, torch.full_like(g, -1))
+    gs = g.clamp(0, max(ngb - 1, 0))
+    m = torch.where(g >= 0, cx[ends[gs] + 1] - cx[start[gs]],
+                    torch.zeros_like(g))
+    cnt = torch.where(pvalid, m.clamp(min=1), torch.zeros_like(m)) \
+        if outer else m
+    incl = torch.cumsum(cnt, 0)
+    total = incl[-1] if incl.numel() else torch.zeros((), dtype=I64,
+                                                      device=dev)
+    j = torch.arange(ob, dtype=I64, device=dev)
+    live = j < total
+    p = torch.searchsorted(incl, j, right=True)
+    p = torch.where(live, p, torch.zeros_like(p))
+    k = j - (incl[p] - cnt[p])
+    gp = g[p]
+    matched = live & (gp >= 0) & (k < m[p])
+    at = torch.where(matched, cx[start[gp.clamp(0, max(ngb - 1, 0))]] + k,
+                     torch.zeros_like(k))
+    brow = comp[at.clamp(0, max(comp.numel() - 1, 0))] if comp.numel() \
+        else torch.zeros_like(at)
+    brow = torch.where(matched, brow, torch.zeros_like(brow))
+    pcols = [(v[p], torch.zeros(ob, dtype=torch.bool, device=dev)
+              if mk is None else mk[p]) for v, mk in probe_lanes]
+    bcols = [(v[brow], ~matched if mk is None else mk[brow] | ~matched)
+             for v, mk in build_lanes]
+    return live, pcols, bcols
+
+
+# =========================================================================
+# HK9 run_bounds
+# =========================================================================
+
+class _CRunKeys(ctypes.Structure):
+    _fields_ = [("vals", ctypes.c_void_p * _MAX_KEYS),
+                ("nulls", ctypes.c_void_p * _MAX_KEYS),
+                ("is_f64", ctypes.c_int * _MAX_KEYS),
+                ("n", ctypes.c_int)]
+
+
+def run_bounds(perm, valid, keys, want_gid: bool = False):
+    """Runs of equal keys in a sorted order (HK9): ``perm`` int64[n]
+    (valid rows first), ``valid`` bool[n] and ``keys`` [(int64 or float64
+    values, bool NULL mask or None)] in row space; equal means both NULL
+    or neither NULL and equal values (floats as floats).  Returns (count
+    int64[1], lead int64[n], ends int64[n], gid int64[n] or None), all on
+    ``perm``'s device: the group count; each group's leader position (0
+    from the count on); each group's last sorted position (from the count
+    on the last group's, -1 when there is none, so padding groups are
+    empty runs); each row's group number (n for an invalid row)."""
+    perm, valid = perm.contiguous(), valid.contiguous()
+    n = int(perm.shape[0])
+    dev = perm.device
+    _need(perm, I64, n, dev, "run_bounds perm")
+    _need(valid, torch.bool, n, dev, "run_bounds valid")
+    if n < 1 or len(keys) > _MAX_KEYS:
+        raise ValueError(f"run_bounds: n={n}, {len(keys)} keys")
+    ks = []
+    for v, m in keys:
+        v = v.contiguous()
+        if v.dtype not in (I64, F64):
+            raise ValueError(f"run_bounds: key dtype {v.dtype}")
+        _need(v, v.dtype, n, dev, "run_bounds key")
+        if m is not None:
+            m = m.contiguous()
+            _need(m, torch.bool, n, dev, "run_bounds key null")
+        ks.append((v, m))
+    if not _on_card(perm, "run_bounds"):
+        return run_bounds_plain(perm, valid, ks, want_gid)
+    from . import _ext
+    lib = _ext.lib("run_bounds")
+    ck = _CRunKeys()
+    ck.n = len(ks)
+    for j, (v, m) in enumerate(ks):
+        ck.vals[j] = v.data_ptr()
+        ck.nulls[j] = _ptr(m)
+        ck.is_f64[j] = int(v.dtype == F64)
+    nblk = max((n + 1023) // 1024, 1)
+    btot = torch.empty(nblk + 1, dtype=I64, device=dev)
+    lead = torch.empty(n, dtype=I64, device=dev)
+    ends = torch.empty(n, dtype=I64, device=dev)
+    gid = torch.empty(n, dtype=I64, device=dev) if want_gid else None
+    _ext.check(lib.hk9_run_bounds(
+        perm.data_ptr(), n, valid.data_ptr(), ctypes.byref(ck),
+        btot.data_ptr(), btot[nblk:].data_ptr(), lead.data_ptr(),
+        ends.data_ptr(), _ptr(gid), _stream()), "run_bounds")
+    _count(LAUNCHES, "run_bounds")
+    return btot[nblk:], lead, ends, gid
+
+
+def run_bounds_plain(perm, valid, keys, want_gid: bool = False):
+    """Plain torch version of HK9 (same contract, any device): the
+    reference's boundary diff over the sorted lanes, leaders, their
+    cumsum, and each group's end where the next position leads a group
+    or is invalid."""
+    _count(PLAIN_CALLS, "run_bounds")
+    n = int(perm.shape[0])
+    dev = perm.device
+    vs = valid[perm]
+    same = torch.ones(max(n - 1, 0), dtype=torch.bool, device=dev)
+    for v, m in keys:
+        a = v[perm]
+        eq = a[1:] == a[:-1]
+        if m is None:
+            same &= eq
+        else:
+            b = m[perm]
+            same &= (b[1:] == b[:-1]) & (eq | b[1:])
+    t = torch.ones(1, dtype=torch.bool, device=dev)
+    lead_f = vs & torch.cat([t, ~vs[:-1] | ~same])
+    end_f = vs & torch.cat([~vs[1:] | ~same, t])
+    gnum = torch.cumsum(lead_f.to(I64), 0)
+    count = gnum[-1:].clone()
+    lead_pos = torch.nonzero(lead_f).reshape(-1)
+    end_pos = torch.nonzero(end_f).reshape(-1)
+    ng = int(lead_pos.shape[0])
+    lead = torch.zeros(n, dtype=I64, device=dev)
+    lead[:ng] = lead_pos
+    ends = torch.full((n,), int(end_pos[-1]) if ng else -1, dtype=I64,
+                      device=dev)
+    ends[:ng] = end_pos
+    gid = None
+    if want_gid:
+        gid = torch.empty(n, dtype=I64, device=dev)
+        gid[perm] = torch.where(vs, gnum - 1, torch.full_like(gnum, n))
+    return count, lead, ends, gid
 
 
 # =========================================================================
@@ -1700,8 +2093,8 @@ def group_aggregate(key_cols: List[Tuple[np.ndarray, np.ndarray]],
                     arg_cols: List[Tuple[np.ndarray, np.ndarray]],
                     n_rows: int, filter_mask: np.ndarray = None):
     """Sort-based group-by (K4): HK4 sorts the rows by their keys (NULL
-    first, invalid rows last), group ids come from the key boundaries of
-    the sorted order, and HK2 reduces per group.  Groups come out in key
+    first, invalid rows last), HK9 numbers the runs of equal keys in the
+    sorted order, and HK2 reduces per group.  Groups come out in key
     order.  Returns (group_key_cols, agg_out_cols, first_orig)."""
     nb = bucket(max(n_rows, 1))
     valid_h = np.zeros(nb, dtype=bool)
@@ -1712,16 +2105,10 @@ def group_aggregate(key_cols: List[Tuple[np.ndarray, np.ndarray]],
     stats_add("dispatches", 1)
     perm = lex_order(sort_lanes(list(zip(kv, kn)), [False] * len(kv),
                                 valid, zero_nulls=False), nb)
-    vs = valid[perm]
-    boundary = torch.zeros(nb, dtype=torch.bool, device=valid.device)
-    boundary[0] = True
-    for v, m in zip(kv, kn):
-        a, b = v[perm], m[perm]
-        diff = ((a[1:] != a[:-1]) & ~(b[1:] & b[:-1])) | (b[1:] != b[:-1])
-        boundary[1:] |= diff
-    gid_sorted = torch.cumsum(boundary.to(I64), 0) - 1
-    gid = torch.empty_like(gid_sorted)
-    gid[perm] = torch.where(vs, gid_sorted, torch.full_like(gid_sorted, nb))
+    # HK9: group numbers per row (nb for an invalid row) and the leaders
+    count, lead, _ends, gid = run_bounds(
+        perm, valid, [(v if v.dtype in (I64, F64) else v.to(I64), m)
+                      for v, m in zip(kv, kn)], want_gid=True)
     it = iter([_arg_dev(v, m, nb) for v, m in arg_cols])
     lanes, plan = _spec_lanes(agg_specs, [next(it) if has else None
                                           for _, has in agg_specs])
@@ -1730,7 +2117,7 @@ def group_aggregate(key_cols: List[Tuple[np.ndarray, np.ndarray]],
     # each group's representative is its FIRST row in sorted order (the
     # reference's first_orig), not its lowest row: under a NULL key rows
     # sort by their hidden values
-    first = d2h(perm[torch.nonzero(boundary & vs).reshape(-1)])
+    first = d2h(perm[lead[:int(count.item())]])
     out_keys = [(np.asarray(v)[first], np.asarray(m)[first])
                 for v, m in key_cols] if len(first) else \
         [(np.asarray(v)[:0], np.asarray(m)[:0]) for v, m in key_cols]
