@@ -7,7 +7,8 @@ Phases (any mismatch raises, and the script exits nonzero without a
 result line):
 
 1. the card's name and power limit (nvidia-smi) and the build of the
-   nine hand-written kernels (HK1-HK9) from tinysql_tpu_torch/csrc;
+   nine hand-written kernel sources (HK1-HK9; K12's batched entry points
+   live in HK7's, HK1's and HK2's) from tinysql_tpu_torch/csrc;
 2. each kernel against its plain torch version on the card, at the shapes
    the main path gives it at TPC-H SF=1 plus edge cases: integers, counts,
    NULL masks and row order exactly, float sums within 1e-6 relative; each
@@ -27,7 +28,14 @@ result line):
    byte against its plain version (float % within 1 ulp, the largest
    distance printed); HK8 (csr_expand) runs Q13's join (150,000
    customers LEFT JOIN 1.5M orders), HK9 (run_bounds) its two GROUP BYs,
-   HK6's composite mode a two-key probe of 2^21 rows;
+   HK6's composite mode a two-key probe of 2^21 rows; K12's batched
+   entry points (a stacked round's one launch for B members) byte for
+   byte against B solo launches and their plain versions: HK7b
+   (expr_eval_batched) and HK1b (masked_reduce_batched) at Q6's SF=1
+   program for B = 2, 3 (the B = 4 launch with an inert padding row), 8
+   and 16, HK2b (segment_reduce_batched) at Q1's 16 segments and at a
+   2^21-segment sort regime for B = 4, each beside the time of B solo
+   calls and a bound that counts the shared columns once;
 3. the main path: new_session() on cuda, tpch.load at SF=1 (seed 7), then
    TPC-H Q1, Q3, Q6, Q13 and the workload trio Q5, Q10, Q18 through SQL
    with tidb_use_tpu=1, on each device tier in turn: the pipeline tier
@@ -47,8 +55,18 @@ result line):
    under torch.profiler counts the CUDA kernels and copies it launches
    (a warm Q6, which runs the per-operator executors on both tiers, may
    launch at most six kernels);
-4. one JSON line listing the kernels ({"kernels": [...]}), then the
-   result line {"ok": true, "device": {...}}.
+   then the serve phase: the port's MySQL wire server (Server(storage,
+   port=0), on the card) over phase 3's tables answers a Q6 substitution
+   stream (8 connections, TPC-H Clause 2.4.6.3) and a Q1 stream (4,
+   Clause 2.4.1.3, under tidb_devpipe=0) sent together: every member's
+   row packets must equal its statement run solo in a Session, a stacked
+   storm must form a stacked round of occupancy >= 4 that launches the
+   batched HK7b and HK1b / HK2b once, and no plain version may run;
+   each storm's wall is printed with tidb_batch_stack_max 16 and 0, with
+   the server's host profilers on (their defaults) and off;
+4. one JSON line listing the kernels ({"kernels": [...]}; launches: the
+   main path's and the serve phase's), then the result line {"ok": true,
+   "device": {...}}.
 
 Needs one CUDA card and the CUDA toolkit (nvcc); no network.
 """
@@ -89,6 +107,14 @@ KERNELS = {
                    "tinysql_tpu/executor/devpipe.py:1502"),
     "run_bounds": ("tinysql_tpu_torch/csrc/run_bounds.cu",
                    "tinysql_tpu/executor/devpipe.py:1833"),
+    # K12 (stacked_variant, ops/kernels.py:1228): the batched entry
+    # points a stacked round of the serve phase launches
+    "expr_eval_batched": ("tinysql_tpu_torch/csrc/expr_eval.cu",
+                          "tinysql_tpu/ops/kernels.py:1228"),
+    "masked_reduce_batched": ("tinysql_tpu_torch/csrc/masked_reduce.cu",
+                              "tinysql_tpu/ops/kernels.py:1228"),
+    "segment_reduce_batched": ("tinysql_tpu_torch/csrc/segment_reduce.cu",
+                               "tinysql_tpu/ops/kernels.py:1228"),
 }
 # per device tier (its tidb_devpipe value), the kernels each query of the
 # main path must launch
@@ -248,6 +274,30 @@ def check_table(k, p, float_rows, what: str, exact_float_rows=()) -> float:
     return err
 
 
+def reduce_bytes(valid, lanes, table_rows: int, gid: bool = False) -> int:
+    """Bytes a masked or segment reduction must move: each member's valid
+    mask over every row, then only over its valid rows its lanes' values
+    and NULL bytes (a member's own lane [B, n] per member, a shared lane
+    [n] and the shared group ids once over the rows valid in any member),
+    and each member's table of ``table_rows`` int64 written once.  A
+    solo call is one member (``valid`` [n])."""
+    v = valid if valid.dim() == 2 else valid[None]
+    nmem, n = int(v.shape[0]), int(v.shape[1])
+    nv = [int(x) for x in v.sum(dim=1).tolist()]
+    nu = int(v.any(dim=0).sum())
+    shared, own = (8 if gid else 0), 0
+    for x, m, _op in lanes:
+        for a, size in ((x, 8), (m, 1)):
+            if a is None:
+                continue
+            if a.dim() == 2 or valid.dim() == 1:
+                own += size
+            else:
+                shared += size
+    return nu * shared + sum(n + k * own for k in nv) + \
+        nmem * 8 * table_rows
+
+
 def lane_float_rows(lanes, head: int, ops=("sum",)):
     import torch
     return {head + 2 * j for j, (v, _m, op) in enumerate(lanes)
@@ -290,7 +340,7 @@ def phase_kernels(K, dev):
         **timed(lambda: K.masked_reduce(valid, q6)),
         "plain_ms": cuda_ms(lambda: K.masked_reduce_plain(valid, q6)),
         "library_ms": None,
-        "bytes": n * (1 + 8 + 1) + 8 * 4, "ops": 2 * n,
+        "bytes": reduce_bytes(valid, q6, 4), "ops": 2 * int(valid.sum()),
         "shape": "n=2^23, 1 float64 SUM lane (Q6)"}
     # edge cases: all-invalid, all-NULL lane, int64 extremes, min/max
     ne = 4096
@@ -354,7 +404,8 @@ def phase_kernels(K, dev):
         "plain_ms": cuda_ms(lambda: K.segment_reduce_plain(
             gid3, valid3, ns3, q3)),
         "library_ms": None,
-        "bytes": n * (8 + 1 + 8 + 1) + 4 * 8 * ns3, "ops": 2 * n,
+        "bytes": reduce_bytes(valid3, q3, 4 * ns3, gid=True),
+        "ops": 2 * int(valid3.sum()),
         "shape": "n=2^23, 2^21 segments, 1 float64 SUM lane (Q3)",
         "q1_ms": q1_ms,
         "sum_lane_only_scatter_reduce_ms": cuda_ms(lambda: torch.zeros(
@@ -740,7 +791,8 @@ def phase_kernels(K, dev):
     q13 = phase_q13_kernels(K, dev, t, rng)
     rec["dense_probe"].update(q13.pop("dense_probe"))
     rec.update(q13)
-    rec["expr_eval"] = phase_hk7(K, dev, t, rng)
+    rec["expr_eval"], q6x = phase_hk7(K, dev, t, rng)
+    rec.update(phase_k12(K, dev, t, rng, q6x))
     rec["offpath"] = offpath(K, dev, t, rng)
     return rec
 
@@ -1148,6 +1200,8 @@ def phase_hk7(K, dev, t, rng) -> dict:
     hk7_case(K, prog, lcols, K._params_dev(pt.arrays()), nbat,
              "expr_eval K15 layout")
     p3, c3, pr3, nb3, live3 = q3[2]
+    q6x = {"cols": cols, "prog": q6, "params": pt6.arrays(), "n": n,
+           "live": live}
     return {
         "max_abs_err": 0.0,
         **timed(lambda: K.expr_eval(q6, cols, pr6, n, n_rows=live)),
@@ -1172,7 +1226,185 @@ def phase_hk7(K, dev, t, rng) -> dict:
         "q3_lineitem_mask_ms": cuda_ms(lambda: K.expr_eval(
             p3, c3, pr3, nb3, n_rows=live3)),
         "q3_lineitem_mask_bound_ms": expr_bytes(p3, c3, live3) / MEM_BPS
-        * 1e3}
+        * 1e3}, q6x
+
+
+# -- K12: the batched entry points of a stacked round (HK7b, HK1b, HK2b) ----
+
+def expr_bytes_batched(prog, cols, n_live: int, nmem: int,
+                       n_params: int) -> int:
+    """Bytes a stacked round's expression program must move: the shared
+    input lanes read once over the live rows, then per member its
+    parameter row read and its mask and output lanes written once."""
+    per_in = sum((0 if kind == "n" else cols[slot][0].element_size())
+                 + (cols[slot][1] is not None) for slot, kind in prog.inputs)
+    per_out = int(prog.has_mask) + sum(1 + (0 if dt == "n" else 8)
+                                       for dt in prog.outputs)
+    return n_live * per_in + nmem * (n_live * per_out + 8 * n_params)
+
+
+def _member_expr(got, b):
+    mask, outs = got
+    return (None if mask is None else mask[b],
+            [(None if v is None else v[b], m[b]) for v, m in outs])
+
+
+def phase_k12(K, dev, t, rng, q6x) -> dict:
+    """The three batched entry points of K12's stacked round, each held
+    byte for byte against B solo launches with each member's inputs and
+    against its plain version: HK7b and HK1b at Q6's SF=1 program (2^23
+    rows) at B = 2, 3 (run as the B = 4 launch with an inert padding
+    row), 8 and 16; HK2b at Q1's 16-segment shape and at a sort-regime
+    shape (2^21 segments), both at B = 4.  Times: CUDA events and
+    torch.profiler device time of one batched call, the B solo calls,
+    the plain version, and the bound counted with the shared columns
+    once."""
+    import numpy as np
+    import torch
+    from tinysql_tpu_torch.bench import exprcases as EC
+    from tinysql_tpu_torch.ops.exprjit import ParamTable
+    cols, q6, (pi, pf) = q6x["cols"], q6x["prog"], q6x["params"]
+    n, live = q6x["n"], q6x["live"]
+    n_params = len(pi) + len(pf)
+    out = {}
+    ee, mr = {}, {}
+    for occ in (8, 2, 3, 16):
+        b = K.occupancy_bucket(occ)
+        members = [EC.member_params(pi, pf, i) for i in range(occ)]
+        prs = K._params_dev(ParamTable.stack(members, b))
+        got = K.expr_eval_batched(q6, cols, prs, n, n_rows=live)
+        same_expr(got, K.expr_eval_batched(q6, cols, prs, n, n_rows=live),
+                  f"expr_eval_batched Q6 B={b} (two runs)")
+        same_expr(got, K.expr_eval_batched_plain(q6, cols, prs, n,
+                                                 n_rows=live),
+                  f"expr_eval_batched Q6 B={b} vs plain")
+        for i in range(occ):  # the padding row's outputs are dropped
+            solo = K.expr_eval(q6, cols, (prs[0][i], prs[1][i]), n,
+                               n_rows=live)
+            same_expr(_member_expr(got, i), solo,
+                      f"expr_eval_batched Q6 B={b} member {i} vs solo")
+        valid, (rev,) = got[0], got[1]
+        lanes = [(rev[0], rev[1], "sum")]
+        r1 = K.masked_reduce_batched(valid, lanes)
+        same_bytes(r1, K.masked_reduce_batched(valid, lanes),
+                   f"masked_reduce_batched Q6 B={b}")
+        err = check_table(
+            r1.T.contiguous(), K.masked_reduce_batched_plain(
+                valid, K._norm_lanes(lanes, n, dev, "k12", b)).T
+            .contiguous(), {2}, f"masked_reduce_batched Q6 B={b}")
+        for i in range(occ):
+            same_bytes(r1[i], K.masked_reduce(valid[i],
+                                              K._member_lanes(lanes, i)),
+                       f"masked_reduce_batched Q6 B={b} member {i} vs solo")
+        key = f"b{occ}"
+        ee[key + "_ms"] = cuda_ms(lambda: K.expr_eval_batched(
+            q6, cols, prs, n, n_rows=live), reps=5)
+        ee[key + "_solo_ms"] = cuda_ms(lambda: [K.expr_eval(
+            q6, cols, (prs[0][i], prs[1][i]), n, n_rows=live)
+            for i in range(b)], reps=5)
+        ee[key + "_bound_ms"] = expr_bytes_batched(
+            q6, cols, live, b, n_params) / MEM_BPS * 1e3
+        mr[key + "_ms"] = cuda_ms(lambda: K.masked_reduce_batched(
+            valid, lanes), reps=5)
+        mr[key + "_solo_ms"] = cuda_ms(lambda: [K.masked_reduce(
+            valid[i], K._member_lanes(lanes, i)) for i in range(b)], reps=5)
+        mr[key + "_bound_ms"] = reduce_bytes(valid, lanes, 4) / MEM_BPS \
+            * 1e3
+        mr[key + "_max_abs_err"] = err
+        if occ == 8:  # the Q6 stream's round: the records' main shape
+            out["expr_eval_batched"] = {
+                "max_abs_err": 0.0,
+                **timed(lambda: K.expr_eval_batched(q6, cols, prs, n,
+                                                    n_rows=live)),
+                "plain_ms": cuda_ms(lambda: K.expr_eval_batched_plain(
+                    q6, cols, prs, n, n_rows=live), reps=3, warm=1),
+                "library_ms": None,
+                "bytes": expr_bytes_batched(q6, cols, live, b, n_params),
+                "ops": len(q6.ins) * live * b,
+                "shape": f"B=8 members, n=2^23 ({live} live), Q6's "
+                         f"program ({len(q6.ins)} instructions)"}
+            out["masked_reduce_batched"] = {
+                "max_abs_err": err,
+                **timed(lambda: K.masked_reduce_batched(valid, lanes)),
+                "plain_ms": cuda_ms(lambda: K.masked_reduce_batched_plain(
+                    valid, lanes), reps=3, warm=1),
+                "library_ms": None,
+                "bytes": reduce_bytes(valid, lanes, 4),
+                "ops": 2 * int(valid.sum()),
+                "shape": "B=8 members, n=2^23, 1 float64 SUM lane (Q6)"}
+        del got, valid, rev, lanes, r1
+    out["expr_eval_batched"].update(ee)
+    out["masked_reduce_batched"].update(mr)
+
+    # HK2b: Q1's shape (16 segments, 6 used, 10 lanes) and the sort regime
+    def per_member_f(nmem):
+        return t(np.round(rng.uniform(900.0, 105000.0, (nmem, n)), 2))
+
+    def hk2b_case(gid, valid, ns, lanes, what):
+        nmem = int(valid.shape[0])
+        k1 = K.segment_reduce_batched(gid, valid, ns, lanes)
+        same_bytes(k1, K.segment_reduce_batched(gid, valid, ns, lanes),
+                   what)
+        p = K.segment_reduce_batched_plain(
+            gid, valid, ns, K._norm_lanes(lanes, n, dev, what, nmem))
+        err = 0.0
+        for i in range(nmem):
+            same_bytes(k1[i], K.segment_reduce(gid, valid[i], ns,
+                                               K._member_lanes(lanes, i)),
+                       f"{what} member {i} vs solo")
+            err = max(err, check_table(k1[i], p[i],
+                                       lane_float_rows(lanes, 2),
+                                       f"{what} member {i}"))
+        return err
+
+    nmem = 4
+    gid1 = t(rng.choice(6, n, p=[0.25, 0.007, 0.25, 0.24, 0.003, 0.25])
+             .astype(np.int64))
+    valid1 = t(rng.random((nmem, n)) < 0.98)
+    q1 = []
+    for j in range(10):
+        if j in (5, 7, 9):
+            q1.append((None, t(np.zeros(n, bool)), "count"))
+        else:
+            q1.append((per_member_f(nmem), t(np.zeros(n, bool)), "sum"))
+    err = hk2b_case(gid1, valid1, 16, q1, "segment_reduce_batched Q1 B=4")
+    out["segment_reduce_batched"] = {
+        "max_abs_err": err,
+        **timed(lambda: K.segment_reduce_batched(gid1, valid1, 16, q1)),
+        "plain_ms": cuda_ms(lambda: K.segment_reduce_batched_plain(
+            gid1, valid1, 16, q1), reps=3, warm=1),
+        "library_ms": None,
+        "bytes": reduce_bytes(valid1, q1, (2 + 2 * len(q1)) * 16, gid=True),
+        "ops": 2 * int(valid1.sum()) * len(q1),
+        "shape": "B=4 members, n=2^23, 16 segments (6 used), 7 float64 "
+                 "SUM + 3 count lanes (Q1)",
+        "solo_x4_ms": cuda_ms(lambda: [K.segment_reduce(
+            gid1, valid1[i], 16, K._member_lanes(q1, i))
+            for i in range(nmem)], reps=5)}
+    del q1, valid1
+    # Q3's lineitem grouped by order: 1.5M groups of 4 rows at SF=1
+    live3 = min(6_000_000, 3 * n // 4)
+    ns3 = K.bucket(live3 // 4)
+    gid3 = t(np.concatenate([np.repeat(np.arange(live3 // 4), 4),
+                             np.zeros(n - live3 // 4 * 4, np.int64)]))
+    valid3 = t(np.concatenate(
+        [rng.random((nmem, live3 // 4 * 4)) < 0.54,
+         np.zeros((nmem, n - live3 // 4 * 4), bool)], axis=1))
+    q3 = [(per_member_f(nmem), t(np.zeros(n, bool)), "sum")]
+    hk2b_case(gid3, valid3, ns3, q3, "segment_reduce_batched sort B=4")
+    out["segment_reduce_batched"].update({
+        "sort_regime_ms": cuda_ms(lambda: K.segment_reduce_batched(
+            gid3, valid3, ns3, q3), reps=5),
+        "sort_regime_device_ms": device_ms(lambda: K.segment_reduce_batched(
+            gid3, valid3, ns3, q3), reps=3),
+        "sort_regime_solo_x4_ms": cuda_ms(lambda: [K.segment_reduce(
+            gid3, valid3[i], ns3, K._member_lanes(q3, i))
+            for i in range(nmem)], reps=3),
+        "sort_regime_bound_ms": reduce_bytes(
+            valid3, q3, (2 + 2 * len(q3)) * ns3, gid=True) / MEM_BPS * 1e3,
+        "sort_regime_shape": "B=4 members, n=2^23, 2^21 segments, 1 "
+                             "float64 SUM lane"})
+    return out
 
 
 def offpath(K, dev, t, rng) -> dict:
@@ -1361,7 +1593,8 @@ def phase_main_path(K, kinfo, device=None):
                 by_tier = kinfo[k].setdefault("launches_by_tier", {})
                 by_tier[tier] = by_tier.get(tier, 0) + v
     for k, info in kinfo.items():
-        if info["launches"] <= 0:
+        # the batched entry points launch on the serve phase's path
+        if info["launches"] <= 0 and not k.endswith("_batched"):
             raise Mismatch(f"kernel {k} never launched on the main path")
     # Q13 and Q5: numpy's answers from the generated columns, both tiers
     for q, want in numpy_rows.items():
@@ -1391,6 +1624,274 @@ def phase_main_path(K, kinfo, device=None):
     for tier, rows in tier_rows.items():
         for q in tpch.ALL_QUERIES:
             check_rows(rows[q], f"{tier} {q}", expect_rows.get(q))
+    sess.execute("set tidb_use_tpu=1")
+    return sess.storage
+
+
+# ---- serve phase ----------------------------------------------------------
+
+class WireClient:
+    """A minimal MySQL client over the port's packet layer
+    (tinysql_tpu_torch/server/packetio.py): the protocol-41 handshake as
+    root with no password, then COM_QUERY over the text protocol."""
+
+    def __init__(self, port: int, db: str = ""):
+        import socket
+        import struct
+        from tinysql_tpu_torch.server.packetio import PacketIO
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=120)
+        self.io = PacketIO(self.sock)
+        if self.io.read_packet()[0] != 10:
+            raise Mismatch("wire: no protocol v10 greeting")
+        caps = 0x0200 | 0x8000 | (0x0008 if db else 0)
+        payload = struct.pack("<IIB", caps, 1 << 24, 0x21) + b"\0" * 23
+        payload += b"root\0" + b"\0"  # user, empty auth response
+        if db:
+            payload += db.encode() + b"\0"
+        self.io.write_packet(payload)
+        if self.io.read_packet()[0] != 0x00:
+            raise Mismatch("wire: handshake refused")
+
+    def query(self, sql: str):
+        """The row packets of a resultset (raw text-protocol payloads), or
+        None for an OK packet."""
+        import struct
+        from tinysql_tpu_torch.server.packetio import read_lenenc_int
+        self.io.reset_sequence()
+        self.io.write_packet(b"\x03" + sql.encode())
+        first = self.io.read_packet()
+        if first[0] == 0x00:
+            return None
+        if first[0] == 0xFF:
+            code = struct.unpack_from("<H", first, 1)[0]
+            raise Mismatch(f"wire: server error {code}: "
+                           f"{first[9:].decode(errors='replace')}")
+        ncols, _ = read_lenenc_int(first, 0)
+        for _ in range(ncols + 1):  # column definitions, EOF
+            self.io.read_packet()
+        rows = []
+        while True:
+            d = self.io.read_packet()
+            if d[0] == 0xFE and len(d) < 9:
+                return rows
+            rows.append(bytes(d))
+
+    def close(self) -> None:
+        try:
+            self.io.write_packet(b"\x01")
+        except OSError:
+            pass
+        self.sock.close()
+
+
+def storm(port: int, sqls) -> tuple:
+    """One statement per connection, all sent together (the clients
+    connect first, then a barrier releases them): (each statement's row
+    packets, the wall from the release to the last response)."""
+    import threading
+    clients = [WireClient(port, "tpch") for _ in sqls]
+    gate = threading.Barrier(len(sqls) + 1)
+    got, errors = [None] * len(sqls), []
+
+    def run(i):
+        gate.wait()
+        try:
+            got[i] = clients[i].query(sqls[i])
+        except Exception as e:  # reported below, after every join
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(sqls))]
+    for th in threads:
+        th.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(300)
+    wall = time.perf_counter() - t0
+    for c in clients:
+        c.close()
+    if errors or any(th.is_alive() for th in threads):
+        raise Mismatch(f"wire storm failed: {errors}")
+    return got, wall
+
+
+#: the serve phase's statement pool: one worker, a 50 ms batch window, so
+#: the worker collects a whole storm (8 Q6 or 4 Q1 connections) into one
+#: same-digest round.  With the server's default of 4 workers each idle
+#: worker dequeues a statement of the storm and leads a round of its own
+#: (server/pool.py, _worker_loop / _form_group), so a storm splits: one
+#: storm per stream also runs at the default pool size, and its rounds
+#: and occupancy are printed beside the others
+SERVE_POOL_SIZE = 1
+SERVE_WINDOW_MS = 50
+SERVE_STREAMS = (("Q6", 8, "masked_reduce_batched"),
+                 ("Q1", 4, "segment_reduce_batched"))
+#: (tidb_batch_stack_max, the host profilers) per storm: an unmeasured
+#: first storm, then stacked / legacy / legacy / stacked with the
+#: server's default host profilers on (tidb_memprof_rate = 1: tracemalloc;
+#: tidb_conprof_rate = 10 Hz stack samples), and again with them off
+SERVE_STORMS = ((16, "on"),) + tuple(
+    (m, prof) for prof in ("on", "off") for m in (16, 0, 0, 16))
+
+
+def set_profilers(admin, prof: str) -> None:
+    """The server's host profilers on (their defaults) or off; waits until
+    tracemalloc follows (the memprof sampler applies the rate on its
+    next tick)."""
+    import tracemalloc
+    on = prof == "on"
+    admin.query(f"set global tidb_memprof_rate = {1 if on else 0}")
+    admin.query(f"set global tidb_conprof_rate = {10 if on else 0}")
+    deadline = time.monotonic() + 10
+    while tracemalloc.is_tracing() != on and time.monotonic() < deadline:
+        time.sleep(0.05)
+
+
+def checked_storm(K, port: int, name: str, sqls, solo,
+                  on_card: bool) -> tuple:
+    """One storm whose every member's row packets must equal its solo
+    rows, with no plain version run and no stack fallback: (wall, the
+    batching counters' change, the launches)."""
+    from tinysql_tpu_torch.ops import batching
+    K.reset_kernel_counts()
+    st0 = batching.stats_snapshot()
+    got, wall = storm(port, sqls)
+    counts = K.kernel_counts()
+    st1 = batching.stats_snapshot()
+    for i, (g, want) in enumerate(zip(got, solo)):
+        if g != want:
+            raise Mismatch(f"serve {name} member {i}: wire rows "
+                           f"{g[:2]} differ from solo {want[:2]}")
+    if on_card and any(counts["plain_calls"].values()):
+        raise Mismatch(f"serve {name}: plain versions ran: "
+                       f"{counts['plain_calls']}")
+    d = {k: st1[k] - st0[k] for k in st1}
+    if d["stack_fallbacks"]:
+        raise Mismatch(f"serve {name}: {d['stack_fallbacks']} "
+                       "stack fallbacks")
+    # (a rehearsal on the CPU counts the plain versions' calls)
+    return wall, d, counts["launches" if on_card else "plain_calls"]
+
+
+def phase_serve(K, storage, kinfo, device=None) -> dict:
+    """The port's MySQL wire server on the card over phase 3's SF=1
+    storage: a Q6 substitution stream (8 connections, TPC-H Clause
+    2.4.6.3) and a Q1 stream (4 connections, DELTA per Clause 2.4.1.3,
+    under tidb_devpipe = 0) sent concurrently.  Each stream warms its
+    digest family with one solo statement over the wire and runs one
+    unmeasured storm, then storms with tidb_batch_stack_max = 16, 0, 0,
+    16 (stacked, legacy back-to-back, ...).  Every member's row packets
+    must equal, byte for byte, its statement run solo in a Session on the
+    card; a stacked storm must form a stacked round of occupancy >= 4,
+    launch the batched HK7b and HK1b / HK2b once per stacked round, take
+    the legacy leg for no group (stack_fallbacks 0); no plain version
+    may run.  Launch counts are set to 0 before each storm and read after
+    it.  Then one stacked storm per stream at the default pool size (its
+    rounds and occupancy printed, not required)."""
+    import math
+    import numpy as np
+    from tinysql_tpu_torch.bench import tpch
+    from tinysql_tpu_torch.obs.stmtsummary import normalize
+    from tinysql_tpu_torch.ops import batching
+    from tinysql_tpu_torch.server import protocol
+    from tinysql_tpu_torch.server.server import Server
+    from tinysql_tpu_torch.session.session import DEFAULT_SYSVARS, Session
+    t_start = time.perf_counter()
+    srv = Server(storage, port=0, device=device)
+    if device is None and srv.device.type != "cuda":
+        raise Mismatch(f"Server() chose {srv.device}")
+    srv.start()
+    on_card = srv.device.type == "cuda"
+    rng = np.random.default_rng(SEED)
+    out = {}
+    try:
+        admin = WireClient(srv.port)
+        for v in ("tidb_auto_prewarm = 0",
+                  f"tidb_stmt_pool_size = {SERVE_POOL_SIZE}",
+                  f"tidb_batch_window_ms = {SERVE_WINDOW_MS}"):
+            admin.query(f"set global {v}")
+        for name, width, red in SERVE_STREAMS:
+            devpipe = 0 if name == "Q1" else -1
+            admin.query(f"set global tidb_devpipe = {devpipe}")
+            sqls = (tpch.q6_stream if name == "Q6" else tpch.q1_stream)(
+                rng, width)
+            c = WireClient(srv.port, "tpch")
+            c.query(sqls[0])  # the family's one solo statement
+            c.close()
+            if not batching.family_batchable(normalize(sqls[0])[0]):
+                raise Mismatch(f"serve {name}: digest family not batchable")
+            sess = Session(storage)
+            sess.device = srv.device
+            sess.execute("use tpch")
+            sess.execute(f"set tidb_devpipe = {devpipe}")
+            solo = [[protocol.text_row(r) for r in sess.query(q).rows]
+                    for q in sqls]
+            walls = {}
+            for stack_max, prof in SERVE_STORMS:
+                set_profilers(admin, prof)
+                admin.query(f"set global tidb_batch_stack_max = {stack_max}")
+                wall, d, launches = checked_storm(K, srv.port, name, sqls,
+                                                  solo, on_card)
+                if "warm" not in walls:  # the unmeasured first storm
+                    walls["warm"] = wall
+                    continue
+                rounds = d["stacked_rounds"]
+                if stack_max >= 2:
+                    if rounds < 1 or math.ceil(
+                            d["stacked_occupancy_sum"] / rounds) < 4:
+                        raise Mismatch(f"serve {name}: no stacked round of "
+                                       f"occupancy >= 4: {d}")
+                    for k in ("expr_eval_batched", red):
+                        if launches[k] != rounds:
+                            raise Mismatch(f"serve {name}: {k} launched "
+                                           f"{launches[k]} times in "
+                                           f"{rounds} stacked rounds")
+                elif rounds or launches["expr_eval_batched"]:
+                    raise Mismatch(f"serve {name}: a stacked round with "
+                                   f"tidb_batch_stack_max = 0: {d}")
+                for k, v in launches.items():
+                    kinfo[k]["launches"] += v
+                    by = kinfo[k].setdefault("launches_by_tier", {})
+                    by["serve"] = by.get("serve", 0) + v
+                walls.setdefault((stack_max, prof), []).append(wall)
+                per_stmt = sum(launches.values()) / len(sqls)
+                print(f"[serve] {name} x{len(sqls)} stack_max={stack_max} "
+                      f"profilers {prof}: "
+                      f"wall {wall:.4f} s, rounds {d['batches']} (stacked "
+                      f"{rounds}, occupancy {d['stacked_occupancy_sum']}), "
+                      f"{per_stmt:.2f} launches per statement "
+                      f"{ {k: v for k, v in launches.items() if v} }",
+                      flush=True)
+            print(f"[serve] {name}: every member's wire rows equal its solo "
+                  f"rows; storm walls (s) "
+                  f"{ {f'{k[0]}/{k[1]}': v for k, v in walls.items() if k != 'warm'} }"
+                  f", first storm {walls['warm']:.4f}", flush=True)
+            # stacked, profilers off, at the default pool size
+            pool_default = DEFAULT_SYSVARS["tidb_stmt_pool_size"]
+            admin.query(f"set global tidb_stmt_pool_size = {pool_default}")
+            wall, d, _ = checked_storm(K, srv.port, name, sqls, solo,
+                                       on_card)
+            admin.query(f"set global tidb_stmt_pool_size = {SERVE_POOL_SIZE}")
+            pool4 = {"wall_s": wall, "stacked_rounds": d["stacked_rounds"],
+                     "stacked_statements": d["stacked_statements"],
+                     "alone": len(sqls) - d["stacked_statements"]}
+            print(f"[serve] {name} x{len(sqls)} default pool size "
+                  f"{pool_default}, window {SERVE_WINDOW_MS} ms: wall "
+                  f"{wall:.4f} s, {d['stacked_rounds']} stacked rounds "
+                  f"holding {d['stacked_statements']} statements (occupancy "
+                  f"sum {d['stacked_occupancy_sum']}), {pool4['alone']} "
+                  "statements outside a stacked round", flush=True)
+            out[name] = {"walls": walls, "default_pool": pool4}
+        set_profilers(admin, "on")
+        admin.query("set global tidb_devpipe = -1")
+        admin.close()
+    finally:
+        srv.close()
+    print(f"[serve] phase {time.perf_counter() - t_start:.1f} s "
+          f"(pool size {SERVE_POOL_SIZE}, window {SERVE_WINDOW_MS} ms)",
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -1450,7 +1951,13 @@ def main() -> int:
               f"({by}), max_abs_err {r['max_abs_err']:.3g}, {extra}",
               flush=True)
     # phase 3
-    phase_main_path(K, kinfo)
+    storage = phase_main_path(K, kinfo)
+
+    # the serve phase: the wire server over phase 3's storage
+    phase_serve(K, storage, kinfo)
+    for k, info in kinfo.items():
+        if info["launches"] <= 0:
+            raise Mismatch(f"kernel {k} never launched on its path")
 
     # phase 4
     print(json.dumps({"kernels": list(kinfo.values())}))

@@ -394,9 +394,103 @@ def test_tpch_on_the_card_matches_the_cpu_tier(dev):
         assert not any(counts["plain_calls"].values()), counts
         for k, v in counts["launches"].items():
             launched[k] += v
-    assert all(launched.values()), launched
+    # the batched entry points launch only in a stacked round (the
+    # serve phase of chip_smoke.py, the tests above)
+    assert all(v for k, v in launched.items()
+               if not k.endswith("_batched")), launched
     s.execute("set tidb_use_tpu = 0")
     for q, sql in queries.items():
         cpu = tpch.canon_rows(s.query(sql).rows)
         for devpipe in (-1, 0):
             assert cpu == tpch.canon_rows(gpu[devpipe][q]), (devpipe, q)
+
+
+# ---- K12: the batched entry points of a stacked round -------------------
+
+def _batch_lanes(rng, dev, nmem, n):
+    """Per-member and shared lanes of every kind and op."""
+    v = _t(rng.normal(size=(nmem, n)), dev)
+    vs = _t(rng.normal(size=n), dev)
+    iv = _t(rng.integers(-9, 9, (nmem, n)), dev, torch.int64)
+    m = _t(rng.random((nmem, n)) < 0.2, dev)
+    ms = _t(rng.random(n) < 0.1, dev)
+    return [(v, m, "sum"), (vs, None, "min"), (v, ms, "max"),
+            (iv, m, "sum"), (iv, None, "max"), (None, m, "count"),
+            (vs, ms, "sum")]
+
+
+def test_batched_reductions_equal_solo_launches(dev):
+    """HK1b and HK2b: member b's row / table is bit-identical to the solo
+    kernel over member b's mask and lanes (both regimes of HK2, long
+    runs included), and agrees with the batched plain versions."""
+    rng = np.random.default_rng(11)
+    n = 6000
+    for nmem in (1, 3, 8):
+        valid = _t(rng.random((nmem, n)) < 0.7, dev)
+        lanes = _batch_lanes(rng, dev, nmem, n)
+        a = K.masked_reduce_batched(valid, lanes)
+        assert a.shape == (nmem, 2 + 2 * len(lanes))
+        p = K.masked_reduce_batched_plain(valid, lanes)
+        for b in range(nmem):
+            solo = K.masked_reduce(valid[b], K._member_lanes(lanes, b))
+            assert torch.equal(a[b], solo), (nmem, b)
+        exact = [0, 1] + [3 + 2 * j for j in range(len(lanes))] \
+            + [4, 6, 8, 10, 12]  # counts, min / max, integer sums
+        assert torch.equal(a[:, exact], p[:, exact])
+        for c in (2, 14):  # float sums: another order of addition
+            torch.testing.assert_close(a[:, c].view(torch.float64),
+                                       p[:, c].view(torch.float64),
+                                       rtol=1e-9, atol=1e-12)
+        for ns in (16, 4096):
+            gid = np.where(rng.random(n) < 0.5, 3, rng.integers(0, ns, n))
+            gid[:2000] = 1  # a run past kLongRun rows
+            gid = _t(rng.permutation(gid), dev, torch.int64)
+            t = K.segment_reduce_batched(gid, valid, ns, lanes)
+            assert t.shape == (nmem, 2 + 2 * len(lanes), ns)
+            tp = K.segment_reduce_batched_plain(gid, valid, ns, lanes)
+            for b in range(nmem):
+                solo = K.segment_reduce(gid, valid[b], ns,
+                                        K._member_lanes(lanes, b))
+                assert torch.equal(t[b], solo), (nmem, ns, b)
+                for r in range(t.shape[1]):
+                    if r in (2, 4, 6, 14):  # float value rows
+                        torch.testing.assert_close(
+                            t[b, r].view(torch.float64),
+                            tp[b, r].view(torch.float64), rtol=1e-9,
+                            atol=1e-12)
+                    else:
+                        assert torch.equal(t[b, r], tp[b, r]), (ns, b, r)
+
+
+def test_batched_expr_eval_equals_solo_launches(dev):
+    """HK7b over the expression battery and the split programs (several
+    launches with temporaries): member b's mask and lanes equal, byte for
+    byte, a solo HK7 launch with member b's parameters and the batched
+    plain version."""
+    from tinysql_tpu_torch.bench import exprcases as EC
+    from tinysql_tpu_torch.ops import exprjit as X
+    rng = np.random.default_rng(12)
+    n = 3000
+    vals, nulls = EC.columns(0, n)
+    cols = [(_t(v, dev), _t(m, dev)) for v, m in zip(vals, nulls)]
+    keep = _t(rng.random(n) < 0.8, dev)
+    specs = [(name, ss[0]) for name, ss in EC.CASES.items()]
+    specs += list(EC.SPLIT_CASES.items())
+    for name, spec in specs:
+        e = EC.build(spec)
+        pt = X.ParamTable()
+        prog = X.compile_program([e], [e, ("null", e)], pt)
+        pi, pf = pt.arrays()
+        for nmem in (1, 4):
+            prs = K._params_dev(EC.stacked_params(pi, pf, nmem))
+            for kw in ({}, {"n_rows": n - 77, "mask_in": keep}):
+                got = K.expr_eval_batched(prog, cols, prs, n, **kw)
+                plain = K.expr_eval_batched_plain(prog, cols, prs, n, **kw)
+                _same_expr(got, plain, name, 1 if name == "%" else 0)
+                for b in range(nmem):
+                    solo = K.expr_eval(prog, cols, (prs[0][b], prs[1][b]),
+                                       n, **kw)
+                    mb = None if got[0] is None else got[0][b]
+                    ob = [(None if v is None else v[b], m[b])
+                          for v, m in got[1]]
+                    _same_expr((mb, ob), solo, f"{name} member {b}")

@@ -582,3 +582,87 @@ def test_run_bounds_plain_matches_reference_boundary_scan(keys, frac):
         assert int(ends[ng - 1]) == int(valid.sum()) - 1
     assert (ends.numpy()[ng:] == (int(ends[ng - 1]) if ng else -1)).all()
     np.testing.assert_array_equal(gid.numpy()[perm.numpy()], sgid)
+
+
+# ---- K12: the batched entry points' plain versions ----------------------
+
+def _b_lanes(rng, nmem, n):
+    t = torch.as_tensor
+    return [(t(rng.normal(size=(nmem, n))), t(rng.random((nmem, n)) < 0.2),
+             "sum"),
+            (t(rng.normal(size=n)), None, "min"),
+            (t(rng.integers(-9, 9, (nmem, n))), t(rng.random(n) < 0.1),
+             "max"),
+            (None, t(rng.random((nmem, n)) < 0.3), "count")]
+
+
+@pytest.mark.parametrize("nmem", [1, 3, 8])
+def test_batched_reductions_equal_solo_per_member(nmem):
+    """HK1b's and HK2b's plain versions: member b's row / table equals the
+    solo plain version over member b's mask and lanes, byte for byte."""
+    rng = np.random.default_rng(40 + nmem)
+    n = 700
+    valid = torch.as_tensor(rng.random((nmem, n)) < 0.6)
+    lanes = _b_lanes(rng, nmem, n)
+    port.reset_kernel_counts()
+    got = port.masked_reduce_batched(valid, lanes)
+    assert got.shape == (nmem, 2 + 2 * len(lanes))
+    for b in range(nmem):
+        assert torch.equal(got[b], port.masked_reduce(
+            valid[b], port._member_lanes(lanes, b))), b
+    for ns in (16, 4096):
+        gid = torch.as_tensor(rng.integers(-1, ns + 1, n))
+        got = port.segment_reduce_batched(gid, valid, ns, lanes)
+        assert got.shape == (nmem, 2 + 2 * len(lanes), ns)
+        for b in range(nmem):
+            assert torch.equal(got[b], port.segment_reduce(
+                gid, valid[b], ns, port._member_lanes(lanes, b))), (ns, b)
+    calls = port.kernel_counts()["plain_calls"]
+    assert calls["masked_reduce_batched"] == 1
+    assert calls["segment_reduce_batched"] == 2
+
+
+@pytest.mark.parametrize("nmem", [1, 3, 8])
+def test_batched_expr_eval_equals_solo_per_member(nmem):
+    """HK7b's plain version over the expression battery and the split
+    programs: member b's mask and lanes equal the solo plain version with
+    member b's parameters, byte for byte, with and without a row cut and
+    an incoming mask (shared or per member)."""
+    from tinysql_tpu_torch.bench import exprcases as EC
+    from tinysql_tpu_torch.ops import exprjit as X
+    rng = np.random.default_rng(50 + nmem)
+    vals, nulls = EC.columns(3)
+    n = len(vals[0])
+    cols = [(torch.as_tensor(v), torch.as_tensor(m))
+            for v, m in zip(vals, nulls)]
+    keeps = [torch.as_tensor(rng.random(n) < 0.8),
+             torch.as_tensor(rng.random((nmem, n)) < 0.8)]
+    specs = [ss[0] for ss in EC.CASES.values()]
+    specs += list(EC.SPLIT_CASES.values())
+    for spec in specs:
+        e = EC.build(spec)
+        pt = X.ParamTable()
+        prog = X.compile_program([e], [e, ("null", e)], pt)
+        prs = port._params_dev(EC.stacked_params(*pt.arrays(), nmem))
+        assert prs[0].shape[0] == nmem and prs[1].shape[0] == nmem
+        for kw in ({}, {"n_rows": n - 9, "mask_in": keeps[0]},
+                   {"mask_in": keeps[1]}):
+            mask, outs = port.expr_eval_batched(prog, cols, prs, n, **kw)
+            for b in range(nmem):
+                kb = dict(kw)
+                if "mask_in" in kb and kb["mask_in"].dim() == 2:
+                    kb["mask_in"] = kb["mask_in"][b]
+                sm, so = port.expr_eval(prog, cols,
+                                        (prs[0][b], prs[1][b]), n, **kb)
+                assert (mask is None) == (sm is None)
+                if sm is not None:
+                    assert torch.equal(mask[b], sm), (spec, b)
+                for (v, m), (sv, snl) in zip(outs, so):
+                    assert torch.equal(m[b], snl), (spec, b)
+                    if sv is not None:
+                        assert torch.equal(v[b].view(torch.int64)
+                                           if v.dtype == torch.float64
+                                           else v[b],
+                                           sv.view(torch.int64)
+                                           if sv.dtype == torch.float64
+                                           else sv), (spec, b)

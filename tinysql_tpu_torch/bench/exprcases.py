@@ -141,3 +141,23 @@ def code_column(seed: int, n: int = N):
     codes = rng.integers(0, CODE_CARD + 1, n).astype(np.int64)
     null = (codes == CODE_CARD) | (rng.random(n) < 0.05)
     return codes, null
+
+
+def member_params(pi: np.ndarray, pf: np.ndarray, b: int):
+    """Member ``b``'s parameters for a stacked round over one program:
+    member 0 keeps (pi, pf); member b adds b to each positive int slot
+    below 2^62 (a divisor stays nonzero, a sign stays) and scales each
+    finite real slot by 1 + b / 64."""
+    pi = np.asarray(pi, dtype=np.int64).copy()
+    pf = np.asarray(pf, dtype=np.float64).copy()
+    grow = (pi > 0) & (pi < (1 << 62))
+    pi[grow] += b
+    fin = np.isfinite(pf)
+    pf[fin] = pf[fin] * (1.0 + b / 64.0)
+    return pi, pf
+
+
+def stacked_params(pi: np.ndarray, pf: np.ndarray, nmem: int):
+    """(int64 [nmem, Ni], float64 [nmem, Nf]) of members 0 .. nmem - 1."""
+    rows = [member_params(pi, pf, b) for b in range(nmem)]
+    return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]))

@@ -158,6 +158,44 @@ QUERIES = {"Q1": Q1, "Q3": Q3, "Q6": Q6}
 WORKLOAD = {"Q5": Q5, "Q10": Q10, "Q18": Q18}
 ALL_QUERIES = {**QUERIES, **WORKLOAD}
 
+
+# ---- substitution parameters (TPC-H spec Clause 2.4) ----------------------
+# The throughput test (Clause 5.3.4) runs concurrent streams of the same
+# templates with their own substitution parameters: one digest family per
+# template, the traffic a stacked batch round coalesces.
+
+def q6_sql(year: int, discount: float, quantity: int) -> str:
+    """Q6 with DATE = 1 January of ``year``, DISCOUNT and QUANTITY
+    (Clause 2.4.6.3), written as Q6 is."""
+    return f"""select sum(l_extendedprice * l_discount) as revenue
+from lineitem
+where l_shipdate >= '{year}-01-01'
+  and l_shipdate < '{year + 1}-01-01'
+  and l_discount between {discount - 0.01:.2f} and {discount + 0.01:.2f}
+  and l_quantity < {quantity}"""
+
+
+def q6_stream(rng, n: int) -> list:
+    """``n`` Q6 statements with parameters drawn per Clause 2.4.6.3: DATE
+    the first of January of a year in [1993, 1997], DISCOUNT in [0.02,
+    0.09], QUANTITY in [24, 25]."""
+    return [q6_sql(int(rng.integers(1993, 1998)),
+                   int(rng.integers(2, 10)) / 100.0,
+                   int(rng.integers(24, 26))) for _ in range(n)]
+
+
+def q1_sql(delta: int) -> str:
+    """Q1 with ``l_shipdate <= date '1998-12-01' - DELTA days`` written as
+    the date literal (Clause 2.4.1.3)."""
+    import datetime
+    day = datetime.date(1998, 12, 1) - datetime.timedelta(days=int(delta))
+    return Q1.replace("'1998-09-02'", f"'{day.isoformat()}'")
+
+
+def q1_stream(rng, n: int) -> list:
+    """``n`` Q1 statements with DELTA drawn in [60, 120]."""
+    return [q1_sql(int(rng.integers(60, 121))) for _ in range(n)]
+
 _SEGMENTS = np.array(["AUTOMOBILE", "BUILDING", "FURNITURE",
                       "MACHINERY", "HOUSEHOLD"])
 _EPOCH = np.datetime64("1992-01-01")

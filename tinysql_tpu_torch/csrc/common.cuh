@@ -40,6 +40,16 @@ struct Lanes {
   int n;
 };
 
+// The batched entry points (K12's stacked rounds) run B members of one
+// program over shared data in one launch: member b's lane j starts at
+// vals[j] + b * v[j] (elements) and nulls[j] + b * nl[j] (bytes); a
+// stride of 0 shares the lane between members.  A solo launch is the
+// batched one with B = 1 and all strides 0.
+struct LaneStrides {
+  int64_t v[kMaxLanes];
+  int64_t nl[kMaxLanes];
+};
+
 namespace {
 
 constexpr int64_t kI64Max = 0x7fffffffffffffffLL;
@@ -66,6 +76,30 @@ __device__ __forceinline__ double f64_from_order_key(int64_t k) {
 
 __device__ __forceinline__ bool is_nan_f64(double d) { return d != d; }
 
+// Lane j of member b (LaneStrides).
+__device__ __forceinline__ const void* member_vals(const Lanes& L,
+                                                   const LaneStrides& S,
+                                                   int j, int64_t b) {
+  return L.vals[j] ? (const void*)((const int64_t*)L.vals[j] + b * S.v[j])
+                   : nullptr;
+}
+__device__ __forceinline__ const uint8_t* member_nulls(const Lanes& L,
+                                                       const LaneStrides& S,
+                                                       int j, int64_t b) {
+  return L.nulls[j] ? L.nulls[j] + b * S.nl[j] : nullptr;
+}
+// Every lane of member b, as a solo launch would see them.
+__device__ __forceinline__ Lanes member_lanes(const Lanes& L,
+                                              const LaneStrides& S,
+                                              int64_t b) {
+  Lanes m = L;
+  for (int j = 0; j < L.n; ++j) {
+    m.vals[j] = member_vals(L, S, j, b);
+    m.nulls[j] = member_nulls(L, S, j, b);
+  }
+  return m;
+}
+
 // int64 sum with two's-complement wrap (no signed-overflow UB).
 __device__ __forceinline__ int64_t wrap_add(int64_t a, int64_t b) {
   return (int64_t)((unsigned long long)a + (unsigned long long)b);
@@ -82,7 +116,7 @@ __device__ __forceinline__ void atomic_max_i64(int64_t* p, int64_t v) {
 }
 
 // ---- exclusive scan of int64 counts -----------------------------------
-// Three launches: per-block totals, one serial pass over the block totals,
+// Three launches: per-block totals, one block scanning the block totals,
 // then a per-block shared-memory scan that hands every element its
 // exclusive prefix.  Deterministic (integer, fixed order).  S is a functor
 // struct with __device__ `int64_t count(int64_t i) const` and
@@ -104,16 +138,38 @@ __global__ void scan_block_totals(S sc, int64_t n, int64_t* btot) {
   if (threadIdx.x == 0) btot[blockIdx.x] = s[0];
 }
 
-// exclusive scan of the block totals in place; grand total -> *total
-__global__ void scan_serial(int64_t* btot, int64_t nb, int64_t* total) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  int64_t run = 0;
-  for (int64_t b = 0; b < nb; ++b) {
-    int64_t t = btot[b];
-    btot[b] = run;
-    run += t;
+// Exclusive scan of bt[0, nb) in place by the calling block of
+// kScanThreads threads, one chunk of kScanThreads entries after another;
+// returns the total to every thread.  Integer adds: exact in any order.
+__device__ int64_t block_scan_totals(int64_t* bt, int64_t nb) {
+  __shared__ int64_t s[2][kScanThreads];
+  const int t = threadIdx.x;
+  int64_t carry = 0;
+  for (int64_t c0 = 0; c0 < nb; c0 += blockDim.x) {
+    const int64_t k = c0 + t;
+    const int64_t v = k < nb ? bt[k] : 0;
+    int cur = 0;
+    s[cur][t] = v;
+    __syncthreads();
+    for (int off = 1; off < (int)blockDim.x; off <<= 1) {
+      int64_t x = s[cur][t];
+      if (t >= off) x += s[cur][t - off];
+      s[cur ^ 1][t] = x;
+      cur ^= 1;
+      __syncthreads();
+    }
+    if (k < nb) bt[k] = carry + s[cur][t] - v;
+    carry += s[cur][blockDim.x - 1];
+    __syncthreads();  // every thread has read the chunk's total
   }
-  *total = run;
+  return carry;
+}
+
+// exclusive scan of the block totals in place (one block of
+// kScanThreads threads); grand total -> *total
+__global__ void scan_totals(int64_t* btot, int64_t nb, int64_t* total) {
+  const int64_t run = block_scan_totals(btot, nb);
+  if (threadIdx.x == 0) *total = run;
 }
 
 template <class S>
@@ -147,7 +203,7 @@ void launch_scan(const S& sc, int64_t n, int64_t* btot, int64_t* total,
   int64_t nb = scan_nblocks(n);
   LAUNCH(scan_block_totals<S>, (unsigned)nb, kScanThreads, 0, st, sc, n,
          btot);
-  LAUNCH(scan_serial, 1, 1, 0, st, btot, nb, total);
+  LAUNCH(scan_totals, 1, kScanThreads, 0, st, btot, nb, total);
   LAUNCH(scan_apply<S>, (unsigned)nb, kScanThreads, 0, st, sc, n,
          (const int64_t*)btot);
 }

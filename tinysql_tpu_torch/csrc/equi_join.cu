@@ -320,7 +320,7 @@ TS_API int hk3_pick_count(const uint8_t* keep, int64_t n, int64_t* btot,
   int64_t nb = scan_nblocks(n);
   LAUNCH(scan_block_totals<PickScan>, (unsigned)nb, kScanThreads, 0, st, sc,
          n, btot);
-  LAUNCH(scan_serial, 1, 1, 0, st, btot, nb, total);
+  LAUNCH(scan_totals, 1, kScanThreads, 0, st, btot, nb, total);
   return (int)cudaGetLastError();
 }
 

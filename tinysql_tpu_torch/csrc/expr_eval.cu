@@ -36,6 +36,18 @@
 //   wrapping abs and its floor division, then the sign fix;
 // - unsigned int64 -> float64 is double(v) + 2^64 for a negative word:
 //   two roundings, as _to_real_u.
+//
+// HK7b, the batched entry point (K12, tinysql_tpu/ops/kernels.py:1197-1266
+// stacked_variant): B members of a stacked round run ONE program over the
+// shared input lanes, each with its own row of the int64 / float64
+// parameter arrays, in one launch per program segment; the member is the
+// grid's second axis.  Member b writes its mask and outputs at b * n of
+// [B, n] lanes, and a lane passed between segments (a temporary, the mask
+// of the segment before) has a per-member stride.  Each member's rows run
+// the solo interpreter: bit-identical to a solo launch with its
+// parameters.  Bound: bytes, the shared lanes read once and B masks and
+// output lanes written once; the simple version reads the shared lanes
+// once per member.
 #include "common.cuh"
 
 namespace {
@@ -77,6 +89,12 @@ struct OutLanes {
   uint8_t* nulls[kMaxOut];
   int guard[kMaxOut];       // 1: a program output (written past n_rows)
   int n;
+};
+// Bytes between two members' values and NULL masks of each input lane
+// (0: the lane is shared by every member), for the batched entry point.
+struct InStrides {
+  int64_t vals[kMaxIn];
+  int64_t nulls[kMaxIn];
 };
 
 namespace {
@@ -196,8 +214,12 @@ struct Row {
   }
 };
 
+// member b's rows: input lane k at I + b * IS (bytes), output lane k at
+// O + b * on (elements)
 __device__ __forceinline__ void run_ins(const Ins& in, Row& R, bool& m,
                                         const InLanes& I, const OutLanes& O,
+                                        const InStrides& IS, int64_t b,
+                                        int64_t on,
                                         const int64_t* __restrict__ pi,
                                         const int64_t* __restrict__ pf,
                                         int64_t i) {
@@ -205,10 +227,11 @@ __device__ __forceinline__ void run_ins(const Ins& in, Row& R, bool& m,
   switch (in.op) {
     case OP_LD: {
       const uint8_t* np = I.nulls[in.a];
-      const bool isnull = np ? np[i] != 0 : false;
+      const bool isnull = np ? np[b * IS.nulls[in.a] + i] != 0 : false;
+      const char* vp = (const char*)I.vals[in.a] + b * IS.vals[in.a];
       int64_t x = 0;
-      if (fl == LANE_W8) x = ((const int64_t*)I.vals[in.a])[i];
-      else if (fl == LANE_BOOL) x = ((const uint8_t*)I.vals[in.a])[i] ? 1 : 0;
+      if (fl == LANE_W8) x = ((const int64_t*)vp)[i];
+      else if (fl == LANE_BOOL) x = ((const uint8_t*)vp)[i] ? 1 : 0;
       R.set(in.dst, x, isnull);
       break;
     }
@@ -216,8 +239,8 @@ __device__ __forceinline__ void run_ins(const Ins& in, Row& R, bool& m,
       R.set(in.dst, (fl & 1) ? pf[in.p0] : pi[in.p0], (fl & 2) != 0);
       break;
     case OP_ST:
-      if (!(fl & 1)) O.vals[in.b][i] = R.v[in.a];
-      O.nulls[in.b][i] = R.n(in.a) ? 1 : 0;
+      if (!(fl & 1)) O.vals[in.b][b * on + i] = R.v[in.a];
+      O.nulls[in.b][b * on + i] = R.n(in.a) ? 1 : 0;
       break;
     case OP_MASK:
       m = m && truthy(R.v[in.a], fl & 1) && !R.n(in.a);
@@ -446,23 +469,33 @@ __device__ __forceinline__ void run_ins(const Ins& in, Row& R, bool& m,
   }
 }
 
+// member b = blockIdx.y: parameters pi + b * ni, pf + b * nf, incoming
+// mask at b * mstride (0: shared), outputs and the mask at b * n
 __global__ void ee_run(const Ins* __restrict__ prog, int n_ins, InLanes I,
-                       OutLanes O, const int64_t* __restrict__ pi,
-                       const int64_t* __restrict__ pf,
-                       const uint8_t* __restrict__ mask_in,
-                       uint8_t* __restrict__ mask_out, int64_t n_rows,
-                       int64_t n) {
+                       OutLanes O, InStrides IS,
+                       const int64_t* __restrict__ pi_all, int64_t ni,
+                       const int64_t* __restrict__ pf_all, int64_t nf,
+                       const uint8_t* __restrict__ mask_in_all,
+                       int64_t mstride, uint8_t* __restrict__ mask_out_all,
+                       int64_t n_rows, int64_t n) {
   __shared__ Ins sp[kMaxProg];
   for (int k = threadIdx.x; k < n_ins; k += blockDim.x) sp[k] = prog[k];
   __syncthreads();
+  const int64_t b = blockIdx.y;
+  const int64_t* __restrict__ pi = pi_all + b * ni;
+  const int64_t* __restrict__ pf = pf_all + b * nf;
+  const uint8_t* __restrict__ mask_in =
+      mask_in_all ? mask_in_all + b * mstride : nullptr;
+  uint8_t* __restrict__ mask_out =
+      mask_out_all ? mask_out_all + b * n : nullptr;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     if (i >= n_rows) {
       for (int j = 0; j < O.n; ++j) {
         if (!O.guard[j]) continue;
-        if (O.vals[j]) O.vals[j][i] = 0;
-        O.nulls[j][i] = 1;
+        if (O.vals[j]) O.vals[j][b * n + i] = 0;
+        O.nulls[j][b * n + i] = 1;
       }
       if (mask_out) mask_out[i] = 0;
       continue;
@@ -470,9 +503,30 @@ __global__ void ee_run(const Ins* __restrict__ prog, int n_ins, InLanes I,
     Row R;
     R.nl = 0;
     bool m = mask_in ? mask_in[i] != 0 : true;
-    for (int k = 0; k < n_ins; ++k) run_ins(sp[k], R, m, I, O, pi, pf, i);
+    for (int k = 0; k < n_ins; ++k)
+      run_ins(sp[k], R, m, I, O, IS, b, n, pi, pf, i);
     if (mask_out) mask_out[i] = m ? 1 : 0;
   }
+}
+
+}  // namespace
+
+namespace {
+
+int launch_hk7(const Ins* prog, int n_ins, const InLanes* in,
+               const InStrides* is, const OutLanes* out, const int64_t* pi,
+               int64_t ni, const int64_t* pf_bits, int64_t nf,
+               const uint8_t* mask_in, int64_t mstride, uint8_t* mask_out,
+               int64_t nmem, int64_t n_rows, int64_t n, cudaStream_t st) {
+  if (n_ins < 0 || n_ins > kMaxProg || in->n < 0 || in->n > kMaxIn ||
+      out->n < 0 || out->n > kMaxOut || n < 0 || nmem < 1 || nmem > 65535)
+    return -1;
+  if (n > 0) {
+    dim3 g(grid_for(n, kThreads, 1 << 16), (unsigned)nmem);
+    LAUNCH(ee_run, g, kThreads, 0, st, prog, n_ins, *in, *out, *is, pi, ni,
+           pf_bits, nf, mask_in, mstride, mask_out, n_rows, n);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -482,11 +536,22 @@ TS_API int hk7_expr_eval(const Ins* prog, int n_ins, const InLanes* in,
                          const int64_t* pf_bits, const uint8_t* mask_in,
                          uint8_t* mask_out, int64_t n_rows, int64_t n,
                          cudaStream_t st) {
-  if (n_ins < 0 || n_ins > kMaxProg || in->n < 0 || in->n > kMaxIn ||
-      out->n < 0 || out->n > kMaxOut || n < 0)
-    return -1;
-  if (n > 0)
-    LAUNCH(ee_run, grid_for(n, kThreads, 1 << 16), kThreads, 0, st, prog,
-           n_ins, *in, *out, pi, pf_bits, mask_in, mask_out, n_rows, n);
-  return (int)cudaGetLastError();
+  InStrides none = {};
+  return launch_hk7(prog, n_ins, in, &none, out, pi, 0, pf_bits, 0, mask_in,
+                    0, mask_out, 1, n_rows, n, st);
+}
+
+// HK7b: nmem members.  pi int64[nmem * ni], pf_bits int64[nmem * nf]
+// (member b's row at b * ni, b * nf); `is` the per-member byte strides of
+// the input lanes; every output lane and mask_out hold nmem * n entries
+// (member b at b * n); mask_in member b at b * mstride.
+TS_API int hk7b_expr_eval(const Ins* prog, int n_ins, const InLanes* in,
+                          const InStrides* is, const OutLanes* out,
+                          const int64_t* pi, int64_t ni,
+                          const int64_t* pf_bits, int64_t nf,
+                          const uint8_t* mask_in, int64_t mstride,
+                          uint8_t* mask_out, int64_t nmem, int64_t n_rows,
+                          int64_t n, cudaStream_t st) {
+  return launch_hk7(prog, n_ins, in, is, out, pi, ni, pf_bits, nf, mask_in,
+                    mstride, mask_out, nmem, n_rows, n, st);
 }

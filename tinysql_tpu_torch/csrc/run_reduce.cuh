@@ -12,6 +12,9 @@
 //   spreads over the whole card and still reduces in a fixed order.
 // - OP_PRES is a pseudo-lane of the long-run path (HK5 only): its count is
 //   the run's valid rows and its value the first (lowest) valid row.
+// - Each kernel is a __device__ body plus a __global__ wrapper, so HK2's
+//   batched entry point (one member per grid row) runs the very code of a
+//   solo launch on each member's lanes, table and queue.
 #pragma once
 
 #include "common.cuh"
@@ -126,9 +129,9 @@ __device__ __forceinline__ void acc_store(const Acc& a, int kind, int op,
 // The output table, int64[(2 + 2 * L.n) * ns], set to its empty state:
 // presence 0, first row `sentinel`, identities and zero counts; also
 // resets the two queue counters.
-__global__ void run_init(Lanes L, int64_t ns, int64_t sentinel,
-                         int64_t* __restrict__ out,
-                         int64_t* __restrict__ runs) {
+__device__ void init_table(const Lanes& L, int64_t ns, int64_t sentinel,
+                           int64_t* __restrict__ out,
+                           int64_t* __restrict__ runs) {
   if (blockIdx.x == 0 && threadIdx.x == 0) runs[0] = runs[1] = 0;  // queues
   const int64_t rows = 2 + 2 * (int64_t)L.n;
   const int64_t total = rows * ns;
@@ -146,6 +149,12 @@ __global__ void run_init(Lanes L, int64_t ns, int64_t sentinel,
   }
 }
 
+__global__ void run_init(Lanes L, int64_t ns, int64_t sentinel,
+                         int64_t* __restrict__ out,
+                         int64_t* __restrict__ runs) {
+  init_table(L, ns, sentinel, out, runs);
+}
+
 // The long-run queues, in scratch: runs[0] long runs queued, runs[1]
 // chunks queued; then per long run k (segment, first chunk, chunk count)
 // at runs[2 + 3k]; then per chunk c its [start, end) in sorted order at
@@ -157,15 +166,17 @@ struct LongQueue {
   Acc* part;
 };
 
-inline int64_t long_cap_runs(int64_t n) { return n / kLongRun + 1; }
-inline int64_t long_cap_chunks(int64_t n) {
+__host__ __device__ inline int64_t long_cap_runs(int64_t n) {
+  return n / kLongRun + 1;
+}
+__host__ __device__ inline int64_t long_cap_chunks(int64_t n) {
   return n / kChunk + long_cap_runs(n);
 }
-inline int64_t long_queue_bytes(int64_t n, int nl) {
+__host__ __device__ inline int64_t long_queue_bytes(int64_t n, int nl) {
   return 8 * (2 + 3 * long_cap_runs(n) + 2 * long_cap_chunks(n)) +
          (int64_t)sizeof(Acc) * long_cap_chunks(n) * (nl > 0 ? nl : 1);
 }
-inline LongQueue long_queue_at(void* scratch, int64_t n) {
+__host__ __device__ inline LongQueue long_queue_at(void* scratch, int64_t n) {
   LongQueue q;
   q.runs = (int64_t*)scratch;
   q.chunks = q.runs + 2 + 3 * long_cap_runs(n);
@@ -195,8 +206,8 @@ __device__ void queue_long_run(const LongQueue& Q, int64_t g, int64_t s,
 // Rows maps a sorted position to its row, or to -1 for a row to skip.
 // pres = 1 adds the presence pseudo-lane at j == L.n.
 template <class Rows>
-__global__ void run_chunk_partials(Rows rows, Lanes L, int pres,
-                                   LongQueue Q) {
+__device__ void chunk_partials(const Rows& rows, const Lanes& L, int pres,
+                               const LongQueue& Q) {
   __shared__ Acc s_acc[kLThreads];
   const int t = threadIdx.x;
   const int nl = L.n + pres;
@@ -230,12 +241,18 @@ __global__ void run_chunk_partials(Rows rows, Lanes L, int pres,
   }
 }
 
+template <class Rows>
+__global__ void run_chunk_partials(Rows rows, Lanes L, int pres,
+                                   LongQueue Q) {
+  chunk_partials(rows, L, pres, Q);
+}
+
 // One thread per (long run, lane): fold the run's chunk partials in chunk
 // order.  The presence pseudo-lane writes rows 0 and 1 (first row
 // `sentinel` when the run has no valid row).
-__global__ void run_long_fold(Lanes L, int pres, int64_t ns,
-                              int64_t sentinel, LongQueue Q,
-                              int64_t* __restrict__ out) {
+__device__ void long_fold(const Lanes& L, int pres, int64_t ns,
+                          int64_t sentinel, const LongQueue& Q,
+                          int64_t* __restrict__ out) {
   const int nl = L.n + pres;
   const int64_t total = Q.runs[0] * nl;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -257,6 +274,12 @@ __global__ void run_long_fold(Lanes L, int pres, int64_t ns,
       acc_store(a, kind, op, j, g, ns, out);
     }
   }
+}
+
+__global__ void run_long_fold(Lanes L, int pres, int64_t ns,
+                              int64_t sentinel, LongQueue Q,
+                              int64_t* __restrict__ out) {
+  long_fold(L, pres, ns, sentinel, Q, out);
 }
 
 }  // namespace

@@ -14,7 +14,8 @@
 // Empty segments hold the reduction identity (0, +-inf, int64 max/min),
 // as the reference's segment ops do.
 //
-// Bound: bytes.  Every lane reads gid, valid, its values and its NULL mask
+// Bound: bytes.  The valid mask is read over every row, gid and each
+// lane's values and NULL mask over the valid rows, and the table written
 // once; at many segments the stable sort of the row ids by group moves
 // several times the gid column.
 //
@@ -26,7 +27,8 @@
 //   integer atomics, whose result does not depend on their order.  A
 //   second pass folds the block partials in block order.
 // - more segments (Q3: ~1.5M orders at SF=1): a stable sort of the row ids
-//   by group id (lex_sort.cuh); one thread per run head finds its run's end
+//   by group id (lex_sort.cuh), then a stable compaction keeps the valid
+//   rows of that order; one thread per run head finds its run's end
 //   by a galloping search over the sorted ids and reduces a run of at most
 //   kLongRun rows itself, in row order.  A longer run (a skewed or
 //   low-cardinality key: millions of rows in one group) is cut into chunks
@@ -40,6 +42,20 @@
 // Either way float sums have a fixed order: bit-identical run to run.
 // Float min/max compare order keys in every regime (-0.0 < +0.0), so the
 // result does not depend on the regime or on the order of the rows.
+//
+// HK2b, the batched entry point (K12, tinysql_tpu/ops/kernels.py:1197-1266
+// stacked_variant over this program): B members of a stacked round share
+// the group ids and each brings its own valid mask and lanes
+// (LaneStrides); one call writes B tables.  In both regimes the member is
+// a grid axis of the same kernels, and a solo launch is HK2b at B = 1 with
+// zero strides.  In the sort regime the row ids are sorted by group id
+// once (the ids are shared); each member then keeps its live rows of that
+// order by a stable compaction (a scan per member) and reduces the runs
+// of what it kept.  Same block partition, same runs, same merge order:
+// every member's table is bit-identical to a solo launch's.
+// Bound: bytes, gid once over the rows valid in any member, then per
+// member its mask over every row, its lanes over its valid rows and its
+// table written once.
 #include "lex_sort.cuh"
 #include "run_reduce.cuh"
 
@@ -55,14 +71,21 @@ struct Part {
   int64_t nan;
 };
 
+// member b = blockIdx.z: valid + b * vstride, its lanes by S, its
+// partials at part + b * (L.n + 1) * gridDim.x * ns
 __global__ void sr_small_partial(const int64_t* __restrict__ gid,
-                                 const uint8_t* __restrict__ valid, int64_t n,
-                                 int ns, Lanes L, Part* __restrict__ part) {
+                                 const uint8_t* __restrict__ valid_all,
+                                 int64_t n, int64_t vstride, int ns, Lanes L,
+                                 LaneStrides S, Part* __restrict__ part_all) {
   __shared__ int64_t s_acc[kSmallSeg * kSThreads];  // [segment][thread]
   __shared__ int64_t s_cnt[kSmallSeg];
   __shared__ int64_t s_mm[kSmallSeg];
   __shared__ int s_nan[kSmallSeg];
   const int lane = blockIdx.y;  // == L.n: presence / first row
+  const int64_t b = blockIdx.z;
+  const uint8_t* __restrict__ valid = valid_all + b * vstride;
+  Part* __restrict__ part =
+      part_all + b * (L.n + 1) * (int64_t)gridDim.x * ns;
   const int t = threadIdx.x;
   const bool pres = lane == L.n;
   const int kind = pres ? KIND_I64 : L.kind[lane];
@@ -74,8 +97,8 @@ __global__ void sr_small_partial(const int64_t* __restrict__ gid,
   }
   for (int g = 0; g < ns; ++g) s_acc[g * kSThreads + t] = 0;
   __syncthreads();
-  const uint8_t* nl = pres ? nullptr : L.nulls[lane];
-  const void* xv = pres ? nullptr : L.vals[lane];
+  const uint8_t* nl = pres ? nullptr : member_nulls(L, S, lane, b);
+  const void* xv = pres ? nullptr : member_vals(L, S, lane, b);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + t; i < n; i += stride) {
     if (!valid[i]) continue;
@@ -126,12 +149,16 @@ __global__ void sr_small_partial(const int64_t* __restrict__ gid,
   }
 }
 
-__global__ void sr_small_merge(Lanes L, const Part* __restrict__ part,
+// member b = blockIdx.y: its partials, its table at out + b * rows * ns
+__global__ void sr_small_merge(Lanes L, const Part* __restrict__ part_all,
                                int nblk, int ns, int64_t n,
-                               int64_t* __restrict__ out) {
+                               int64_t* __restrict__ out_all) {
   const int lane = blockIdx.x;
+  const int64_t b = blockIdx.y;
   const int g = threadIdx.x;
   if (g >= ns) return;
+  const Part* __restrict__ part = part_all + b * (L.n + 1) * nblk * ns;
+  int64_t* __restrict__ out = out_all + b * (2 + 2 * L.n) * ns;
   const bool pres = lane == L.n;
   const int kind = pres ? KIND_I64 : L.kind[lane];
   const int op = pres ? OP_MIN : L.op[lane];
@@ -171,15 +198,6 @@ __device__ __forceinline__ int64_t seg_key(const int64_t* gid,
   return (g < 0 || g >= ns) ? ns : g;
 }
 
-__global__ void sr_keys(const int64_t* __restrict__ gid,
-                        const uint8_t* __restrict__ valid, int64_t n,
-                        int64_t ns, uint64_t* __restrict__ keys) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    keys[i] = (uint64_t)seg_key(gid, valid, ns, i);
-}
-
 // First q in (s, n] whose key differs from g = key(s); the keys ascend
 // along spos, so gallop from s, then bisect.
 __device__ int64_t run_end(const int64_t* gid, const uint8_t* valid,
@@ -204,10 +222,11 @@ __device__ int64_t run_end(const int64_t* gid, const uint8_t* valid,
   return hi;
 }
 
-__global__ void sr_runs(const int64_t* __restrict__ gid,
-                        const uint8_t* __restrict__ valid, int64_t n,
-                        int64_t ns, const int64_t* __restrict__ spos,
-                        Lanes L, int64_t* __restrict__ out, LongQueue Q) {
+__device__ void runs_body(const int64_t* __restrict__ gid,
+                          const uint8_t* __restrict__ valid, int64_t n,
+                          int64_t ns, const int64_t* __restrict__ spos,
+                          const Lanes& L, int64_t* __restrict__ out,
+                          const LongQueue& Q) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; s < n;
        s += stride) {
@@ -235,8 +254,7 @@ __global__ void sr_runs(const int64_t* __restrict__ gid,
   }
 }
 
-// sorted position -> row for the long-run queue (every row of a run is
-// live: the sort put the invalid rows past the last segment)
+// kept position -> row for the long-run queue (every kept row is live)
 struct SortedRows {
   const int64_t* spos;
   __device__ int64_t operator()(int64_t q) const { return spos[q]; }
@@ -247,6 +265,137 @@ int64_t small_blocks(int64_t n) {
   if (b < 1) b = 1;
   if (b > kSMaxBlocks) b = kSMaxBlocks;
   return b;
+}
+
+// ---- the sort regime: one sort by group id, a compaction per member ----
+
+__global__ void sr_keys_gid(const int64_t* __restrict__ gid, int64_t n,
+                            int64_t ns, uint64_t* __restrict__ keys) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const int64_t g = gid[i];
+    keys[i] = (uint64_t)((g < 0 || g >= ns) ? ns : g);
+  }
+}
+
+// The per-member state of the sort regime: member b's live positions
+// of the shared order at mpos + b * n, their count at counts[b], its
+// block totals at btot + b * nblk, its table and long-run queue.
+struct Members {
+  const uint8_t* valid;  // uint8[B * n]
+  int64_t* mpos;         // int64[B * n]
+  int64_t* counts;       // int64[B]
+  int64_t* btot;         // int64[B * nblk]
+  int64_t nblk;
+  char* queues;          // B long-run queues of qbytes each
+  int64_t qbytes;
+  int64_t* out;          // B tables of (2 + 2 * L.n) * ns
+};
+
+__device__ __forceinline__ bool member_live(const int64_t* gid,
+                                            const uint8_t* valid, int64_t ns,
+                                            int64_t r) {
+  const int64_t g = gid[r];
+  return valid[r] && g >= 0 && g < ns;
+}
+
+// block totals of member b = blockIdx.y's live positions
+__global__ void mc_totals(const int64_t* __restrict__ gid, int64_t n,
+                          int64_t ns, const int64_t* __restrict__ spos,
+                          Members M) {
+  __shared__ int64_t s[kScanThreads];
+  const int64_t b = blockIdx.y;
+  const uint8_t* valid = M.valid + b * n;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  s[threadIdx.x] = (i < n && member_live(gid, valid, ns, spos[i])) ? 1 : 0;
+  __syncthreads();
+  for (int st = blockDim.x >> 1; st > 0; st >>= 1) {
+    if ((int)threadIdx.x < st) s[threadIdx.x] += s[threadIdx.x + st];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) M.btot[b * M.nblk + blockIdx.x] = s[0];
+}
+
+// exclusive scan of member blockIdx.x's block totals; its count
+__global__ void mc_scan(Members M) {
+  const int64_t b = blockIdx.x;
+  const int64_t run = block_scan_totals(M.btot + b * M.nblk, M.nblk);
+  if (threadIdx.x == 0) M.counts[b] = run;
+}
+
+// member b = blockIdx.y keeps its live positions, in order
+__global__ void mc_apply(const int64_t* __restrict__ gid, int64_t n,
+                         int64_t ns, const int64_t* __restrict__ spos,
+                         Members M) {
+  __shared__ int64_t s[2][kScanThreads];
+  const int64_t b = blockIdx.y;
+  const uint8_t* valid = M.valid + b * n;
+  const int t = threadIdx.x;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + t;
+  const int64_t v =
+      (i < n && member_live(gid, valid, ns, spos[i])) ? 1 : 0;
+  int cur = 0;
+  s[cur][t] = v;
+  __syncthreads();
+  for (int off = 1; off < (int)blockDim.x; off <<= 1) {
+    int64_t x = s[cur][t];
+    if (t >= off) x += s[cur][t - off];
+    s[cur ^ 1][t] = x;
+    cur ^= 1;
+    __syncthreads();
+  }
+  if (v)
+    M.mpos[b * n + M.btot[b * M.nblk + blockIdx.x] + s[cur][t] - v] =
+        spos[i];
+}
+
+__device__ __forceinline__ LongQueue member_queue(const Members& M,
+                                                  int64_t n, int64_t b) {
+  return long_queue_at(M.queues + b * M.qbytes, n);
+}
+
+// Member blockIdx.y's lanes, built once per block in shared memory (a
+// per-thread copy would cost every thread the struct's bytes in local
+// memory); every thread of the block calls it.
+__device__ __forceinline__ void load_member_lanes(Lanes& sl, const Lanes& L,
+                                                  const LaneStrides& S) {
+  if (threadIdx.x == 0) sl = member_lanes(L, S, blockIdx.y);
+  __syncthreads();
+}
+
+__global__ void mc_init(Lanes L, LaneStrides S, int64_t ns, int64_t n,
+                        Members M) {
+  __shared__ Lanes Lb;
+  load_member_lanes(Lb, L, S);
+  const int64_t b = blockIdx.y;
+  init_table(Lb, ns, n, M.out + b * (2 + 2 * L.n) * ns,
+             member_queue(M, n, b).runs);
+}
+
+__global__ void mc_runs(const int64_t* __restrict__ gid, int64_t n,
+                        int64_t ns, Lanes L, LaneStrides S, Members M) {
+  __shared__ Lanes Lb;
+  load_member_lanes(Lb, L, S);
+  const int64_t b = blockIdx.y;
+  runs_body(gid, M.valid + b * n, M.counts[b], ns, M.mpos + b * n, Lb,
+            M.out + b * (2 + 2 * L.n) * ns, member_queue(M, n, b));
+}
+
+__global__ void mc_chunks(int64_t n, Lanes L, LaneStrides S, Members M) {
+  __shared__ Lanes Lb;
+  load_member_lanes(Lb, L, S);
+  const int64_t b = blockIdx.y;
+  chunk_partials(SortedRows{M.mpos + b * n}, Lb, 0, member_queue(M, n, b));
+}
+
+__global__ void mc_fold(int64_t n, int64_t ns, Lanes L, LaneStrides S,
+                        Members M) {
+  __shared__ Lanes Lb;
+  load_member_lanes(Lb, L, S);
+  const int64_t b = blockIdx.y;
+  long_fold(Lb, 0, ns, n, member_queue(M, n, b),
+            M.out + b * (2 + 2 * L.n) * ns);
 }
 
 // ---- present-segment compaction -----------------------------------------
@@ -275,39 +424,73 @@ __global__ void present_gather(const int64_t* __restrict__ table, int rows,
   }
 }
 
-}  // namespace
-
-TS_API int64_t hk2_scratch_bytes(int64_t n, int64_t ns, int nlanes) {
-  if (ns <= kSmallSeg)
-    return (int64_t)sizeof(Part) * (nlanes + 1) * small_blocks(n) * ns;
-  // keys + two ping-pong buffers (one lane + positions) + sorted positions
-  // + the long-run queues and the chunk partials
-  return 8 * n + 2 * 16 * n + 8 * n + long_queue_bytes(n, nlanes);
+// the shared-memory regime for nmem members (member b's mask at
+// valid + b * vstride, its table at out + b * (2 + 2 * L.n) * ns)
+int launch_small(const int64_t* gid, const uint8_t* valid, int64_t nmem,
+                 int64_t n, int64_t vstride, int64_t ns, const Lanes* lanes,
+                 const LaneStrides* S, void* scratch, int64_t* out,
+                 cudaStream_t st) {
+  const int nblk = (int)small_blocks(n);
+  Part* part = (Part*)scratch;
+  dim3 g1((unsigned)nblk, (unsigned)(lanes->n + 1), (unsigned)nmem);
+  LAUNCH(sr_small_partial, g1, kSThreads, 0, st, gid, valid, n, vstride,
+         (int)ns, *lanes, *S, part);
+  dim3 g2((unsigned)(lanes->n + 1), (unsigned)nmem);
+  LAUNCH(sr_small_merge, g2, kSmallSeg, 0, st, *lanes, (const Part*)part,
+         nblk, (int)ns, n, out);
+  return (int)cudaGetLastError();
 }
 
-TS_API int hk2_segment_reduce(const int64_t* gid, const uint8_t* valid,
-                              int64_t n, int64_t ns, const Lanes* lanes,
-                              void* scratch, int64_t* out, cudaStream_t st) {
-  if (lanes->n < 0 || lanes->n > kMaxLanes || ns < 1) return -1;
-  if (ns <= kSmallSeg) {
-    const int nblk = (int)small_blocks(n);
-    Part* part = (Part*)scratch;
-    dim3 g1((unsigned)nblk, (unsigned)(lanes->n + 1));
-    LAUNCH(sr_small_partial, g1, kSThreads, 0, st, gid, valid, n, (int)ns,
-           *lanes, part);
-    LAUNCH(sr_small_merge, (unsigned)(lanes->n + 1), kSmallSeg, 0, st,
-           *lanes, (const Part*)part, nblk, (int)ns, n, out);
-    return (int)cudaGetLastError();
-  }
+}  // namespace
+
+// nmem members: per member the shared-memory regime's block partials, or
+// the sort regime's keys, two ping-pong buffers (one lane + positions) and
+// the sorted order, once, then per member its kept positions, count,
+// block totals and long-run queue with its chunk partials
+TS_API int64_t hk2b_scratch_bytes(int64_t nmem, int64_t n, int64_t ns,
+                                  int nlanes) {
+  if (ns <= kSmallSeg)
+    return nmem * (int64_t)sizeof(Part) * (nlanes + 1) * small_blocks(n) * ns;
+  return 8 * n + 2 * 16 * n + 8 * n +
+         nmem * (8 * n + 8 + 8 * scan_nblocks(n) +
+                 long_queue_bytes(n, nlanes));
+}
+
+TS_API int64_t hk2_scratch_bytes(int64_t n, int64_t ns, int nlanes) {
+  return hk2b_scratch_bytes(1, n, ns, nlanes);
+}
+
+// HK2b: nmem members over one gid int64[n]; valid uint8[nmem * n] (member
+// b at b * n); each lane's member stride in `strides`; out int64[nmem *
+// (2 + 2 * L.n) * ns], member b's table at b * (2 + 2 * L.n) * ns.
+TS_API int hk2b_segment_reduce(const int64_t* gid, const uint8_t* valid,
+                               int64_t nmem, int64_t n, int64_t ns,
+                               const Lanes* lanes, const LaneStrides* strides,
+                               void* scratch, int64_t* out, cudaStream_t st) {
+  if (lanes->n < 0 || lanes->n > kMaxLanes || ns < 1 || nmem < 1 ||
+      nmem > 65535)
+    return -1;
+  if (ns <= kSmallSeg)
+    return launch_small(gid, valid, nmem, n, n, ns, lanes, strides, scratch,
+                        out, st);
   uint64_t* keys = (uint64_t*)scratch;
   uint64_t* bufA = keys + n;
   uint64_t* bufB = bufA + 2 * n;
   int64_t* spos = (int64_t*)(bufB + 2 * n);
-  const LongQueue q = long_queue_at(spos + n, n);
-  LAUNCH(run_init, grid_for((2 + 2 * lanes->n) * ns, 256, 1 << 16), 256, 0, st,
-         *lanes, ns, n, out, q.runs);
+  Members M;
+  M.valid = valid;
+  M.mpos = spos + n;
+  M.counts = M.mpos + nmem * n;
+  M.nblk = scan_nblocks(n);
+  M.btot = M.counts + nmem;
+  M.qbytes = long_queue_bytes(n, lanes->n);
+  M.queues = (char*)(M.btot + nmem * M.nblk);
+  M.out = out;
+  const unsigned mem = (unsigned)nmem;
+  dim3 gi(grid_for((2 + 2 * lanes->n) * ns, 256, 1 << 16), mem);
+  LAUNCH(mc_init, gi, 256, 0, st, *lanes, *strides, ns, n, M);
   if (n > 0) {
-    LAUNCH(sr_keys, grid_for(n, 256, 1 << 16), 256, 0, st, gid, valid, n, ns,
+    LAUNCH(sr_keys_gid, grid_for(n, 256, 1 << 16), 256, 0, st, gid, n, ns,
            keys);
     SortIn in;
     for (int l = 0; l < kMaxSortLanes; ++l) in.lanes[l] = nullptr;
@@ -321,16 +504,31 @@ TS_API int hk2_segment_reduce(const int64_t* gid, const uint8_t* valid,
     b.pos = (int64_t*)(bufB + n);
     int rc = lex_sort_host(in, 1, n, -1, a, b, spos, st);
     if (rc != 0) return rc;
-    LAUNCH(sr_runs, grid_for(n, 256, 1 << 16), 256, 0, st, gid, valid, n, ns,
-           (const int64_t*)spos, *lanes, out, q);
+    dim3 gs((unsigned)M.nblk, mem);
+    LAUNCH(mc_totals, gs, kScanThreads, 0, st, gid, n, ns,
+           (const int64_t*)spos, M);
+    LAUNCH(mc_scan, mem, kScanThreads, 0, st, M);
+    LAUNCH(mc_apply, gs, kScanThreads, 0, st, gid, n, ns,
+           (const int64_t*)spos, M);
+    dim3 gr(grid_for(n, 256, 1 << 16), mem);
+    LAUNCH(mc_runs, gr, 256, 0, st, gid, n, ns, *lanes, *strides, M);
     if (n > kLongRun && lanes->n > 0) {
-      LAUNCH(run_chunk_partials<SortedRows>, kLBlocks, kLThreads, 0, st,
-             SortedRows{spos}, *lanes, 0, q);
-      LAUNCH(run_long_fold, grid_for(long_cap_runs(n) * lanes->n, 256, 1024),
-             256, 0, st, *lanes, 0, ns, n, q, out);
+      dim3 gc(kLBlocks, mem);
+      LAUNCH(mc_chunks, gc, kLThreads, 0, st, n, *lanes, *strides, M);
+      dim3 gf(grid_for(long_cap_runs(n) * lanes->n, 256, 1024), mem);
+      LAUNCH(mc_fold, gf, 256, 0, st, n, ns, *lanes, *strides, M);
     }
   }
   return (int)cudaGetLastError();
+}
+
+// HK2: one member, HK2b at nmem = 1 with zero strides.
+TS_API int hk2_segment_reduce(const int64_t* gid, const uint8_t* valid,
+                              int64_t n, int64_t ns, const Lanes* lanes,
+                              void* scratch, int64_t* out, cudaStream_t st) {
+  LaneStrides none = {};
+  return hk2b_segment_reduce(gid, valid, 1, n, ns, lanes, &none, scratch, out,
+                             st);
 }
 
 // Phase 1 of the compaction: number of present segments -> *total.
@@ -341,7 +539,7 @@ TS_API int hk2_present_count(const int64_t* pres, int64_t ns, int64_t* btot,
   int64_t nb = scan_nblocks(ns);
   LAUNCH(scan_block_totals<PresentScan>, (unsigned)nb, kScanThreads, 0, st,
          sc, ns, btot);
-  LAUNCH(scan_serial, 1, 1, 0, st, btot, nb, total);
+  LAUNCH(scan_totals, 1, kScanThreads, 0, st, btot, nb, total);
   return (int)cudaGetLastError();
 }
 

@@ -36,7 +36,7 @@ from ..expression import Column as ExprColumn, vectorized_filter
 from ..expression.aggregation import (AGG_AVG, AGG_COUNT, AGG_FIRST_ROW,
                                       AGG_MAX, AGG_MIN, AGG_SUM)
 from ..mytypes import EvalType
-from ..ops import kernels, progcache
+from ..ops import batching, kernels, progcache
 from ..ops.exprjit import ExprProgram, ParamTable, code_cmp, compile_program
 from ..planner.physical import (PhysicalHashAgg, PhysicalHashJoin,
                                 PhysicalProjection, PhysicalSelection,
@@ -690,16 +690,24 @@ class GPUHashAggExec(Executor):
         _check_mesh(self.ctx)
         if not plan.group_by:
             out_keys = []
+            # batchable: THE single-shot dispatch cross-query
+            # micro-batching coalesces (ops/batching.py)
             out_aggs, first_orig = kernels.fused_scalar_aggregate(
                 dev_cols, specs, prog, lane_of, n, nb, mask_spec,
-                program_key=program_key, params=params)
+                program_key=program_key, params=params, batchable=True)
         else:
             gid_dev = _dev_memo(
                 rep, "gid_dev", tuple(slot_ids[e.index]
                                       for e in plan.group_by), nb,
                 lambda: kernels.h2d_pad(
                     self._compose_gid(key_layouts, n), nb))
-            if self._can_device_passthrough(plan, slots, key_layouts):
+            if self._can_device_passthrough(plan, slots, key_layouts) \
+                    and not batching.active():
+                # a live batch round prefers the batchable fused path
+                # below: members must park (collect) and consume
+                # (replay) along the SAME route, and the keep variant's
+                # per-member device assembly cannot ride a stacked
+                # dispatch
                 ids, live, out_aggs_d, np_, ob = \
                     kernels.fused_segment_aggregate_keep(
                         dev_cols, gid_dev, n_segments, specs, prog, lane_of,
@@ -710,7 +718,8 @@ class GPUHashAggExec(Executor):
             present, out_aggs, first_orig = \
                 kernels.fused_segment_aggregate(
                     dev_cols, gid_dev, n_segments, specs, prog, lane_of, n,
-                    mask_spec, program_key=program_key, params=params)
+                    mask_spec, program_key=program_key, params=params,
+                    batchable=True)
             out_keys = self._decode_present(present, key_layouts)
         return self._assemble_output(chk, plan, slots, out_keys, out_aggs,
                                      first_orig,

@@ -49,6 +49,8 @@ _SIGNATURES = {
         "hk1_blocks": (_i64, [_i64]),
         "hk1_scratch_bytes": (_i64, [_i64, _int]),
         "hk1_masked_reduce": (_int, [_vp, _i64, _vp, _vp, _vp, _vp]),
+        "hk1b_masked_reduce": (_int, [_vp, _i64, _i64, _vp, _vp, _vp, _vp,
+                                      _vp]),
     },
     "segment_reduce": {
         "hk2_scratch_bytes": (_i64, [_i64, _i64, _int]),
@@ -56,6 +58,9 @@ _SIGNATURES = {
                                       _vp]),
         "hk2_present_count": (_int, [_vp, _i64, _vp, _vp, _vp]),
         "hk2_present_pack": (_int, [_vp, _int, _i64, _i64, _vp, _vp, _vp]),
+        "hk2b_scratch_bytes": (_i64, [_i64, _i64, _i64, _int]),
+        "hk2b_segment_reduce": (_int, [_vp, _vp, _i64, _i64, _i64, _vp, _vp,
+                                       _vp, _vp, _vp]),
     },
     "equi_join": {
         "hk3_build_stats": (_int, [_vp, _vp, _vp, _i64, _vp, _vp, _vp]),
@@ -84,6 +89,9 @@ _SIGNATURES = {
     "expr_eval": {
         "hk7_expr_eval": (_int, [_vp, _int, _vp, _vp, _vp, _vp, _vp, _vp,
                                  _i64, _i64, _vp]),
+        "hk7b_expr_eval": (_int, [_vp, _int, _vp, _vp, _vp, _vp, _i64, _vp,
+                                  _i64, _vp, _i64, _vp, _i64, _i64, _i64,
+                                  _vp]),
     },
     "csr_expand": {
         "hk8_scratch_words": (_i64, [_i64, _i64]),

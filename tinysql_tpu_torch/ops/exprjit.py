@@ -345,6 +345,40 @@ class ParamTable:
         return (np.asarray(self.i64, dtype=np.int64),
                 np.asarray(self.f64, dtype=np.float64))
 
+    @staticmethod
+    def stack(tables, b: Optional[int] = None):
+        """Stack N members' runtime-constant vectors on a LEADING batch
+        axis: ``[(int64[Ni], float64[Nf]), ...] -> (int64[B, Ni],
+        float64[B, Nf])`` — the parameter operand of a stacked round's
+        batched program (ops/kernels.stacked_variant: HK7b reads member
+        b's row), where the data columns stay shared and only the
+        per-member constants carry the batch dimension.  ``tables`` holds
+        ParamTables or their ``arrays()`` pairs; ``b`` pads the batch
+        axis up to an occupancy bucket (rows past the member count repeat
+        member 0 — inert: the dispatcher takes only real member rows).
+        Raises ``ValueError`` on a slot-layout mismatch (members compiled
+        from different expression shapes): the round then takes the
+        legacy back-to-back leg."""
+        pairs = [t.arrays() if isinstance(t, ParamTable) else t
+                 for t in tables]
+        if not pairs:
+            raise ValueError("ParamTable.stack: no members")
+        ni, nf = len(pairs[0][0]), len(pairs[0][1])
+        for pi, pf in pairs[1:]:
+            if len(pi) != ni or len(pf) != nf:
+                raise ValueError(
+                    f"ParamTable.stack: slot-layout mismatch "
+                    f"({len(pi)}i/{len(pf)}f vs {ni}i/{nf}f)")
+        b = len(pairs) if b is None else int(b)
+        if b < len(pairs):
+            raise ValueError(
+                f"ParamTable.stack: bucket {b} < occupancy {len(pairs)}")
+        idx = list(range(len(pairs))) + [0] * (b - len(pairs))
+        return (np.stack([np.asarray(pairs[i][0], dtype=np.int64)
+                          for i in idx]),
+                np.stack([np.asarray(pairs[i][1], dtype=np.float64)
+                          for i in idx]))
+
 
 def stable_shape_key(e: Expression) -> str:
     """Identity of an expression by schema OFFSETS, types and the

@@ -151,7 +151,10 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "segment_reduce": 0,
                             "present_compact": 0, "equi_join": 0,
                             "lex_order": 0, "csr_reduce": 0,
                             "dense_probe": 0, "expr_eval": 0,
-                            "csr_expand": 0, "run_bounds": 0}
+                            "csr_expand": 0, "run_bounds": 0,
+                            "expr_eval_batched": 0,
+                            "masked_reduce_batched": 0,
+                            "segment_reduce_batched": 0}
 #: plain-version calls per wrapper (CPU tensors)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
@@ -440,6 +443,11 @@ class _CLanes(ctypes.Structure):
                 ("n", ctypes.c_int)]
 
 
+class _CLaneStrides(ctypes.Structure):
+    _fields_ = [("v", ctypes.c_int64 * _MAX_LANES),
+                ("nl", ctypes.c_int64 * _MAX_LANES)]
+
+
 class _CSortIn(ctypes.Structure):
     _fields_ = [("lanes", ctypes.c_void_p * _MAX_SORT_LANES),
                 ("pos", ctypes.c_void_p)]
@@ -480,7 +488,17 @@ def _lane_kind(v: Optional[torch.Tensor]) -> int:
     return 1 if (v is not None and v.dtype == F64) else 0
 
 
-def _norm_lanes(lanes, n: int, dev, what: str):
+def _norm_lanes(lanes, n: int, dev, what: str,
+                nmem: Optional[int] = None):
+    """Checked, contiguous lanes of n rows; with ``nmem`` (a batched
+    entry point) each lane's values and NULL mask may also be one row per
+    member, [nmem, n]."""
+    def need(t, dtype):
+        if nmem is None:
+            _need(t, dtype, n, dev, what)
+        else:
+            _need_b(t, dtype, nmem, n, dev, what)
+
     out = []
     for v, m, op in lanes:
         if op not in _OPS:
@@ -495,10 +513,10 @@ def _norm_lanes(lanes, n: int, dev, what: str):
             v = v.contiguous()
             if v.dtype not in (I64, F64):
                 raise ValueError(f"{what}: lane dtype {v.dtype}")
-            _need(v, v.dtype, n, dev, what)
+            need(v, v.dtype)
         if m is not None:
             m = m.contiguous()
-            _need(m, torch.bool, n, dev, what)
+            need(m, torch.bool)
         out.append((v, m, op))
     return out
 
@@ -512,6 +530,37 @@ def _c_lanes(lanes) -> _CLanes:
         c.kind[j] = _lane_kind(v)
         c.op[j] = _OPS[op]
     return c
+
+
+# The batched entry points (K12's stacked rounds) take B members' lanes:
+# each lane's values and NULL mask are [B, n] (one row per member) or [n]
+# (shared by every member).
+
+def _need_b(t: torch.Tensor, dtype, nmem: int, n: int, dev, what: str):
+    """A member lane [nmem, n] or a shared one [n]."""
+    if t.dim() == 1:
+        _need(t, dtype, n, dev, what)
+    elif t.dtype != dtype or tuple(t.shape) != (nmem, n) \
+            or not t.is_contiguous() or t.device != dev:
+        raise ValueError(f"{what}: expected contiguous {dtype}[{nmem}, {n}] "
+                         f"or [{n}] on {dev}, got {t.dtype}"
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _c_strides(lanes, n: int) -> _CLaneStrides:
+    c = _CLaneStrides()
+    for j, (v, m, _op) in enumerate(lanes):
+        c.v[j] = n if v is not None and v.dim() == 2 else 0
+        c.nl[j] = n if m is not None and m.dim() == 2 else 0
+    return c
+
+
+def _member(t: Optional[torch.Tensor], b: int):
+    return t[b] if t is not None and t.dim() == 2 else t
+
+
+def _member_lanes(lanes, b: int):
+    return [(_member(v, b), _member(m, b), op) for v, m, op in lanes]
 
 
 def _lane_fill(v: Optional[torch.Tensor], op: str):
@@ -564,6 +613,10 @@ def masked_reduce(valid: torch.Tensor, lanes) -> torch.Tensor:
 def masked_reduce_plain(valid: torch.Tensor, lanes) -> torch.Tensor:
     """Plain torch version of HK1 (same contract, any device)."""
     _count(PLAIN_CALLS, "masked_reduce")
+    return _masked_reduce_rows(valid, lanes)
+
+
+def _masked_reduce_rows(valid: torch.Tensor, lanes) -> torch.Tensor:
     n = int(valid.shape[0])
     dev = valid.device
     n_valid = valid.sum()
@@ -588,6 +641,46 @@ def masked_reduce_plain(valid: torch.Tensor, lanes) -> torch.Tensor:
             val = _bits(r.reshape(1).to(v.dtype))
         parts += [val, cnt]
     return torch.cat(parts)
+
+
+def masked_reduce_batched(valid: torch.Tensor, lanes) -> torch.Tensor:
+    """HK1b: the masked reductions of B members in one launch (K12's
+    stacked round).  ``valid`` bool [B, n]; each lane's values and NULL
+    mask [B, n] or shared [n].  Returns int64 [B, 2 + 2 * len(lanes)],
+    row b equal, bit for bit, to :func:`masked_reduce` over member b."""
+    if valid.dim() != 2:
+        raise ValueError("masked_reduce_batched: valid must be [B, n]")
+    nmem, n = int(valid.shape[0]), int(valid.shape[1])
+    dev = valid.device
+    on_card = _on_card(valid, "masked_reduce_batched")
+    valid = valid.contiguous()
+    _need_b(valid, torch.bool, nmem, n, dev, "masked_reduce_batched valid")
+    lanes = _norm_lanes(lanes, n, dev, "masked_reduce_batched", nmem)
+    if not on_card:
+        return masked_reduce_batched_plain(valid, lanes)
+    from . import _ext
+    lib = _ext.lib("masked_reduce")
+    outs = []
+    for c0 in range(0, max(len(lanes), 1), _MAX_LANES):
+        chunk = lanes[c0:c0 + _MAX_LANES]
+        out = torch.empty((nmem, 2 + 2 * len(chunk)), dtype=I64, device=dev)
+        scratch = torch.empty(nmem * lib.hk1_scratch_bytes(n, len(chunk)),
+                              dtype=torch.uint8, device=dev)
+        cl, cs = _c_lanes(chunk), _c_strides(chunk, n)
+        _ext.check(lib.hk1b_masked_reduce(
+            valid.data_ptr(), nmem, n, ctypes.byref(cl), ctypes.byref(cs),
+            scratch.data_ptr(), out.data_ptr(), _stream()),
+            "masked_reduce_batched")
+        _count(LAUNCHES, "masked_reduce_batched")
+        outs.append(out if not outs else out[:, 2:])
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def masked_reduce_batched_plain(valid: torch.Tensor, lanes) -> torch.Tensor:
+    """Plain torch version of HK1b: the plain HK1 over each member."""
+    _count(PLAIN_CALLS, "masked_reduce_batched")
+    return torch.stack([_masked_reduce_rows(valid[b], _member_lanes(lanes, b))
+                        for b in range(int(valid.shape[0]))])
 
 
 # =========================================================================
@@ -633,6 +726,10 @@ def segment_reduce_plain(gid: torch.Tensor, valid: torch.Tensor, ns: int,
                          lanes) -> torch.Tensor:
     """Plain torch version of HK2 (same contract, any device)."""
     _count(PLAIN_CALLS, "segment_reduce")
+    return _segment_reduce_table(gid, valid, ns, lanes)
+
+
+def _segment_reduce_table(gid, valid, ns: int, lanes) -> torch.Tensor:
     n = int(valid.shape[0])
     dev = valid.device
     ok = valid & (gid >= 0) & (gid < ns)
@@ -664,6 +761,56 @@ def segment_reduce_plain(gid: torch.Tensor, valid: torch.Tensor, ns: int,
             val = _bits(r)
         out += [val, cnt]
     return torch.stack(out)
+
+
+def segment_reduce_batched(gid: torch.Tensor, valid: torch.Tensor, ns: int,
+                           lanes) -> torch.Tensor:
+    """HK2b: the per-segment reductions of B members over one set of group
+    ids in one launch (K12's stacked round).  ``gid`` int64 [n] (shared),
+    ``valid`` bool [B, n], each lane's values and NULL mask [B, n] or
+    shared [n].  Returns int64 [B, 2 + 2 * len(lanes), ns], table b equal,
+    bit for bit, to :func:`segment_reduce` over member b."""
+    if valid.dim() != 2:
+        raise ValueError("segment_reduce_batched: valid must be [B, n]")
+    nmem, n = int(valid.shape[0]), int(valid.shape[1])
+    dev = valid.device
+    on_card = _on_card(valid, "segment_reduce_batched")
+    valid = valid.contiguous()
+    _need_b(valid, torch.bool, nmem, n, dev, "segment_reduce_batched valid")
+    gid = gid.contiguous()
+    _need(gid, I64, n, dev, "segment_reduce_batched gid")
+    lanes = _norm_lanes(lanes, n, dev, "segment_reduce_batched", nmem)
+    if ns < 1:
+        raise ValueError("segment_reduce_batched: ns must be >= 1")
+    if not on_card:
+        return segment_reduce_batched_plain(gid, valid, ns, lanes)
+    from . import _ext
+    lib = _ext.lib("segment_reduce")
+    tables = []
+    for c0 in range(0, max(len(lanes), 1), _MAX_LANES):
+        chunk = lanes[c0:c0 + _MAX_LANES]
+        out = torch.empty((nmem, 2 + 2 * len(chunk), ns), dtype=I64,
+                          device=dev)
+        scratch = torch.empty(
+            max(lib.hk2b_scratch_bytes(nmem, n, ns, len(chunk)), 8),
+            dtype=torch.uint8, device=dev)
+        cl, cs = _c_lanes(chunk), _c_strides(chunk, n)
+        _ext.check(lib.hk2b_segment_reduce(
+            gid.data_ptr(), valid.data_ptr(), nmem, n, ns, ctypes.byref(cl),
+            ctypes.byref(cs), scratch.data_ptr(), out.data_ptr(),
+            _stream()), "segment_reduce_batched")
+        _count(LAUNCHES, "segment_reduce_batched")
+        tables.append(out if not tables else out[:, 2:])
+    return tables[0] if len(tables) == 1 else torch.cat(tables, dim=1)
+
+
+def segment_reduce_batched_plain(gid: torch.Tensor, valid: torch.Tensor,
+                                 ns: int, lanes) -> torch.Tensor:
+    """Plain torch version of HK2b: the plain HK2 over each member."""
+    _count(PLAIN_CALLS, "segment_reduce_batched")
+    return torch.stack([
+        _segment_reduce_table(gid, valid[b], ns, _member_lanes(lanes, b))
+        for b in range(int(valid.shape[0]))])
 
 
 #: present columns a pipeline's large output brings to the host together
@@ -1622,6 +1769,11 @@ class _CInLanes(ctypes.Structure):
                 ("n", ctypes.c_int)]
 
 
+class _CInStrides(ctypes.Structure):
+    _fields_ = [("vals", ctypes.c_int64 * _xj.MAX_IN),
+                ("nulls", ctypes.c_int64 * _xj.MAX_IN)]
+
+
 class _COutLanes(ctypes.Structure):
     _fields_ = [("vals", ctypes.c_void_p * _xj.MAX_OUT),
                 ("nulls", ctypes.c_void_p * _xj.MAX_OUT),
@@ -1725,12 +1877,110 @@ def _as_bool(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.bool else x != 0
 
 
+def expr_eval_batched(prog, cols, params, n: int,
+                      n_rows: Optional[int] = None,
+                      mask_in: Optional[torch.Tensor] = None):
+    """HK7b: one program over shared input lanes for B members, each with
+    its own parameter row, in one launch per program segment (K12's
+    stacked round).  ``params``: (int64 [B, Ni], float64 [B, Nf]);
+    ``mask_in``: bool [n] (shared), [B, n] or None.  Returns (mask bool
+    [B, n] or None, per output lane (values [B, n] or None, NULL [B, n])),
+    member b's rows equal, bit for bit, to :func:`expr_eval` with its
+    parameters."""
+    pi, pf = params
+    if pi.dim() != 2 or pf.dim() != 2 or pi.shape[0] != pf.shape[0]:
+        raise ValueError("expr_eval_batched: params must be [B, Ni], "
+                         "[B, Nf]")
+    nmem = int(pi.shape[0])
+    dev = pi.device
+    on_card = _on_card(pi, "expr_eval_batched")
+    n_rows = n if n_rows is None else max(0, min(int(n_rows), n))
+    lanes = _expr_lanes(prog, cols, n, dev)
+    if mask_in is not None:
+        mask_in = mask_in.contiguous()
+        _need_b(mask_in, torch.bool, nmem, n, dev, "expr_eval_batched mask_in")
+    if not on_card:
+        return _expr_plain_batched(prog, lanes, params, n, n_rows, mask_in)
+    from . import _ext
+    lib = _ext.lib("expr_eval")
+    pi = pi.contiguous()
+    pf = pf.contiguous().view(I64)
+    code, offs = prog.device_code(dev)
+    outs = [(None if dt == "n" else
+             torch.empty((nmem, n), dtype=_LANE_DTYPE[dt], device=dev),
+             torch.empty((nmem, n), dtype=torch.bool, device=dev))
+            for dt in prog.outputs]
+    tmps = [(torch.empty((nmem, n), dtype=I64, device=dev),
+             torch.empty((nmem, n), dtype=torch.bool, device=dev))
+            for _ in range(prog.n_tmp())]
+    mask = torch.empty((nmem, n), dtype=torch.bool, device=dev) \
+        if prog.has_mask else None
+    m_in = mask_in
+    mstride = n if mask_in is not None and mask_in.dim() == 2 else 0
+    for seg, off in zip(prog.segments(), offs):
+        ci, cs = _CInLanes(), _CInStrides()
+        ci.n = len(seg.in_refs)
+        for j, (src, k) in enumerate(seg.in_refs):
+            v, m = lanes[k] if src == "in" else tmps[k]
+            ci.vals[j] = _ptr(v)
+            ci.nulls[j] = _ptr(m)
+            if src != "in":  # a temporary: one row per member
+                cs.vals[j] = 8 * n
+                cs.nulls[j] = n
+        co = _COutLanes()
+        co.n = len(seg.out_refs)
+        for j, (src, k) in enumerate(seg.out_refs):
+            v, m = outs[k] if src == "out" else tmps[k]
+            co.vals[j] = _ptr(v)
+            co.nulls[j] = _ptr(m)
+            co.guard[j] = int(src == "out")
+        _ext.check(lib.hk7b_expr_eval(
+            code.data_ptr() + 4 * off, int(seg.code.shape[0]),
+            ctypes.byref(ci), ctypes.byref(cs), ctypes.byref(co), _ptr(pi),
+            int(pi.shape[1]), _ptr(pf), int(pf.shape[1]), _ptr(m_in),
+            mstride, _ptr(mask), nmem, n_rows, n, _stream()),
+            "expr_eval_batched")
+        if mask is not None:
+            m_in, mstride = mask, n
+    _count(LAUNCHES, "expr_eval_batched")
+    return mask, outs
+
+
+def expr_eval_batched_plain(prog, cols, params, n: int,
+                            n_rows: Optional[int] = None,
+                            mask_in: Optional[torch.Tensor] = None):
+    """Plain torch version of HK7b: the plain HK7 over each member."""
+    n_rows = n if n_rows is None else max(0, min(int(n_rows), n))
+    return _expr_plain_batched(
+        prog, _expr_lanes(prog, cols, n, params[0].device), params, n,
+        n_rows, mask_in)
+
+
+def _expr_plain_batched(prog, lanes, params, n: int, n_rows: int, mask_in):
+    _count(PLAIN_CALLS, "expr_eval_batched")
+    pi, pf = params
+    got = [_expr_rows(prog, lanes, (pi[b], pf[b]), n, n_rows,
+                      _member(mask_in, b))
+           for b in range(int(pi.shape[0]))]
+    mask = None if got[0][0] is None else torch.stack([g[0] for g in got])
+    outs = []
+    for k in range(len(prog.outputs)):
+        vals = [g[1][k][0] for g in got]
+        outs.append((None if vals[0] is None else torch.stack(vals),
+                     torch.stack([g[1][k][1] for g in got])))
+    return mask, outs
+
+
 def _expr_plain(prog, lanes, params, n: int, n_rows: int, mask_in):
+    _count(PLAIN_CALLS, "expr_eval")
+    return _expr_rows(prog, lanes, params, n, n_rows, mask_in)
+
+
+def _expr_rows(prog, lanes, params, n: int, n_rows: int, mask_in):
     """Run the program's segments instruction by instruction with
     ops/exprjit's own functions: _apply for every SQL function, its
     CASE / IN steps, code_cmp for K14 and the K15 layout formulas."""
     X = _xj
-    _count(PLAIN_CALLS, "expr_eval")
     pi, pf = params
     dev = pi.device
     zeros_b = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -1860,16 +2110,19 @@ def _mask_parts(mask):
 
 def _params_dev(params):
     """The (int64, float64) parameter arrays on the device in ONE upload
-    (the float64 slots travel as their bits)."""
+    (the float64 slots travel as their bits).  A stacked round's
+    parameters ([B, Ni], [B, Nf], exprjit.ParamTable.stack) upload the
+    same way, one row per member."""
     if params is None:
         dev = device()
         return (torch.zeros(0, dtype=I64, device=dev),
                 torch.zeros(0, dtype=F64, device=dev))
     pi, pf = params
     pi = np.asarray(pi, dtype=np.int64)
+    ni = pi.shape[-1]
     t = h2d(np.concatenate([pi, np.asarray(pf, dtype=np.float64)
-                            .view(np.int64)]))
-    return t[:len(pi)], t[len(pi):].view(F64)
+                            .view(np.int64)], axis=-1))
+    return t[..., :ni].contiguous(), t[..., ni:].contiguous().view(F64)
 
 
 def _spec_lanes(agg_specs, arg_pairs):
@@ -1930,29 +2183,157 @@ def _np_value(bits: np.ndarray, is_f: bool) -> np.ndarray:
     return bits.view(np.float64) if is_f else bits
 
 
+def _batch_round(mask, params, batchable: bool):
+    """Cross-query micro-batching eligibility at a fused dispatch site
+    (ops/batching.py): only explicitly batchable single-shot call sites
+    with a params-compiled device mask qualify — the combination that
+    makes one registered program serve a whole constant-variant digest
+    family.  Records the ``batchable`` obs marker (the session's close
+    hook learns family eligibility from it) and returns the active batch
+    round, or None."""
+    if not (batchable and mask[0] == "dev" and params is not None):
+        return None
+    _obs.record("batchable", 1)
+    from . import batching
+    return batching.current()
+
+
+# ---- stacked-params batch execution (ops/batching.py dispatch leg) --------
+# A batch round's parked members share one registered program and one set
+# of replica-memoized data columns; only their ~100-byte parameter rows
+# differ.  Stacking those on a leading batch axis (exprjit.ParamTable.
+# stack) and running the program's batched variant — HK7b over the B
+# parameter rows, then HK1b or HK2b over the B masks and lane sets — makes
+# a whole round one launch of each instead of B back-to-back replays.
+# Variants register in progcache under the base key extended with a
+# power-of-two OCCUPANCY BUCKET (occupancy 3 runs the B=4 variant with an
+# inert padding row), like any program family (prewarm_stacked).
+
+def _stackable_launch(program, kind: str, stacked):
+    """counted_launch + the stacking recipe (``stack_info``) that
+    :func:`stacked_variant` reads: ``kind`` is the output protocol
+    ("packed" = one [B, L] table pulled in one transfer, "tree" = per-
+    member device slices) and ``stacked`` the batched program, called
+    with the same data arguments and the stacked parameters."""
+    w = counted_launch(program)
+    w.stack_info = (kind, stacked)
+    return w
+
+
+def occupancy_bucket(n: int) -> int:
+    """Power-of-two batch bucket for a stacked round (min 2 — a solo
+    member never stacks)."""
+    b = 2
+    while b < n:
+        b <<= 1
+    return b
+
+
+def _stacked_key(key: tuple, b: int) -> tuple:
+    return key + (("stacked", b),)
+
+
+def is_stacked_key(key: tuple) -> bool:
+    """Is this registry key a B-stacked variant of a batchable program?"""
+    return bool(key) and isinstance(key[-1], tuple) and len(key[-1]) == 2 \
+        and key[-1][0] == "stacked"
+
+
+def stacked_variant(key: tuple, base_fn, b: int):
+    """The B-stacked variant of a batchable fused program, registered
+    under the base key extended with the occupancy bucket ``b``.  Returns
+    ``(counted batched program, kind)`` — kind ``"packed"`` outputs pull
+    as one ``[B, L]`` table, kind ``"tree"`` outputs slice per member on
+    the device — or None when the base program carries no stacking
+    recipe."""
+    info = getattr(base_fn, "stack_info", None)
+    if info is None:
+        return None
+    kind, stacked = info
+    return progcache.get(_stacked_key(key, b),
+                         lambda: (counted_launch(stacked), kind))
+
+
+def prewarm_stacked(buckets=(2, 4, 8, 16)) -> int:
+    """Register the B-bucketed stacked variants of every registered
+    batchable fused program (the auto-prewarm worker calls this inside
+    its prewarm scope), so a storm's first stacked round is a plain
+    registry hit.  Returns the number of variants now registered."""
+    n = 0
+    for key in progcache.keys("scalar") + progcache.keys("seg"):
+        if is_stacked_key(key):
+            continue
+        fn = progcache.peek(key)
+        if getattr(fn, "stack_info", None) is None:
+            continue
+        for b in buckets:
+            if stacked_variant(key, fn, int(b)) is not None:
+                n += 1
+    return n
+
+
+def prewarm_bucket(nb: int) -> int:
+    """The reference AOT-compiles its bucket-keyed sort and top-k programs
+    here.  The port's kernels take any shape; what a server pays once is
+    the build of the kernel libraries (ops/_ext.py), done here on a CUDA
+    device.  Returns the number of libraries built by this call."""
+    if device().type != "cuda":
+        return 0
+    from . import _ext
+    built = bool(_ext._LIBS)
+    _ext.lib("masked_reduce")
+    return 0 if built else len(_ext.SOURCES)
+
+
 def fused_scalar_aggregate(dev_cols, agg_specs, prog, lane_of,
                            n_rows: int, nb: int, mask,
-                           program_key: tuple = (), params=None):
+                           program_key: tuple = (), params=None,
+                           batchable: bool = False):
     """Global-group fused path (K1 -> HK7 + HK1): one HK7 launch
     evaluates the filter mask and the argument expressions, one masked
     reduction produces every aggregate, one pull brings them back.
-    Returns (out_aggs, first_orig) with zero or one output row."""
+    Returns (out_aggs, first_orig) with zero or one output row.
+    ``batchable=True`` (single-shot executor call sites) opts the
+    dispatch into cross-query micro-batching (ops/batching.py): inside a
+    batch round it parks (collect) and consumes its member's row of the
+    stacked dispatch (replay)."""
     mask_key, mask_arr = _mask_parts(mask)
     key = ("scalar", tuple(agg_specs), program_key, mask_key, nb)
+    args = (dev_cols, mask_arr, n_rows)
+    rnd = _batch_round(mask, params, batchable)
+    if rnd is not None and rnd.collecting:
+        ent = progcache.peek(key)
+        if ent is not None:  # warm programs only: cold families stay solo
+            rnd.park(key, ent, args, params)
 
     def build():
         xp, lo = prog, list(lane_of)
 
-        def program(cols, mask_in, pr, n):
+        def program(cols, mask_in, n, pr):
             valid, pairs = _run_agg_program(xp, lo, cols, mask_in, pr, nb,
                                             n)
             lanes, plan = _spec_lanes(agg_specs, pairs)
             return masked_reduce(valid, lanes), plan
-        return counted_launch(program)
+
+        def stacked(cols, mask_in, n, prs):
+            valid, outs = expr_eval_batched(xp, cols, prs, nb, n_rows=n,
+                                            mask_in=mask_in)
+            lanes, plan = _spec_lanes(
+                agg_specs, [None if j is None else outs[j] for j in lo])
+            return masked_reduce_batched(valid, lanes), plan
+        return _stackable_launch(program, "packed", stacked)
     fn = progcache.get(key, build)
-    out, plan = fn(dev_cols, mask_arr, _params_dev(params), n_rows)
-    vals = d2h(out)
-    return _scalar_contract(vals, plan)
+    if rnd is not None and rnd.replaying:
+        got = rnd.consume(key, args, params)
+        if got is not None:
+            # consume attributed the member's share of the round's
+            # dispatch to this scope; a "host" row was pulled with the
+            # whole stacked table
+            tag, (out, plan) = got
+            return _scalar_contract(out if tag == "host" else d2h(out),
+                                    plan)
+    out, plan = fn(*args, _params_dev(params))
+    return _scalar_contract(d2h(out), plan)
 
 
 def _scalar_contract(vals: np.ndarray, plan):
@@ -1984,26 +2365,48 @@ def scalar_aggregate(agg_specs, arg_cols, n_rows: int,
 
 def _fused_segment_raw(dev_cols, gid_dev, n_segments: int, agg_specs,
                        prog, lane_of, n_rows: int, mask,
-                       program_key: tuple = (), params=None):
+                       program_key: tuple = (), params=None,
+                       batchable: bool = False):
     """The fused segment program (K2 -> HK7 + HK2) without extraction:
-    returns (table, plan, ns) with the HK2 output table on the device."""
+    returns (table, plan, ns) with the HK2 output table on the device.
+    ``batchable``: as :func:`fused_scalar_aggregate`; a member's table is
+    its slice of the stacked round's HK2b output."""
     nb = int(gid_dev.shape[0])
     ns = bucket(max(n_segments, 1))
     mask_key, mask_arr = _mask_parts(mask)
     key = ("seg", tuple(agg_specs), program_key, mask_key, ns, nb)
+    args = (dev_cols, gid_dev, mask_arr, n_rows)
+    rnd = _batch_round(mask, params, batchable)
+    if rnd is not None and rnd.collecting:
+        ent = progcache.peek(key)
+        if ent is not None:  # warm programs only: cold families stay solo
+            rnd.park(key, ent, args, params)
 
     def build():
         xp, lo = prog, list(lane_of)
 
-        def program(cols, gid, mask_in, pr, n):
+        def program(cols, gid, mask_in, n, pr):
             valid, pairs = _run_agg_program(xp, lo, cols, mask_in, pr, nb,
                                             n)
             lanes, plan = _spec_lanes(agg_specs, pairs)
             return segment_reduce(gid, valid, ns, lanes), plan
-        return counted_launch(program)
+
+        def stacked(cols, gid, mask_in, n, prs):
+            valid, outs = expr_eval_batched(xp, cols, prs, nb, n_rows=n,
+                                            mask_in=mask_in)
+            lanes, plan = _spec_lanes(
+                agg_specs, [None if j is None else outs[j] for j in lo])
+            return segment_reduce_batched(gid, valid, ns, lanes), plan
+        # tree output: member tables slice off axis 0 on the device and
+        # flow into _present_extract in the member's own scope
+        return _stackable_launch(program, "tree", stacked)
     fn = progcache.get(key, build)
-    table, plan = fn(dev_cols, gid_dev, mask_arr, _params_dev(params),
-                     n_rows)
+    if rnd is not None and rnd.replaying:
+        got = rnd.consume(key, args, params)
+        if got is not None:
+            _tag, (table, plan) = got
+            return table, plan, ns
+    table, plan = fn(*args, _params_dev(params))
     return table, plan, ns
 
 
@@ -2037,12 +2440,15 @@ def _present_extract(table, plan, ns: int, nb: int, limit: int = None):
 
 def fused_segment_aggregate(dev_cols, gid_dev, n_segments: int,
                             agg_specs, prog, lane_of, n_rows: int, mask,
-                            program_key: tuple = (), params=None):
+                            program_key: tuple = (), params=None,
+                            batchable: bool = False):
     """Grouped fused path (K2 -> HK7 + HK2).  Returns (present_ids,
-    out_aggs, first_orig) host arrays, present segments ascending."""
+    out_aggs, first_orig) host arrays, present segments ascending.
+    ``batchable=True`` (single-shot executor call sites) opts the
+    dispatch into cross-query micro-batching (ops/batching.py)."""
     table, plan, ns = _fused_segment_raw(
         dev_cols, gid_dev, n_segments, agg_specs, prog, lane_of, n_rows,
-        mask, program_key=program_key, params=params)
+        mask, program_key=program_key, params=params, batchable=batchable)
     return _present_extract(table, plan, ns, int(gid_dev.shape[0]),
                             limit=n_segments)
 
@@ -2054,7 +2460,12 @@ def fused_segment_aggregate_keep(dev_cols, gid_dev, n_segments: int,
     """Device-resident variant (late materialization): compacts present
     segments on the device and returns (ids [ob], live [ob], out_aggs as
     device (values, null) pairs, n_present, ob); only n_present syncs.
-    Padding rows carry id = ns and live = False."""
+    Padding rows carry id = ns and live = False.  It never parks (its
+    per-member device assembly cannot ride a stacked dispatch) but marks
+    its digest family batchable: inside a later batch round the executor
+    takes the batchable :func:`fused_segment_aggregate` route instead."""
+    if mask[0] == "dev" and params is not None:
+        _obs.record("batchable", 1)
     table, plan, ns = _fused_segment_raw(
         dev_cols, gid_dev, n_segments, agg_specs, prog, lane_of, n_rows,
         mask, program_key=program_key, params=params)

@@ -503,6 +503,7 @@ class Session:
         self._plan_s = 0.0
         err = True
         n_rows = 0
+        parked = False
         try:
             from ..ops import kernels
             with obs_context.span("execute", kind=type(s).__name__), \
@@ -512,6 +513,14 @@ class Session:
                 else self.last_affected
             err = False
             return rs
+        except Exception as e:
+            # a batch-round collect leg parking at the dispatch boundary
+            # (ops/batching.Parked) is control flow, not a statement: it
+            # must stay invisible to statements_summary / slow log /
+            # /metrics — the member's REPLAY execution reports instead
+            from ..ops.batching import Parked
+            parked = isinstance(e, Parked)
+            raise
         finally:
             obs_context.deactivate(tok)
             t_exec = time.perf_counter() - t1
@@ -526,9 +535,8 @@ class Session:
                 info["queue_s"] = queue_s
                 info["batch_s"] = batch_s
             qobs.info = info
-            # the reference skips this for a statement parked by stacked
-            # batching, which is not ported (ROADMAP queue 1, item 7)
-            self._finish_obs(s, qobs, info, err, n_rows)
+            if not parked:
+                self._finish_obs(s, qobs, info, err, n_rows)
 
     def _finish_obs(self, stmt: ast.StmtNode, qobs, info: Dict[str, float],
                     err: bool, rows_returned: int = 0) -> None:
@@ -618,9 +626,13 @@ class Session:
                     max_stmt_count=max_count)
             if not err:
                 maybe_emit(qobs)
-                # the reference's cross-query micro-batching learns
-                # family eligibility here; it is not ported (ROADMAP
-                # queue 1, item 7)
+                # cross-query micro-batching learns family eligibility
+                # here: statements that executed a params-compiled fused
+                # dispatch (the `batchable` marker) make their digest a
+                # coalescing candidate for the statement pool
+                if sql_digest and qobs.device_totals().get("batchable"):
+                    from ..ops.batching import note_family
+                    note_family(sql_digest)
         except Exception:
             logging.getLogger("tinysql_tpu").warning(
                 "observability fan-out failed", exc_info=True)
@@ -694,7 +706,9 @@ class Session:
             self._finish_stmt(ok=True)
             return rs
         except Exception as e:
-            if not isinstance(stmt, ast.ShowStmt):
+            from ..ops.batching import Parked
+            if not isinstance(stmt, ast.ShowStmt) \
+                    and not isinstance(e, Parked):
                 # SHOW ERRORS reports the failed statement (reference:
                 # fetchShowWarnings(errors=true)); typed errors carry
                 # their MySQL code (kill 1317, timeout 3024, OOM 8175),

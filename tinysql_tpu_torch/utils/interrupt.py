@@ -114,17 +114,20 @@ _SESSIONS: Dict[int, "weakref.ref"] = {}
 
 def register_session(session) -> int:
     """Assign a process-unique connection id and index the session for
-    KILL resolution.  Dead entries are swept opportunistically."""
+    KILL resolution.  Dead entries are swept here, under the lock.
+
+    The weakref carries no callback: a callback that took ``_reg_mu``
+    could run from a garbage collection triggered while this same thread
+    already held it (``list(_SESSIONS.items())`` allocates), and the
+    non-reentrant lock would then deadlock every thread that touches the
+    registry."""
     cid = next(_next_conn_id)
-    ref = weakref.ref(session, lambda _r, cid=cid: _drop(cid))
+    ref = weakref.ref(session)
     with _reg_mu:
+        for dead in [c for c, r in _SESSIONS.items() if r() is None]:
+            del _SESSIONS[dead]
         _SESSIONS[cid] = ref
     return cid
-
-
-def _drop(cid: int) -> None:
-    with _reg_mu:
-        _SESSIONS.pop(cid, None)
 
 
 def lookup(conn_id: int):
