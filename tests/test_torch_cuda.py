@@ -110,6 +110,60 @@ def test_equi_join_and_lex_order_match_plain(dev):
         assert torch.equal(got, want[:got.shape[0]])
 
 
+def _kept(out):
+    return out[:1 + int(out[0])]
+
+
+def test_semi_pick_matches_plain(dev):
+    """HK10 (K8's ladder and compaction) against its plain version byte
+    for byte in every mode: over 2^12 rows past one scan block, with an
+    empty build side, a NULL build key, NULL probe keys and no NULLs."""
+    rng = np.random.default_rng(4)
+    nl, nr = 5000, 3000
+    lk = _t(rng.integers(0, 4000, nl), dev, torch.int64)
+    rk = _t(rng.integers(0, 4000, nr), dev, torch.int64)
+    ln0 = _t(rng.random(nl) < 0.1, dev)
+    lv = _t(rng.random(nl) < 0.9, dev)
+    rv0 = _t(rng.random(nr) < 0.9, dev)
+    cases = {"nulls both sides": (ln0, _t(rng.random(nr) < 0.01, dev), rv0),
+             "no nulls": (torch.zeros_like(ln0), torch.zeros_like(rv0), rv0),
+             "empty build": (ln0, torch.zeros_like(rv0),
+                             torch.zeros_like(rv0))}
+    one = torch.zeros_like(rv0)
+    one[17] = True
+    cases["one null build key"] = (ln0, one, rv0 | one)
+    for what, (ln, rn, rv) in cases.items():
+        match = K.unique_match(lk, ln, lv, rk, rn, rv)
+        for anti, na in ((False, False), (True, False), (True, True)):
+            a = K.semi_pick(match, ln, lv, rn, rv, anti, na)
+            b = K.semi_pick_plain(match, ln, lv, rn, rv, anti, na)
+            assert torch.equal(_kept(a), _kept(b)), (what, anti, na)
+            assert torch.equal(_kept(a), _kept(K.semi_pick(
+                match, ln, lv, rn, rv, anti, na)))
+        if what == "one null build key":
+            assert int(K.semi_pick(match, ln, lv, rn, rv, True, True)[0]) \
+                == 0
+
+
+def test_block_pipeline_stages_on_a_side_stream(dev):
+    """devpipe.BlockPipeline at depth 2 uploads each block on its side
+    stream while the consumer reduces the previous one on the current
+    stream: the sums equal the inline (depth 0) run's."""
+    from tinysql_tpu_torch.executor.devpipe import BlockPipeline
+    rng = np.random.default_rng(5)
+    host = [rng.integers(-1000, 1000, 1 << 16) for _ in range(8)]
+
+    def stage(i):
+        return i, K.h2d(host[i])
+
+    got = {}
+    for depth in (0, 2):
+        pipe = BlockPipeline(stage, range(len(host)), depth=depth)
+        assert (pipe._side is not None) == (depth > 0)
+        got[depth] = [int(x.sum()) for _, x in pipe]
+    assert got[0] == got[2] == [int(h.sum()) for h in host]
+
+
 def test_csr_reduce_matches_plain(dev):
     """HK5 over a group index: short groups on a thread each, long ones
     (past the 1024-row threshold) through the chunk queue, NULL lanes,

@@ -396,16 +396,26 @@ def test_pipeline_kernels_run_their_plain_versions_on_the_cpu(pair, kinds):
 ])
 def test_unported_modes_raise_when_forced(pair, sysvar, sql, item):
     """What the port has not built raises under tidb_devpipe=1, naming
-    its ROADMAP item: block-wise execution (a TopN over a table past
-    tidb_device_block_rows; a join or GROUP BY there takes the pipeline
-    through a host leaf, as in the reference) and the mesh tier.  Without
-    the sysvar the same statement runs as the reference runs it."""
-    _, port = pair
+    its ROADMAP item: the mesh tier.  Block-wise execution (item 1) is
+    ported: a TopN over a table past tidb_device_block_rows (a join or
+    GROUP BY there takes the pipeline through a host leaf, as in the
+    reference) runs block-wise and gives the reference's rows under the
+    same sysvar.  Without the sysvar the same statement runs as the
+    reference runs it."""
+    ref, port = pair
     name = sysvar.split("=")[0].strip()
     port.execute(f"set @@{sysvar}")
     try:
-        with pytest.raises(NotImplementedError, match=item):
-            port.query(sql)
+        if name == "tidb_device_block_rows":
+            ref.execute(f"set @@{sysvar}")
+            try:
+                _same_rows(port.query(sql).rows, ref.query(sql).rows, False,
+                           sql)
+            finally:
+                ref.execute(f"set @@{name} = 0")
+        else:
+            with pytest.raises(NotImplementedError, match=item):
+                port.query(sql)
     finally:
         port.execute(f"set @@{name} = 0")
     _same_rows(port.query(sql).rows, pair[0].query(sql).rows, False, sql)

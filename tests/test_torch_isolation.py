@@ -75,3 +75,48 @@ def test_port_runs_with_jax_and_the_reference_blocked(tmp_path):
     assert lines[0].startswith("raised:") and "device='cpu'" in lines[0]
     assert lines[1] == "[[1, 4.0, 2], [2, None, 1]]"
     assert lines[2] == "[]"
+
+
+_F1_CHILD = r'''
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "tinysql_tpu"):
+            raise ImportError("blocked " + name)
+        return None
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, sys.argv[1])
+from tinysql_tpu_torch.session import new_session
+s = new_session(device="cpu")
+s.execute("create database d")
+s.execute("use d")
+s.execute("create table t (id bigint primary key, g bigint, key ig (g))")
+s.execute("insert into t values (1, 1), (2, 1), (3, 2)")
+s.execute("analyze table t")
+print(s.query("admin check table t").rows)
+s.execute("set tidb_enable_cascades_planner = 1")
+print(s.query("select g, count(*) from t group by g order by g").rows)
+s.execute("set tidb_enable_cascades_planner = 0")
+s.execute("set tidb_qlint_verify = 1")
+s.execute("set tidb_tpu_min_rows = 0")
+print(s.query("select g, count(*) from t group by g order by g").rows)
+mods = ("tinysql_tpu_torch.statistics.analyze",
+        "tinysql_tpu_torch.executor.admin",
+        "tinysql_tpu_torch.planner.cascades",
+        "tinysql_tpu_torch.analysis.plan_device")
+print(all(m in sys.modules for m in mods))
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tinysql_tpu")))
+'''
+
+
+def test_f1_modules_stand_alone(tmp_path):
+    """ANALYZE TABLE, ADMIN CHECK TABLE, the cascades planner and the
+    runtime plan verifier load the port's own statistics/analyze.py,
+    executor/admin.py, planner/cascades/ and analysis/ with JAX and the
+    reference blocked."""
+    r = subprocess.run([sys.executable, "-c", _F1_CHILD, ROOT], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines() == [
+        "[['OK']]", "[[1, 2], [2, 1]]", "[[1, 2], [2, 1]]", "True", "[]"]

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from hypothesis import HealthCheck, given, settings, strategies as st
 
 from tinysql_tpu.ops import kernels as ref
 from tinysql_tpu_torch.ops import kernels as port
@@ -311,6 +312,198 @@ def test_semi_join_match_matches_reference(device_joins, anti, null_aware):
                                    anti=anti, null_aware=null_aware,
                                    lvalid=lv, rvalid=rv)
         np.testing.assert_array_equal(got, np.asarray(want))
+
+
+# ---- K8: HK3's membership + HK10's ladder and compaction ------------------
+
+def _port_semi_plain(lk, ln, lv, rk, rn, rv, anti, null_aware):
+    """The port's K8 on the CPU, piece by piece: HK3's plain membership,
+    then semi_pick_plain, then the pull of the kept rows."""
+    nl, nr = len(lk), len(rk)
+    t = port._join_inputs((lk, ln), nl, (rk, rn), nr, lv, rv)
+    match = port.unique_match(*t)
+    out = port.semi_pick_plain(match, t[1], t[2], t[4], t[5], anti,
+                               null_aware)
+    return port._pull_kept(out)
+
+
+MODES = [(False, False), (True, False), (True, True)]
+
+
+@pytest.mark.parametrize("anti,null_aware", MODES)
+@pytest.mark.parametrize("case", ["nulls", "one_null_build_key",
+                                  "empty_build", "dead_build", "no_nulls",
+                                  "one_probe_row"])
+def test_semi_pick_plain_matches_reference(device_joins, anti, null_aware,
+                                           case):
+    """semi_pick_plain over HK3's plain membership against the reference's
+    semi_join_match run as its device program (TINYSQL_DEVICE_JOIN_ONLY)
+    and against its host twin _np_semi_match: the NOT IN ladder's every
+    rung (empty and all-dead build sides, one NULL build key, NULL probe
+    keys, a single probe row)."""
+    lk, ln, lv, rk, rn, rv = _join_inputs(9, 400, 150, 0, 90)
+    if case == "one_null_build_key":
+        rn = np.zeros_like(rn)
+        rn[37] = rv[37] = True
+    elif case == "empty_build":
+        rk, rn, rv = rk[:0], rn[:0], rv[:0]
+    elif case == "dead_build":
+        rv = np.zeros_like(rv)
+    elif case == "no_nulls":
+        ln, rn = np.zeros_like(ln), np.zeros_like(rn)
+    elif case == "one_probe_row":
+        lk, ln, lv = lk[:1], np.zeros(1, bool), np.ones(1, bool)
+    nl, nr = len(lk), len(rk)
+    got = _port_semi_plain(lk, ln, lv, rk, rn, rv, anti, null_aware)
+    dev = ref.semi_join_match((lk, ln), nl, (rk, rn), nr, anti=anti,
+                              null_aware=null_aware, lvalid=lv, rvalid=rv)
+    twin = ref._np_semi_match(lk, ln, lv, rk, rn, rv, anti, null_aware)
+    np.testing.assert_array_equal(got, np.asarray(dev))
+    np.testing.assert_array_equal(got, twin)
+    np.testing.assert_array_equal(
+        port.semi_join_match((lk, ln), nl, (rk, rn), nr, anti=anti,
+                             null_aware=null_aware, lvalid=lv, rvalid=rv),
+        twin)
+    if case in ("empty_build", "dead_build") and anti:
+        assert list(got) == list(np.nonzero(lv)[0])  # NOT IN () is TRUE
+    if case == "one_null_build_key" and anti and null_aware:
+        assert got.size == 0
+
+
+def test_semi_join_match_pulls_once_per_call(device_joins):
+    """A null-aware anti join pulls the count and the kept rows in one
+    transfer when they fit PRESENT_HEAD, with no pull of the build NULL
+    mask; a larger result takes exactly one more."""
+    lk, ln, lv, rk, rn, rv = _join_inputs(12, 9000, 300, 0, 600)
+    for n_kept_large in (False, True):
+        lk2 = lk if n_kept_large else lk[:500]
+        args = ((lk2, ln[:len(lk2)]), len(lk2), (rk, np.zeros_like(rn)), 300)
+        kw = dict(anti=True, null_aware=True, lvalid=lv[:len(lk2)],
+                  rvalid=rv)
+        snap = port.stats_snapshot()
+        got = port.semi_join_match(*args, **kw)
+        d = port.stats_delta(snap)
+        assert d["d2h_transfers"] == (2 if got.size > port.PRESENT_HEAD
+                                      else 1), (got.size, d)
+        assert got.size > port.PRESENT_HEAD if n_kept_large else True
+        np.testing.assert_array_equal(
+            got, ref._np_semi_match(lk2, ln[:len(lk2)], lv[:len(lk2)], rk,
+                                    np.zeros_like(rn), rv, True, True))
+
+
+_KEYS = {
+    "small": st.integers(-3, 12),
+    "extremes": st.sampled_from([I64_MIN, I64_MIN + 1, -1, 0, 1,
+                                 I64_MAX - 1, I64_MAX]),
+    # no NaN: MySQL stores none, and the port folds NaN into NULL
+    "float": st.sampled_from([-2.5, -0.0, 0.0, 0.5, 1.0, 1e300, -np.inf,
+                              np.inf]),
+}
+
+
+@st.composite
+def _semi_case(draw):
+    kind = draw(st.sampled_from(sorted(_KEYS)))
+    keys = _KEYS[kind]
+    nl = draw(st.integers(1, 40))
+    nr = draw(st.integers(0, 30))
+    lk = draw(st.lists(keys, min_size=nl, max_size=nl))
+    # duplicate build keys: draw from the probe keys and the strategy
+    rk = draw(st.lists(st.one_of(keys, st.sampled_from(lk)), min_size=nr,
+                       max_size=nr))
+    bools = lambda n, p: draw(st.lists(  # noqa: E731
+        st.sampled_from([True] * p + [False] * (10 - p)), min_size=n,
+        max_size=n))
+    build_valid = draw(st.sampled_from(["some", "all", "dead"]))
+    rv = {"some": bools(nr, 8), "all": [True] * nr,
+          "dead": [False] * nr}[build_valid]
+    dt = np.float64 if kind == "float" else np.int64
+    return (np.array(lk, dtype=dt), np.array(bools(nl, 2), dtype=bool),
+            np.array(bools(nl, 9), dtype=bool), np.array(rk, dtype=dt),
+            np.array(bools(nr, draw(st.sampled_from([0, 1, 3]))),
+                     dtype=bool), np.array(rv, dtype=bool))
+
+
+@settings(max_examples=60, deadline=None, derandomize=True,
+          suppress_health_check=[HealthCheck.function_scoped_fixture,
+                                 HealthCheck.too_slow])
+@given(case=_semi_case(), mode=st.sampled_from(MODES))
+def test_semi_pick_plain_sweep(device_joins, case, mode):
+    """Hypothesis over NULL probe and build keys, empty and all-dead build
+    sides, duplicate build keys, int64 extremes and float keys (-0.0 and
+    +0.0 equal, infinities), in all three modes: the kept indices equal
+    the reference's device program and host twin exactly."""
+    lk, ln, lv, rk, rn, rv = case
+    anti, null_aware = mode
+    got = _port_semi_plain(lk, ln, lv, rk, rn, rv, anti, null_aware)
+    twin = ref._np_semi_match(lk, ln, lv, rk, rn, rv, anti, null_aware)
+    dev = ref.semi_join_match((lk, ln), len(lk), (rk, rn), len(rk),
+                              anti=anti, null_aware=null_aware, lvalid=lv,
+                              rvalid=rv)
+    np.testing.assert_array_equal(got, twin)
+    np.testing.assert_array_equal(got, np.asarray(dev))
+
+
+_NOT_IN_SQL = {
+    "not_in": "select a from p where a not in (select x from q) order by a",
+    "not_exists": "select a from p where not exists "
+                  "(select * from q where q.x = p.a) order by a",
+    "in": "select a from p where a in (select x from q) order by a",
+}
+
+
+@pytest.fixture(scope="module")
+def not_in_sessions():
+    from tinysql_tpu.session import new_session as ref_new
+    from tinysql_tpu_torch.session import new_session as port_new
+    out = []
+    for s in (ref_new(), port_new(device="cpu")):
+        s.execute("create database k8")
+        s.execute("use k8")
+        s.execute("create table p (a bigint)")
+        s.execute("create table q (x bigint)")
+        s.execute("insert into p values " + ", ".join(
+            f"({v})" for v in [1, 2, 3, 4, 5, 6, 7, 8, 9, 10]) + ", (null)")
+        s.execute("insert into q values (2), (4), (4), (6), (12)")
+        s.execute("set @@tidb_tpu_min_rows = 0")
+        s.execute("set @@tidb_devpipe = 0")
+        out.append(s)
+    return out
+
+
+@pytest.mark.parametrize("null_in_build", [False, True])
+def test_not_in_and_not_exists_through_both_sessions(device_joins,
+                                                     not_in_sessions,
+                                                     null_in_build):
+    """NOT IN (null-aware anti), NOT EXISTS (plain anti) and IN (semi)
+    statements through both packages' sessions on their device tiers:
+    equal rows; with a NULL key in the subquery NOT IN returns no rows
+    while NOT EXISTS still does; the port ran K8 through HK3's membership
+    and HK10's plain version."""
+    ref_s, port_s = not_in_sessions
+    for s in not_in_sessions:
+        s.execute("delete from q where x is null")
+        if null_in_build:
+            s.execute("insert into q values (null)")
+    plan = [r[3] for r in port_s.query(
+        "explain " + _NOT_IN_SQL["not_in"]).rows if "Join" in r[0]]
+    assert plan and "anti" in plan[0] and "null-aware" in plan[0], plan
+    got = {}
+    for name, sql in _NOT_IN_SQL.items():
+        port.reset_kernel_counts()
+        got[name] = port_s.query(sql).rows
+        counts = port.kernel_counts()["plain_calls"]
+        assert counts["semi_pick"] >= 1 and counts["equi_join"] >= 1, counts
+        assert got[name] == ref_s.query(sql).rows, name
+    want_exists = [[v] for v in [1, 3, 5, 7, 8, 9, 10, None]]
+    assert sorted(got["not_exists"], key=lambda r: (r[0] is not None,
+                                                    r[0] or 0)) == \
+        sorted(want_exists, key=lambda r: (r[0] is not None, r[0] or 0))
+    if null_in_build:
+        assert got["not_in"] == []
+    else:
+        assert got["not_in"] == [[v] for v in [1, 3, 5, 7, 8, 9, 10]]
+    assert got["in"] == [[2], [4], [6]]
 
 
 def _sort_keys(seed, n):

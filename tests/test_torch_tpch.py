@@ -1,5 +1,6 @@
-"""TPC-H Q1, Q3 and Q6 at SF=0.01 (seed 7) through SQL: the port's device
-tier on the CPU against the reference's per-operator device tier.
+"""TPC-H Q1, Q3 and Q6 and K8's statements (NOT IN, Q22, NOT EXISTS) at
+SF=0.01 (seed 7) through SQL: the port's device tier on the CPU against
+the reference's per-operator device tier.
 
 Reference: the JAX session with tidb_use_tpu=1, tidb_devpipe=0,
 tidb_tpu_min_rows=0 and TINYSQL_DEVICE_JOIN_ONLY=1 (its device join
@@ -97,6 +98,38 @@ def test_tpch_matches_reference_device_tier(sessions, q, monkeypatch):
     assert port_tpch.canon_rows(cpu) == port_tpch.canon_rows(got)
 
 
+# K8's statements: chip_smoke.py's three at SF=0.01 (NOT_EXISTS and Q22
+# keep no customer there) and a NOT EXISTS over early orders only, which
+# keeps about half of the customers
+K8_CASES = {**port_tpch.K8_QUERIES,
+            "NOT_EXISTS_EARLY": """select count(*), sum(c_custkey)
+from customer
+where not exists (select * from orders
+                  where o_custkey = c_custkey
+                    and o_orderdate < '1993-01-01')"""}
+
+
+@pytest.mark.parametrize("q", sorted(K8_CASES))
+def test_k8_queries_match_reference_device_tier(sessions, q):
+    """NOT IN, Q22 and NOT EXISTS reach semi_join_match (HK3's membership,
+    then semi_pick's plain version on the CPU) and give the reference's
+    rows and the port's CPU tier's."""
+    ref, port = sessions
+    kernels.reset_kernel_counts()
+    want = ref.query(K8_CASES[q]).rows
+    got = port.query(K8_CASES[q]).rows
+    _same(got, want, q)
+    assert kernels.kernel_counts()["plain_calls"]["semi_pick"] > 0
+    if q == "NOT_EXISTS_EARLY":
+        assert got[0][0] > 0
+    port.execute("set tidb_use_tpu = 0")
+    try:
+        cpu = port.query(K8_CASES[q]).rows
+    finally:
+        port.execute("set tidb_use_tpu = 1")
+    assert port_tpch.canon_rows(cpu) == port_tpch.canon_rows(got)
+
+
 def test_q5_rows_match_cpu_tier_and_sqlite(sessions):
     """tpch.q5_rows, the numpy answer Q5's rows are held to on the card at
     SF=1, equals the port's CPU tier and the sqlite mirror on the same
@@ -124,21 +157,24 @@ def test_generators_agree():
 
 
 def test_not_ported_paths_fail_loudly(sessions):
-    """Block-wise execution (a TopN over a table past
-    tidb_device_block_rows) and the mesh tier raise, naming their ROADMAP
-    items."""
+    """The mesh tier raises, naming its ROADMAP item.  Block-wise
+    execution is ported: a TopN over a table past tidb_device_block_rows
+    runs block-wise and gives the unblocked rows."""
     _, port = sessions
     topn = ("select l_orderkey from lineitem order by l_extendedprice desc, "
             "l_orderkey limit 3")
-    for var, item, sql in (("tidb_device_block_rows = 1000", "item 1", topn),
-                           ("tidb_mesh_parallel = 1", "item 10",
-                            port_tpch.QUERIES["Q3"])):
-        port.execute(f"set {var}")
-        try:
-            with pytest.raises(NotImplementedError, match=item):
-                port.query(sql)
-        finally:
-            port.execute("set " + var.split("=")[0] + "= 0")
+    want = port.query(topn).rows
+    port.execute("set tidb_device_block_rows = 1000")
+    try:
+        assert port.query(topn).rows == want
+    finally:
+        port.execute("set tidb_device_block_rows = 0")
+    port.execute("set tidb_mesh_parallel = 1")
+    try:
+        with pytest.raises(NotImplementedError, match="item 10"):
+            port.query(port_tpch.QUERIES["Q3"])
+    finally:
+        port.execute("set tidb_mesh_parallel = 0")
 
 
 @pytest.mark.parametrize("point", ["kernelDispatchError", "kernelD2HError"])

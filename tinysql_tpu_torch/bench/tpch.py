@@ -154,7 +154,38 @@ from (select c_custkey, count(o_orderkey) as c_count
 group by c_count
 order by custdist desc, c_count desc"""
 
+# K8's path (the semi / anti / NOT IN join): Q3's lineitem predicate
+# negated as a NOT IN subquery (a null-aware anti join: 1.5M orders probe
+# ~3M lineitem keys at SF=1), and Q22 as TPC-H Clause 2.4.22 writes it
+# (its NOT EXISTS is a plain anti join).  This generator gives almost
+# every customer an order (o_custkey uniform over the customers), so Q22
+# answers few rows or none; NOT_EXISTS is its anti join alone, which keeps
+# the customers without an order (~7 of 150,000 at SF=1).
+NOT_IN = """select count(*), sum(o_totalprice)
+from orders
+where o_orderkey not in (select l_orderkey from lineitem
+                         where l_shipdate > '1995-03-15')"""
+
+Q22 = """select cntrycode, count(*) as numcust, sum(c_acctbal) as totacctbal
+from (select substring(c_phone, 1, 2) as cntrycode, c_acctbal
+      from customer
+      where substring(c_phone, 1, 2) in
+            ('13', '31', '23', '29', '30', '18', '17')
+        and c_acctbal > (select avg(c_acctbal) from customer
+                         where c_acctbal > 0.00
+                           and substring(c_phone, 1, 2) in
+                               ('13', '31', '23', '29', '30', '18', '17'))
+        and not exists (select * from orders
+                        where o_custkey = c_custkey)) as custsale
+group by cntrycode
+order by cntrycode"""
+
 QUERIES = {"Q1": Q1, "Q3": Q3, "Q6": Q6}
+NOT_EXISTS = """select count(*), sum(c_custkey)
+from customer
+where not exists (select * from orders where o_custkey = c_custkey)"""
+
+K8_QUERIES = {"NOT_IN": NOT_IN, "Q22": Q22, "NOT_EXISTS": NOT_EXISTS}
 WORKLOAD = {"Q5": Q5, "Q10": Q10, "Q18": Q18}
 ALL_QUERIES = {**QUERIES, **WORKLOAD}
 

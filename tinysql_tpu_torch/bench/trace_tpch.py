@@ -1,13 +1,16 @@
-"""Where the time of TPC-H Q1, Q3, Q6, Q13 and the workload trio Q5, Q10,
-Q18 goes on the card.
+"""Where the time of TPC-H Q1, Q3, Q6, Q13, K8's path (NOT IN, Q22), a
+block-wise run and the workload trio Q5, Q10, Q18 goes on the card.
 
     python3 -m tinysql_tpu_torch.bench.trace_tpch [--out FILE]
 
 Loads TPC-H at SF=1 (seed 7, the main path's data) into a session on the
 current CUDA device, then for each device tier (the pipeline tier,
 tidb_devpipe=-1, the default; the per-operator tier, tidb_devpipe=0) and
-each query (Q1, Q3, Q6 on both tiers, then Q13, then the trio): the first
-run's wall, the best of three warm walls,
+each query (Q1, Q3, Q6 on both tiers, then Q13, then tpch.K8_QUERIES,
+then Q1, Q3, Q6 and NOT IN block-wise under tidb_device_block_rows =
+2^20 — recorded under the tier names "pipeline_blockwise" and
+"per_op_blockwise" —, then the trio): the first run's wall, the best of
+three warm walls,
 and one more warm run under torch.profiler (CPU + CUDA activities; taken
 again, up to three times, when its trace holds no device event) giving
 the device time summed over its kernels (one stream, so kernels do not
@@ -31,6 +34,9 @@ import time
 SF, SEED = 1.0, 7
 #: tier -> tidb_devpipe
 TIERS = {"pipeline": -1, "per_op": 0}
+#: the block-wise run: tidb_device_block_rows and its queries
+BLOCK_ROWS = 1 << 20
+BLOCK_QUERIES = ("Q1", "Q3", "Q6", "NOT_IN")
 
 
 def _card() -> str:
@@ -114,18 +120,25 @@ def main(argv=None) -> int:
     from ..session import new_session
     sess = new_session()
     tpch.load(sess, sf=SF, seed=SEED)
-    out = {"card": _card(), "sf": SF, "seed": SEED,
-           "tiers": {tier: {} for tier in TIERS}}
+    out = {"card": _card(), "sf": SF, "seed": SEED, "tiers": {}}
+    named = {**tpch.QUERIES, **tpch.K8_QUERIES}
+    blockwise = {q: named[q] for q in BLOCK_QUERIES}
     # Q1, Q3, Q6 and Q13 on both tiers before the trio: after Q5's run,
     # torch.profiler loses some kernel events of later traces
-    for queries in (tpch.QUERIES, {"Q13": tpch.Q13}, tpch.WORKLOAD):
+    for queries in (tpch.QUERIES, {"Q13": tpch.Q13}, tpch.K8_QUERIES,
+                    blockwise, tpch.WORKLOAD):
+        block = queries is blockwise
         for tier in TIERS:
             sess.execute(f"set tidb_devpipe = {TIERS[tier]}")
+            sess.execute("set tidb_device_block_rows = "
+                         f"{BLOCK_ROWS if block else 0}")
+            name = tier + ("_blockwise" if block else "")
             for q, sql in queries.items():
                 rec = trace_query(sess, sql, torch)
-                out["tiers"][tier][q] = rec
-                print(json.dumps({"tier": tier, "query": q, **rec},
+                out["tiers"].setdefault(name, {})[q] = rec
+                print(json.dumps({"tier": name, "query": q, **rec},
                                  default=str), flush=True)
+    sess.execute("set tidb_device_block_rows = 0")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -55,21 +55,29 @@ pressure runs on the per-operator tier.  An exception while compiling
 or running a pipeline fails the statement in every mode: nothing re-runs
 behind the caller's back.
 
-Not ported yet (ROADMAP queue 1): ``BlockPipeline`` / ``pipeline_depth``
-(block-wise execution; the per-operator tier raises for a table over
-``tidb_device_block_rows``), graph capture of a pipeline key, and the
-mesh modes (``_JoinNode``'s shuffle join, the mesh TopN:
+``BlockPipeline`` / ``pipeline_depth`` stage the per-operator tier's
+block-wise runs (a table over ``tidb_device_block_rows``): inline by
+default; at ``tidb_pipeline_depth`` > 0, uploads on a thread and a CUDA
+side stream, kernels on the statement's stream.
+
+Not ported yet (ROADMAP queue 1): graph capture of a pipeline key, and
+the mesh modes (``_JoinNode``'s shuffle join, the mesh TopN:
 ``tidb_mesh_parallel=1`` raises NotImplementedError).
 """
 from __future__ import annotations
 
+import contextvars
+import os
+import queue
 import threading
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from .. import fail as _fail
+from ..obs import context as _obs
 from ..utils import interrupt as _interrupt
 
 from ..chunk import Chunk, Column as CCol
@@ -98,6 +106,201 @@ COMPILED_NODE_KEYS: set = set()
 def _note_compiled(kparts) -> None:
     with _CNK_MU:
         COMPILED_NODE_KEYS.update(kparts)
+
+
+# =========================================================================
+# block pipeline: host staging on a side stream, compute on the main one
+# =========================================================================
+
+def pipeline_depth(session_vars=None) -> int:
+    """Staging-queue depth of the block pipeline: how many staged blocks
+    may be in flight ahead of the consumer.  0 = synchronous inline
+    staging: no thread, no side stream, the exact sequential order.
+    Resolution: TINYSQL_PIPELINE_DEPTH env > tidb_pipeline_depth sysvar >
+    default 0 (inline: the uploads are from pageable host memory, which
+    a side stream cannot overlap)."""
+    env = os.environ.get("TINYSQL_PIPELINE_DEPTH")
+    if env is not None:
+        try:
+            return max(0, int(env))
+        except ValueError:
+            return 0
+    if session_vars is not None:
+        try:
+            return max(0, int(session_vars.get("tidb_pipeline_depth", 0)
+                              or 0))
+        except Exception:
+            return 0
+    return 0
+
+
+#: end-of-stream marker on the staging queue
+_PIPE_DONE = object()
+
+
+def _tensors(x):
+    """Every tensor inside a staged block (nested tuples, lists, dicts)."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            yield from _tensors(y)
+    elif isinstance(x, dict):
+        for y in x.values():
+            yield from _tensors(y)
+
+
+class BlockPipeline:
+    """Bounded-depth staging queue: ONE producer thread runs
+    ``stage_fn(item)`` for each item IN ORDER — the host half of a block
+    (slice, pad, upload) — while the consumer iterates the staged results
+    in the same order and launches the block's kernels.
+
+    On CUDA the producer stages on a side stream of its own: block k+1's
+    uploads run while block k's kernels run on the consumer's stream.
+    Each staged block carries an event recorded on the side stream after
+    its uploads; the consumer's stream waits on it before the block is
+    handed over, and every tensor of the block is marked as used by the
+    consumer's stream (``record_stream``), so the caching allocator does
+    not hand its memory to the side stream again before the consumer's
+    kernels are done with it.
+
+    ``depth <= 0`` stages inline with NO thread and no side stream: the
+    same calls in the same order, so results are byte-identical with the
+    pipeline on or off (the TINYSQL_PIPELINE_DEPTH=0 contract).
+
+    Error contract: an exception inside ``stage_fn`` is captured, the
+    producer stops, and the exception re-raises ON THE CALLER at the
+    point the failed block would have been consumed — blocks staged
+    before it still deliver.  Abandoning the iterator (break / caller
+    exception) cancels the producer and joins the thread; ``close()`` is
+    idempotent."""
+
+    def __init__(self, stage_fn: Callable, items, depth: int = 2):
+        self._stage = stage_fn
+        self._items = list(items)
+        self._sync = depth <= 0
+        self._mu = threading.Lock()
+        self._stage_s = 0.0
+        self._hwm = 0
+        self._cancel = threading.Event()
+        self._q = None
+        self._thread = None
+        self._dev = None
+        self._side = None
+        if not self._sync:
+            self._dev = kernels.device()
+            if self._dev.type == "cuda":
+                self._side = torch.cuda.Stream(device=self._dev)
+            self._q = queue.Queue(maxsize=max(1, depth))
+            # the producer runs inside a COPY of the creator's context:
+            # the statement's device scope, its QueryObs scope and span
+            # parent carry across the thread boundary
+            cctx = contextvars.copy_context()
+            self._thread = threading.Thread(
+                target=cctx.run, args=(self._run,),
+                name="devpipe-stage", daemon=True)
+            self._thread.start()
+
+    def _stage_timed(self, item):
+        t0 = time.time()
+        # a statement kill or deadline stops the producer between blocks,
+        # and the staging failpoint exercises the error contract
+        _interrupt.check()
+        _fail.inject("devpipeStageError")
+        with _obs.span("stage", cat="pipeline"):
+            out = self._stage(item)
+        dt = time.time() - t0
+        with self._mu:
+            self._stage_s += dt
+        return out
+
+    # ---- producer -------------------------------------------------------
+    def _run(self) -> None:
+        if self._side is None:
+            self._produce()
+            return
+        with torch.cuda.device(self._dev), torch.cuda.stream(self._side):
+            self._produce()
+
+    def _produce(self) -> None:
+        try:
+            for item in self._items:
+                if self._cancel.is_set():
+                    return
+                out = self._stage_timed(item)
+                ev = None
+                if self._side is not None:
+                    ev = torch.cuda.Event()
+                    ev.record(self._side)
+                if not self._put((out, ev, None)):
+                    return
+        except BaseException as exc:  # delivered to the consumer
+            self._put((None, None, exc))
+            return
+        self._put(_PIPE_DONE)
+
+    def _put(self, entry) -> bool:
+        """Cancellation-aware bounded put: a consumer that stopped
+        pulling must never leave this thread parked on a full queue."""
+        while not self._cancel.is_set():
+            try:
+                self._q.put(entry, timeout=0.05)
+            except queue.Full:
+                continue
+            with self._mu:
+                self._hwm = max(self._hwm, self._q.qsize())
+            return True
+        return False
+
+    # ---- consumer -------------------------------------------------------
+    def _hand_over(self, out, ev):
+        """Order the consumer's stream after the block's uploads."""
+        if ev is None:
+            return out
+        cur = torch.cuda.current_stream(self._dev)
+        cur.wait_event(ev)
+        for t in _tensors(out):
+            if t.is_cuda:
+                t.record_stream(cur)
+        return out
+
+    def __iter__(self):
+        if self._sync:
+            for item in self._items:
+                yield self._stage_timed(item)
+            return
+        try:
+            while True:
+                entry = self._q.get()
+                if entry is _PIPE_DONE:
+                    break
+                out, ev, exc = entry
+                if exc is not None:
+                    raise exc
+                yield self._hand_over(out, ev)
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        """Cancel the producer and join its thread (idempotent)."""
+        self._cancel.set()
+        if self._thread is None:
+            return
+        while True:  # wake a producer parked on a full queue
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout=10)
+
+    def stats(self) -> dict:
+        """{"blocks", "stage_s", "depth_hwm"} — feed kernels.pipe_record
+        AFTER the consumer loop (the producer is joined by then)."""
+        with self._mu:
+            return {"blocks": len(self._items),
+                    "stage_s": self._stage_s,
+                    "depth_hwm": self._hwm}
 
 
 class _PipeBuilder:

@@ -18,13 +18,19 @@ Plans with a join or a grouped aggregate go to the device pipeline tier
 (``tidb_devpipe``) and hands the shapes it does not take to these
 operators.
 
-Not ported yet, and failing loudly instead of falling back: block-wise
-execution (``tidb_device_block_rows``, ROADMAP queue 1, item 1), the
-memory-adaptive spill route (item 6), and the multi-device mesh tier
-(item 10).
+A table above ``tidb_device_block_rows`` runs block-wise: HashAgg reduces
+row blocks and carries partial states on the host, HashJoin streams its
+probe side in blocks against the resident build keys, TopN carries its
+candidates across blocks, and a full Sort orders on the host (the
+reference's route for it).  Staging runs on devpipe.BlockPipeline.
+
+Not ported yet, and failing loudly instead of falling back: the
+memory-adaptive spill route (ROADMAP queue 1, item 6) and the
+multi-device mesh tier (item 10).
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -43,8 +49,6 @@ from ..planner.physical import (PhysicalHashAgg, PhysicalHashJoin,
                                 PhysicalSort, PhysicalTopN)
 from .executors import Executor, build_executor
 
-_BLOCKWISE_TODO = ("block-wise device execution (tidb_device_block_rows) "
-                   "is not ported yet: ROADMAP queue 1, item 1")
 _SPILL_TODO = ("memory-adaptive spill execution is not ported yet: "
                "ROADMAP queue 1, item 6")
 _MESH_TODO = ("the multi-device mesh tier (tidb_mesh_parallel) is not "
@@ -625,9 +629,18 @@ class GPUHashAggExec(Executor):
             child._replica = rep
             return None
 
+        # ---- block-wise execution: a table above the device buffer
+        # budget streams through the card in row blocks; partial states
+        # carry on the host between blocks
         budget = _block_budget(self.ctx.session_vars)
         if budget > 0 and n > budget:
-            raise NotImplementedError(_BLOCKWISE_TODO)
+            out = self._fused_blockwise(chk, rep, child, filters, specs,
+                                        arg_exprs, slots, key_layouts,
+                                        n_segments, n, budget)
+            if out is not None:
+                return out
+            child._replica = rep
+            return None
 
         # ---- filter mask: HK7 conditions when every one lowers
         # (constants as runtime params); host numpy + upload otherwise.
@@ -723,6 +736,161 @@ class GPUHashAggExec(Executor):
             out_keys = self._decode_present(present, key_layouts)
         return self._assemble_output(chk, plan, slots, out_keys, out_aggs,
                                      first_orig,
+                                     [l[3] for l in key_layouts])
+
+    def _fused_blockwise(self, chk, rep, child, filters, specs,
+                         arg_exprs, slots, key_layouts, n_segments: int,
+                         n: int, budget: int):
+        """Block-wise fused aggregation: row blocks of ``budget`` rows
+        upload transiently (not memoized on the replica: the table is the
+        one that does not fit), HK7 + HK2 (grouped) or HK7 + HK1 (scalar)
+        reduce each block on the card, and per-segment partial states
+        (sum / count add, min / max fold, first-row min, presence union)
+        carry on the host between blocks, in block order.
+
+        Staging (slice, pad, upload) runs through a BlockPipeline:
+        inline by default, and at tidb_pipeline_depth > 0 on its thread
+        and side stream while the card reduces the previous block and
+        this thread folds its partials, with the same fold order and so
+        the same result."""
+        from .devpipe import BlockPipeline, pipeline_depth
+        fmask = _fold_filter_masks(child, rep, chk, filters) \
+            if filters else None
+        pt = ParamTable()
+        prog, lane_of, program_key = _agg_program(specs, arg_exprs, [], pt)
+        params = pt.arrays()
+        needed = set()
+        for a in arg_exprs:
+            if isinstance(a, tuple):
+                needed.add((a[1], "mask"))
+            elif a is not None:
+                for c in a.collect_columns():
+                    needed.add((c.index, "full"))
+        # eligibility before the pipeline starts: a string column in a
+        # compute expression leaves the whole path, never one block
+        for idx, kind in needed:
+            v = chk.columns[idx].values()
+            if kind == "full" and (v.dtype == object or v.dtype.kind == "U"):
+                return None
+        gid_full = self._compose_gid(key_layouts, n) if key_layouts \
+            else None
+        ns = n_segments if key_layouts else 1
+        bb = kernels.bucket(budget)
+        seen = np.zeros(ns, dtype=bool)
+        first_acc = np.full(ns, np.iinfo(np.int64).max, dtype=np.int64)
+        acc: list = [None] * len(specs)
+
+        def ensure_acc(i, kind, dtype):
+            if acc[i] is not None:
+                return acc[i]
+            if kind in ("count_star", "count", "sum", "sum0"):
+                av = np.zeros(ns, dtype=dtype)
+            elif kind == "min":
+                av = np.full(ns, np.inf if dtype == np.float64
+                             else np.iinfo(np.int64).max, dtype=dtype)
+            else:
+                av = np.full(ns, -np.inf if dtype == np.float64
+                             else np.iinfo(np.int64).min, dtype=dtype)
+            acc[i] = (av, np.ones(ns, dtype=bool))
+            return acc[i]
+
+        def stage(start):
+            """Host half of one block: slice, pad, upload."""
+            end = min(start + budget, n)
+            m_rows = end - start
+            dev_cols = [None] * len(chk.columns)
+            for idx, kind in needed:
+                col = chk.columns[idx]
+                v = col.values()
+                m_ = col.null_mask()
+                if v.dtype == object or v.dtype.kind == "U":
+                    dv = None  # mask-only slot (COUNT over a string col)
+                else:
+                    dv = kernels.h2d_pad(v[start:end], bb)
+                dn = kernels.h2d_pad(m_[start:end], bb, True)
+                if dev_cols[idx] is None or dv is not None:
+                    dev_cols[idx] = (dv, dn)
+            bmask = np.zeros(bb, dtype=bool)
+            bmask[:m_rows] = fmask[start:end] if fmask is not None \
+                else True
+            mask_spec = ("host", kernels.h2d(bmask))
+            gid_b = kernels.h2d_pad(gid_full[start:end], bb) \
+                if key_layouts else None
+            return start, m_rows, dev_cols, mask_spec, gid_b
+
+        t_pipe = time.time()
+        dispatch_s = drain_s = 0.0
+        pipe = BlockPipeline(stage, range(0, n, budget),
+                             depth=pipeline_depth(self.ctx.session_vars))
+        for start, m_rows, dev_cols, mask_spec, gid_b in pipe:
+            t0 = time.time()
+            if key_layouts:
+                present, outs, first = kernels.fused_segment_aggregate(
+                    dev_cols, gid_b, ns, specs, prog, lane_of, m_rows,
+                    mask_spec, program_key=program_key, params=params)
+            else:
+                # scalar contract: zero-or-one-row arrays; an empty block
+                # contributes nothing
+                outs, first = kernels.fused_scalar_aggregate(
+                    dev_cols, specs, prog, lane_of, m_rows, bb, mask_spec,
+                    program_key=program_key, params=params)
+                present = np.zeros(len(first), dtype=np.int64)
+            dispatch_s += time.time() - t0
+            t0 = time.time()
+            if len(present) == 0:
+                continue
+            seen[present] = True
+            first_acc[present] = np.minimum(first_acc[present],
+                                            np.asarray(first) + start)
+            for i, ((v_, m_), (kind, _)) in enumerate(zip(outs, specs)):
+                v_ = np.asarray(v_)
+                live = ~np.asarray(m_, dtype=bool)
+                if not live.any():
+                    continue
+                av, am = ensure_acc(i, kind, v_.dtype)
+                ids = np.asarray(present)[live]
+                vv = v_[live]
+                if kind in ("count_star", "count", "sum", "sum0"):
+                    av[ids] += vv
+                elif kind == "min":
+                    av[ids] = np.minimum(av[ids], vv)
+                else:
+                    av[ids] = np.maximum(av[ids], vv)
+                am[ids] = False
+            drain_s += time.time() - t0
+        ps = pipe.stats()
+        kernels.pipe_record(blocks=ps["blocks"], stage_s=ps["stage_s"],
+                            dispatch_s=dispatch_s, drain_s=drain_s,
+                            wall_s=time.time() - t_pipe,
+                            depth_hwm=ps["depth_hwm"])
+        if self.plan.group_by:
+            present_ids = np.nonzero(seen)[0]
+        else:
+            # a scalar aggregate over zero rows still returns one row
+            # (COUNT = 0, SUM = NULL)
+            present_ids = np.arange(1)
+            if not seen[0]:
+                first_acc[0] = 0
+        out_aggs = []
+        for i, (kind, _) in enumerate(specs):
+            if acc[i] is None:
+                dt = np.int64 if kind != "sum" else np.float64
+                av = np.zeros(ns, dtype=dt)
+                am = np.ones(ns, dtype=bool)
+                if kind in ("count_star", "count", "sum0"):
+                    am = np.zeros(ns, dtype=bool)  # COUNT of nothing = 0
+                acc[i] = (av, am)
+            av, am = acc[i]
+            if kind in ("count_star", "count", "sum0"):
+                am = np.zeros_like(am)  # counts are never NULL
+            out_aggs.append((av[present_ids], am[present_ids]))
+        out_keys = self._decode_present(present_ids, key_layouts) \
+            if key_layouts else []
+        first_orig = np.where(
+            first_acc[present_ids] == np.iinfo(np.int64).max, 0,
+            first_acc[present_ids])
+        return self._assemble_output(chk, self.plan, slots, out_keys,
+                                     out_aggs, first_orig,
                                      [l[3] for l in key_layouts])
 
     @staticmethod
@@ -1126,12 +1294,26 @@ class GPUHashJoinExec(Executor):
                     _JOIN_ROW_BYTES)
         probe_side = 1 if (left_unique and plan.tp == "inner"
                            and not right_unique) else 0
+        # block-wise probe streaming: when the PROBE side exceeds
+        # tidb_device_block_rows, its key column uploads per block against
+        # the build keys resident on the card; the probe column never
+        # uploads whole.  Multi-key joins ride one composite lane built
+        # over both sides whole, so they do not stream.
         budget = _block_budget(self.ctx.session_vars)
         probe_chk = lchk if probe_side == 0 else rchk
         composite = len(plan.left_keys) > 1
-        if budget > 0 and probe_chk.full_rows() > budget and not composite:
-            raise NotImplementedError(_BLOCKWISE_TODO)
-        _check_mesh(self.ctx)
+        stream = (budget > 0 and probe_chk.full_rows() > budget
+                  and not composite)
+        if not stream:
+            _check_mesh(self.ctx)
+        from .devpipe import BlockPipeline, pipeline_depth
+        depth = pipeline_depth(self.ctx.session_vars)
+
+        def keys_of(side, expr, chk, rep):
+            if stream and side == probe_side:
+                v, m = expr.vec_eval(chk)  # host: no whole-column upload
+                return np.asarray(v), np.asarray(m)
+            return self._key_arrays(expr, chk, rep, side)
 
         if composite:
             # multi-key equi-joins ride ONE composite int64 lane (joint
@@ -1139,8 +1321,8 @@ class GPUHashJoinExec(Executor):
             (lk, lnull), (rk, rnull) = _composite_key_lanes(
                 plan.left_keys, lchk, plan.right_keys, rchk)
         else:
-            lk, lnull = self._key_arrays(plan.left_keys[0], lchk, lrep, 0)
-            rk, rnull = self._key_arrays(plan.right_keys[0], rchk, rrep, 1)
+            lk, lnull = keys_of(0, plan.left_keys[0], lchk, lrep)
+            rk, rnull = keys_of(1, plan.right_keys[0], rchk, rrep)
         if on_left:
             on_mask = vectorized_filter(on_left, lchk)
             # poison only the NULL mask (values may stay device-resident);
@@ -1154,15 +1336,77 @@ class GPUHashJoinExec(Executor):
                 lnull = lnull | fail_m
             else:
                 lnull = lnull | ~on_mask
+
+        def stream_match(fn, pk, pn, n_probe, pmask, bkey, n_build, bmask,
+                         **kw):
+            """``fn`` per probe block of ``budget`` rows with the block's
+            validity slice; probe indices re-base by the block start and
+            concatenate in block order (so every staging depth gives
+            the same bytes).  At depth > 0 the staging thread uploads the
+            next block's padded key while the current block's match
+            runs."""
+            nbb = kernels.bucket(max(n_build, 1))
+            bkey = tuple(kernels._dev_key(a, nbb, fill)
+                         for a, fill in zip(bkey, (0, True)))
+
+            def stage(s_):
+                e_ = min(s_ + budget, n_probe)
+                m = e_ - s_
+                blk = kernels.bucket(max(m, 1))
+                kv = kernels.h2d_pad(pk[s_:e_], blk)
+                kn = kernels.h2d_pad(pn[s_:e_], blk, True)
+                pm = None if pmask is None else pmask[s_:e_]
+                return s_, (kv, kn), m, pm
+
+            pis, bis = [], []
+            t_pipe = time.time()
+            dispatch_s = 0.0
+            pipe = BlockPipeline(stage, range(0, n_probe, budget),
+                                 depth=depth)
+            for s_, kpair, m, pm in pipe:
+                t0 = time.time()
+                pi_b, bi_b = fn(kpair, m, bkey, n_build, lvalid=pm,
+                                rvalid=bmask, **kw)
+                dispatch_s += time.time() - t0
+                pis.append(pi_b + s_)
+                bis.append(bi_b)
+            ps = pipe.stats()
+            kernels.pipe_record(blocks=ps["blocks"], stage_s=ps["stage_s"],
+                                dispatch_s=dispatch_s,
+                                wall_s=time.time() - t_pipe,
+                                depth_hwm=ps["depth_hwm"])
+            if not pis:
+                z = np.empty(0, dtype=np.int64)
+                return z, z
+            return np.concatenate(pis), np.concatenate(bis)
+
         if right_unique:
             # unique build side: no expansion, no size sync
-            li, ri = kernels.unique_join_match(
-                (lk, lnull), lchk.full_rows(), (rk, rnull),
-                rchk.full_rows(), outer=outer, lvalid=lmask, rvalid=rmask)
+            if stream:
+                li, ri = stream_match(
+                    kernels.unique_join_match, lk, lnull, lchk.full_rows(),
+                    lmask, (rk, rnull), rchk.full_rows(), rmask,
+                    outer=outer)
+            else:
+                li, ri = kernels.unique_join_match(
+                    (lk, lnull), lchk.full_rows(), (rk, rnull),
+                    rchk.full_rows(), outer=outer, lvalid=lmask,
+                    rvalid=rmask)
         elif left_unique and plan.tp == "inner":
-            ri, li = kernels.unique_join_match(
-                (rk, rnull), rchk.full_rows(), (lk, lnull),
-                lchk.full_rows(), outer=False, lvalid=rmask, rvalid=lmask)
+            if stream:
+                ri, li = stream_match(
+                    kernels.unique_join_match, rk, rnull, rchk.full_rows(),
+                    rmask, (lk, lnull), lchk.full_rows(), lmask,
+                    outer=False)
+            else:
+                ri, li = kernels.unique_join_match(
+                    (rk, rnull), rchk.full_rows(), (lk, lnull),
+                    lchk.full_rows(), outer=False, lvalid=rmask,
+                    rvalid=lmask)
+        elif stream:
+            li, ri = stream_match(
+                kernels.join_match, lk, lnull, lchk.full_rows(), lmask,
+                (rk, rnull), rchk.full_rows(), rmask, outer=outer)
         else:
             li, ri = kernels.join_match((lk, lnull), lchk.full_rows(),
                                         (rk, rnull), rchk.full_rows(),
@@ -1301,9 +1545,13 @@ class GPUSortExec(Executor):
                             n, row_bytes)
                 budget = _block_budget(self.ctx.session_vars)
                 if budget > 0 and n > budget:
-                    raise NotImplementedError(_BLOCKWISE_TODO)
-                _check_mesh(self.ctx)
-                perm = kernels.sort_permutation(keys, descs, n)
+                    # above the device budget a full ORDER BY sorts on the
+                    # host (same order): uploading every key whole would
+                    # break tidb_device_block_rows
+                    perm = kernels.host_sort_permutation(keys, descs, n)
+                else:
+                    _check_mesh(self.ctx)
+                    perm = kernels.sort_permutation(keys, descs, n)
                 chk.set_sel(perm)
                 self._out = iter([chk.compact()])
         return next(self._out, None)
@@ -1335,13 +1583,40 @@ class GPUTopNExec(Executor):
                             n, row_bytes)
                 budget = _block_budget(self.ctx.session_vars)
                 if budget > 0 and n > budget:
-                    raise NotImplementedError(_BLOCKWISE_TODO)
-                _check_mesh(self.ctx)
-                perm = kernels.top_k(keys, descs, n, k)
+                    perm = self._blockwise_topk(keys, descs, n, k, budget)
+                else:
+                    _check_mesh(self.ctx)
+                    perm = kernels.top_k(keys, descs, n, k)
                 sel = perm[self.plan.offset:]
                 chk.set_sel(sel)
                 self._out = iter([chk.compact()] if len(sel) else [])
         return next(self._out, None)
+
+
+    @staticmethod
+    def _blockwise_topk(keys, descs, n: int, k: int,
+                        budget: int) -> np.ndarray:
+        """Block-wise top-k: each block of ``budget`` rows yields its own
+        top-k candidates (HK4 over one block), the carried candidates
+        merge with each block's winners (HK4 over at most 2k rows), and
+        the last merge's first k are the answer — TopN's partial state
+        carried across blocks."""
+        if 2 * k > budget:
+            # the <= 2k candidate pools would themselves exceed the
+            # device budget: the selection runs on the host
+            return np.asarray(
+                kernels.host_sort_permutation(keys, descs, n)[:k])
+        cand = np.empty(0, dtype=np.int64)
+        for s_ in range(0, n, budget):
+            e_ = min(s_ + budget, n)
+            bkeys = [(v[s_:e_], m[s_:e_]) for v, m in keys]
+            ids = np.asarray(kernels.top_k(bkeys, descs, e_ - s_,
+                                           k)) + s_
+            pool = np.concatenate([cand, ids])
+            pkeys = [(v[pool], m[pool]) for v, m in keys]
+            order = np.asarray(kernels.top_k(pkeys, descs, len(pool), k))
+            cand = pool[order]
+        return cand
 
 
 class GPUProjectionExec(Executor):

@@ -6,6 +6,12 @@ aggregate completed-region / failure statistics).
 The consumer shape is background maintenance over the whole keyspace —
 GC, diagnostics, bulk deletes — where per-region parallelism and
 stale-topology retry matter but transactional isolation does not.
+
+A handler must be idempotent per subrange: when it raises RegionError,
+``_run_one`` runs it again over the WHOLE failed subrange (re-split into
+the new regions), so keys it already handled before the error are handed
+to it again.  A handler that cannot repeat work (one that counts, moves
+or appends) has to resume from a progress key of its own.
 """
 from __future__ import annotations
 

@@ -22,7 +22,7 @@ from typing import Dict, Optional
 
 SOURCES = ("masked_reduce", "segment_reduce", "equi_join", "lex_order",
            "csr_reduce", "dense_probe", "expr_eval", "csr_expand",
-           "run_bounds")
+           "run_bounds", "semi_pick")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -103,6 +103,10 @@ _SIGNATURES = {
     "run_bounds": {
         "hk9_run_bounds": (_int, [_vp, _i64, _vp, _vp, _vp, _vp, _vp, _vp,
                                   _vp, _vp]),
+    },
+    "semi_pick": {
+        "hk10_semi_pick": (_int, [_vp, _vp, _vp, _i64, _vp, _vp, _i64, _int,
+                                  _int, _vp, _vp, _vp, _vp, _vp]),
     },
 }
 

@@ -2,7 +2,7 @@
 
 The port of tinysql_tpu/ops/kernels.py.  The JAX package compiled every
 operator family into XLA programs; here each family's core is one of
-nine kernels written by hand for Hopper (csrc/*.cu, built by
+ten kernels written by hand for Hopper (csrc/*.cu, built by
 ops/_ext.py), and the glue around them (key normalisation, packing,
 present-row extraction) runs as plain torch tensor operations:
 
@@ -13,7 +13,8 @@ present-row extraction) runs as plain torch tensor operations:
   K3 segment_group_aggregate, and K4 group_aggregate after an HK4 sort);
 - HK3 :func:`equi_join_unique` / :func:`equi_join_mult`
   (csrc/equi_join.cu) — join matching (K6 unique_join_match, K7
-  join_match, and K8 semi_join_match's membership test);
+  join_match, and K8 semi_join_match's membership test,
+  :func:`unique_match`);
 - HK4 :func:`lex_order` (csrc/lex_order.cu) — ORDER BY permutations and
   top-k (K9 sort_permutation, K10 top_k);
 - HK5 :func:`csr_reduce` (csrc/csr_reduce.cu) — the pipeline tier's
@@ -30,7 +31,9 @@ present-row extraction) runs as plain torch tensor operations:
   with a non-unique build side, expanded over the build's group index
   (K18's multiplicity mode, one key or the composite lane);
 - HK9 :func:`run_bounds` (csrc/run_bounds.cu) — the runs of equal keys
-  after an HK4 sort (K19's GROUP BY above a join, K4's boundary scan).
+  after an HK4 sort (K19's GROUP BY above a join, K4's boundary scan);
+- HK10 :func:`semi_pick` (csrc/semi_pick.cu) — K8's semi / anti / NOT IN
+  ladder over HK3's membership and the compaction of the kept rows.
 
 Every kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain torch version (same contract: inputs, outputs, NULL, sentinel and
@@ -154,7 +157,8 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "segment_reduce": 0,
                             "csr_expand": 0, "run_bounds": 0,
                             "expr_eval_batched": 0,
                             "masked_reduce_batched": 0,
-                            "segment_reduce_batched": 0}
+                            "segment_reduce_batched": 0,
+                            "semi_pick": 0}
 #: plain-version calls per wrapper (CPU tensors)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
@@ -185,10 +189,31 @@ def stats_add(key: str, n) -> None:
     _obs.record(key, n)
 
 
+def stats_hwm(key: str, n) -> None:
+    """High-water-mark write path: keeps the max, globally and in the
+    per-query scope."""
+    with _STATS_MU:
+        if n > STATS.get(key, 0):
+            STATS[key] = n
+    _obs.record_hwm(key, n)
+
+
+def pipe_record(blocks: int = 0, stage_s: float = 0.0,
+                dispatch_s: float = 0.0, drain_s: float = 0.0,
+                wall_s: float = 0.0, depth_hwm: int = 0) -> None:
+    """Accrue one block-wise run's stage / compute / drain walls into
+    STATS (once per BlockPipeline consumer loop, not per block)."""
+    stats_add("pipe_blocks", blocks)
+    stats_add("pipe_stage_s", stage_s)
+    stats_add("pipe_dispatch_s", dispatch_s)
+    stats_add("pipe_drain_s", drain_s)
+    stats_add("pipe_wall_s", wall_s)
+    stats_hwm("pipe_depth_hwm", depth_hwm)
+
+
 def pipe_overlap_frac(d: dict) -> float:
     """Staging/compute overlap estimate from a counter scope's ``pipe_*``
-    walls (the reference's formula; no pipelined path is ported yet, so
-    it reads 0)."""
+    walls (the reference's formula)."""
     pw = d.get("pipe_wall_s", 0.0)
     if not pw or pw <= 0:
         return 0.0
@@ -215,6 +240,14 @@ def stats_snapshot() -> dict:
     out["prewarm_seeded"] = pc.get("prewarm_seeded", 0)
     out["prewarm_hits"] = pc.get("prewarm_hits", 0)
     return out
+
+
+def stats_delta(since: dict) -> dict:
+    """Counters moved since a :func:`stats_snapshot` (high-water marks as
+    they stand)."""
+    now = stats_snapshot()
+    return {k: (v if k in _HWM_KEYS else v - since.get(k, 0))
+            for k, v in now.items()}
 
 
 def counted_launch(fn):
@@ -972,18 +1005,10 @@ def dense_ok(card: int, n_live: int) -> bool:
     return card <= max(1 << 22, 4 * n_live)
 
 
-def equi_join_unique(lk, ln, lv, rk, rn, rv, outer: bool = False,
-                     keep: Optional[torch.Tensor] = None):
-    """Unique build side: (li, ri) int64 tensors, li ascending.  Inner:
-    the matched probe rows; outer: every valid probe row, ri = -1 where
-    unmatched.  ``keep`` overrides which probe rows are emitted (the
-    semi/anti membership test passes its own).  Among equal live build
-    keys the lowest row is the match."""
-    nl, nr, dev = _join_checks(lk, ln, lv, rk, rn, rv)
-    if not _on_card(lk, "equi_join"):
-        return equi_join_unique_plain(lk, ln, lv, rk, rn, rv, outer, keep)
+def _unique_probe(lib, lk, ln, lv, rk, rn, rv, dev):
+    """HK3's unique probe on the card: (match, cand) per probe row."""
     from . import _ext
-    lib = _ext.lib("equi_join")
+    nl, nr = int(lk.shape[0]), int(rk.shape[0])
     n_live, kmin, kmax = _build_stats(lib, rk, rn, rv, dev)
     card = kmax - kmin + 1 if n_live else 1
     dense = n_live > 0 and dense_ok(card, n_live)
@@ -1003,17 +1028,28 @@ def equi_join_unique(lk, ln, lv, rk, rn, rv, outer: bool = False,
         rn.data_ptr(), rv.data_ptr(), nr, int(dense),
         kmin if dense else 0, kmax if dense else 0, table.data_ptr(), tsize,
         cand.data_ptr(), match.data_ptr(), _stream()), "unique_match")
-    if keep is None:
-        keep = lv if outer else match
+    return match, cand
+
+
+def equi_join_unique(lk, ln, lv, rk, rn, rv, outer: bool = False):
+    """Unique build side: (li, ri) int64 tensors, li ascending.  Inner:
+    the matched probe rows; outer: every valid probe row, ri = -1 where
+    unmatched.  Among equal live build keys the lowest row is the
+    match."""
+    _, _, dev = _join_checks(lk, ln, lv, rk, rn, rv)
+    if not _on_card(lk, "equi_join"):
+        return equi_join_unique_plain(lk, ln, lv, rk, rn, rv, outer)
+    from . import _ext
+    lib = _ext.lib("equi_join")
+    match, cand = _unique_probe(lib, lk, ln, lv, rk, rn, rv, dev)
+    keep = lv if outer else match
     li, ri = _pick(lib, keep.contiguous(), match, cand, dev)
     _count(LAUNCHES, "equi_join")
     return li, ri
 
 
-def equi_join_unique_plain(lk, ln, lv, rk, rn, rv, outer=False,
-                           keep=None):
-    """Plain torch version of the unique HK3 mode (same contract)."""
-    _count(PLAIN_CALLS, "equi_join")
+def _unique_probe_plain(lk, ln, lv, rk, rn, rv):
+    """Plain torch version of HK3's unique probe: (match, cand)."""
     r_live = rv & ~rn
     bidx = torch.nonzero(r_live).reshape(-1)
     bk = rk[bidx]
@@ -1028,11 +1064,31 @@ def equi_join_unique_plain(lk, ln, lv, rk, rn, rv, outer=False,
     else:
         match = torch.zeros_like(l_live)
         cand = torch.full_like(lk, -1)
-    if keep is None:
-        keep = lv if outer else match
+    return match, cand
+
+
+def equi_join_unique_plain(lk, ln, lv, rk, rn, rv, outer=False):
+    """Plain torch version of the unique HK3 mode (same contract)."""
+    _count(PLAIN_CALLS, "equi_join")
+    match, cand = _unique_probe_plain(lk, ln, lv, rk, rn, rv)
+    keep = lv if outer else match
     li = torch.nonzero(keep).reshape(-1)
     ri = torch.where(match[li], cand[li], torch.full_like(li, -1))
     return li, ri
+
+
+def unique_match(lk, ln, lv, rk, rn, rv) -> torch.Tensor:
+    """HK3's membership alone (K8's test): bool per probe row, true when
+    the live probe key equals some live build key."""
+    _, _, dev = _join_checks(lk, ln, lv, rk, rn, rv)
+    if not _on_card(lk, "equi_join"):
+        _count(PLAIN_CALLS, "equi_join")
+        return _unique_probe_plain(lk, ln, lv, rk, rn, rv)[0]
+    from . import _ext
+    match, _ = _unique_probe(_ext.lib("equi_join"), lk, ln, lv, rk, rn, rv,
+                             dev)
+    _count(LAUNCHES, "equi_join")
+    return match
 
 
 def equi_join_mult(lk, ln, lv, rk, rn, rv, outer: bool = False):
@@ -2557,7 +2613,7 @@ def _join_inputs(lkey, n_left: int, rkey, n_right: int, lvalid, rvalid):
         lk, rk = lk.to(F64), rk.to(F64)
     lk, ln = join_keys(lk, ln.to(torch.bool))
     rk, rn = join_keys(rk, rn.to(torch.bool))
-    return lk, ln, h2d(lv), rk, rn, h2d(rv), lv
+    return lk, ln, h2d(lv), rk, rn, h2d(rv)
 
 
 def unique_join_match(lkey, n_left: int, rkey, n_right: int,
@@ -2568,7 +2624,7 @@ def unique_join_match(lkey, n_left: int, rkey, n_right: int,
     keep every valid left row with right index -1 when unmatched.  HK3's
     key table needs no sorted build side, so there is no ``build_sorted``
     claim for a validity mask with holes to break (the reference's R3)."""
-    lk, ln, lv, rk, rn, rv, _ = _join_inputs(lkey, n_left, rkey, n_right,
+    lk, ln, lv, rk, rn, rv = _join_inputs(lkey, n_left, rkey, n_right,
                                              lvalid, rvalid)
     stats_add("dispatches", 1)
     li, ri = equi_join_unique(lk, ln, lv, rk, rn, rv, outer=outer)
@@ -2587,7 +2643,7 @@ def join_match(lkey: Tuple[np.ndarray, np.ndarray], n_left: int,
     Returns host (left_indices, right_indices), probe-major, build rows in
     stable key order; outer joins emit unmatched valid left rows once with
     right index -1."""
-    lk, ln, lv, rk, rn, rv, _ = _join_inputs(lkey, n_left, rkey, n_right,
+    lk, ln, lv, rk, rn, rv = _join_inputs(lkey, n_left, rkey, n_right,
                                              lvalid, rvalid)
     stats_add("dispatches", 1)
     li, ri = equi_join_mult(lk, ln, lv, rk, rn, rv, outer=outer)
@@ -2603,34 +2659,87 @@ def semi_join_match(lkey, n_left: int, rkey, n_right: int,
                     lvalid: np.ndarray = None,
                     rvalid: np.ndarray = None) -> np.ndarray:
     """Probe rows surviving a semi (membership) or anti (non-membership)
-    test, in probe order (K8).  Membership is HK3's unique probe (the
-    lowest matching build row stands for all); the NOT IN ladder (empty
-    build side keeps every valid probe row, a NULL build key keeps none,
-    a NULL probe key never passes) folds in as tensor ops."""
-    lk, ln, lv, rk, rn, rv, lv_h = _join_inputs(lkey, n_left, rkey,
-                                                n_right, lvalid, rvalid)
+    test, in probe order (K8).  Membership is HK3's unique probe
+    (:func:`unique_match`); HK10 (:func:`semi_pick`) applies the NOT IN
+    ladder on the card (an empty build side keeps every valid probe row,
+    a NULL build key keeps none under ``null_aware``, a NULL probe key
+    never passes it) and compacts the kept rows.  One pull brings the
+    count and the first ``PRESENT_HEAD`` rows; a second the rest, only
+    when there are more."""
+    lk, ln, lv, rk, rn, rv = _join_inputs(lkey, n_left, rkey, n_right,
+                                             lvalid, rvalid)
     stats_add("dispatches", 1)
-    rv_h = np.zeros(rk.shape[0], dtype=bool)
-    rv_h[:n_right] = rvalid[:n_right] if rvalid is not None else True
-    n_build = int(rv_h.sum())
-    if n_build == 0:
-        keep = lv_h if anti else np.zeros(len(lv_h), dtype=bool)
-        return np.nonzero(keep)[0].astype(np.int64)
-    if anti and null_aware:
-        rn_h = d2h(rn)
-        if bool((rv_h & rn_h).any()):
-            return np.empty(0, dtype=np.int64)
-    li, _ = equi_join_unique(lk, ln, lv, rk, rn, rv)
-    member = torch.zeros_like(lv)
-    member[li] = True
+    match = unique_match(lk, ln, lv, rk, rn, rv)
+    return _pull_kept(semi_pick(match, ln, lv, rn, rv, anti, null_aware))
+
+
+def _pull_kept(out: torch.Tensor) -> np.ndarray:
+    """Host int64 rows of :func:`semi_pick`'s output ([count, rows...])."""
+    head = min(PRESENT_HEAD, int(out.shape[0]) - 1)
+    got = d2h(out[:1 + head])
+    n = int(got[0])
+    if n <= head:
+        return got[1:1 + n]
+    return np.concatenate([got[1:], d2h(out[1 + head:1 + n])])
+
+
+# =========================================================================
+# HK10 semi_pick
+# =========================================================================
+
+_SEMI_STAT_BLOCKS = 512
+
+
+def semi_pick(match, ln, lv, rn, rv, anti: bool,
+              null_aware: bool) -> torch.Tensor:
+    """K8's ladder and compaction (HK10): ``match``, ``ln``, ``lv`` are a
+    probe row's membership (HK3), NULL key and validity, ``rn``, ``rv``
+    the build rows' NULL key and validity (all bool).  Returns int64[1 +
+    n_probe]: [0] the count of kept probe rows, [1:1 + count] those rows
+    ascending; the entries past the count are not written.  Semi keeps
+    the live members; anti keeps every valid row when no build row is
+    valid, else the valid non-members; ``null_aware`` anti (NOT IN) also
+    drops NULL probe keys, and keeps nothing once a valid build key is
+    NULL."""
+    nl, nr, dev = int(match.shape[0]), int(rn.shape[0]), match.device
+    for t, n, w in ((match, nl, "match"), (ln, nl, "ln"), (lv, nl, "lv"),
+                    (rn, nr, "rn"), (rv, nr, "rv")):
+        _need(t, torch.bool, n, dev, f"semi_pick {w}")
+    if not _on_card(match, "semi_pick"):
+        return semi_pick_plain(match, ln, lv, rn, rv, anti, null_aware)
+    from . import _ext
+    part = torch.empty(2 * _SEMI_STAT_BLOCKS, dtype=I64, device=dev)
+    stats = torch.empty(2, dtype=I64, device=dev)
+    btot = torch.empty(max((nl + 1023) // 1024, 1), dtype=I64, device=dev)
+    out = torch.empty(1 + nl, dtype=I64, device=dev)
+    _ext.check(_ext.lib("semi_pick").hk10_semi_pick(
+        match.data_ptr(), ln.data_ptr(), lv.data_ptr(), nl, rn.data_ptr(),
+        rv.data_ptr(), nr, int(anti), int(null_aware), part.data_ptr(),
+        stats.data_ptr(), btot.data_ptr(), out.data_ptr(), _stream()),
+        "semi_pick")
+    _count(LAUNCHES, "semi_pick")
+    return out
+
+
+def semi_pick_plain(match, ln, lv, rn, rv, anti: bool,
+                    null_aware: bool) -> torch.Tensor:
+    """Plain torch version of HK10 (same contract)."""
+    _count(PLAIN_CALLS, "semi_pick")
     if not anti:
-        keep = member
+        keep = match & lv & ~ln
     else:
-        keep = lv & ~member
+        empty = ~rv.any()
         if null_aware:
-            keep = keep & ~ln
-    out = d2h(torch.nonzero(keep).reshape(-1))
-    return out.astype(np.int64)
+            rest = lv & ~ln & ~match & ~(rv & rn).any()
+        else:
+            rest = lv & ~match
+        keep = torch.where(empty, lv, rest)
+    idx = torch.nonzero(keep).reshape(-1)
+    out = torch.empty(1 + int(match.shape[0]), dtype=I64,
+                      device=match.device)
+    out[0] = idx.shape[0]
+    out[1:1 + idx.shape[0]] = idx
+    return out
 
 
 def sort_permutation(key_cols: List[Tuple[np.ndarray, np.ndarray]],
@@ -2647,6 +2756,27 @@ def top_k(key_cols: List[Tuple[np.ndarray, np.ndarray]], descs: List[bool],
     if k <= 0 or n_rows <= 0:
         return np.empty(0, dtype=np.int64)
     return _ordered(key_cols, descs, n_rows, k)
+
+
+def host_sort_permutation(key_cols, descs, n_rows: int) -> np.ndarray:
+    """Full ORDER BY permutation computed on the host (a numpy lexsort with
+    HK4's order: NULL first ascending and last descending, ties by row
+    index): the block-wise route for a sort above
+    ``tidb_device_block_rows``, where uploading every sort key whole
+    would break the device budget (the reference's path)."""
+    stats_add("host_dispatches", 1)
+    ops = []
+    for i in range(len(key_cols) - 1, -1, -1):
+        v, m = (np.asarray(x)[:n_rows] for x in key_cols[i])
+        vv = np.where(m, 0, v)
+        if descs[i]:
+            vv = ~vv if vv.dtype == np.int64 else -vv
+            rank = np.where(m, 1, 0).astype(np.int8)   # NULL last
+        else:
+            rank = np.where(m, 0, 1).astype(np.int8)   # NULL first
+        ops.append(vv)
+        ops.append(rank)
+    return np.lexsort(ops)
 
 
 def _ordered(key_cols, descs, n_rows: int, k: Optional[int]) -> np.ndarray:

@@ -62,12 +62,14 @@ DEFAULT_SYSVARS: Dict[str, Datum] = {
     # stay resident in device memory (DeviceColumn chunks); 0 forces the
     # host-extraction path
     "tidb_device_passthrough": 1,
-    # async block pipeline: staged blocks in flight ahead of the device
+    # block pipeline: staged blocks in flight ahead of the device
     # (executor/devpipe.py BlockPipeline — block-wise aggregation and
-    # join probe streaming overlap host staging with device compute).
-    # 0 = synchronous staging (byte-identical results, no thread);
-    # the TINYSQL_PIPELINE_DEPTH env var overrides for tests/CI
-    "tidb_pipeline_depth": 2,
+    # join probe streaming stage on a thread and a CUDA side stream).
+    # 0 = synchronous staging (byte-identical results, no thread), the
+    # default: the uploads come from pageable host memory, so a thread
+    # and a side stream have no copy to overlap (PERF.md §6); the
+    # TINYSQL_PIPELINE_DEPTH env var overrides for tests/CI
+    "tidb_pipeline_depth": 0,
     # the reference's persistent XLA compile-cache directory; no meaning
     # under torch (the CUDA kernels build once per checkout, see
     # ops/_ext.py) — accepted and ignored (ops/kernels.py
