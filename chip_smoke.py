@@ -7,8 +7,8 @@ Phases (any mismatch raises, and the script exits nonzero without a
 result line):
 
 1. the card's name and power limit (nvidia-smi) and the build of the
-   ten hand-written kernel sources (HK1-HK10; K12's batched entry points
-   live in HK7's, HK1's and HK2's) from tinysql_tpu_torch/csrc;
+   twelve hand-written kernel sources (HK1-HK12; K12's batched entry
+   points live in HK7's, HK1's and HK2's) from tinysql_tpu_torch/csrc;
 2. each kernel against its plain torch version on the card, at the shapes
    the main path gives it at TPC-H SF=1 plus edge cases: integers, counts,
    NULL masks and row order exactly, float sums within 1e-6 relative; each
@@ -68,6 +68,21 @@ result line):
    under torch.profiler counts the CUDA kernels and copies it launches
    (a warm Q6, which runs the per-operator executors on both tiers, may
    launch at most six kernels);
+   then the mesh phase: with TINYSQL_MESH_SHARDS=8 set in this process
+   for the phase only, Q1, Q3 and Q6 over phase 3's tables under
+   tidb_mesh_parallel = 1 (8 virtual shards on the card) on both tiers:
+   rows equal to the same tier's mesh-off rows (floats within 1e-6
+   relative, same order), warm runs byte-equal to the first, shard rounds
+   counted, the mesh path's kernels launched as MESH_USES says in one run
+   (HK11 shard_merge after HK2 / HK1 per shard for K11 and K25's scalar
+   aggregate, HK12 shard_probe after HK4 for K25's unique join, HK4
+   twice for K21 mesh, HK6 for the broadcast joins), no plain version;
+   [mesh] lines print mesh and mesh-off warm walls and device time; then
+   HK11 and HK12 against their plain versions, byte for byte, on the
+   tensors that run handed them (per-operator Q3's K11 table and its
+   two joins, Q1's and Q6's tables), timed beside their bounds
+   ([mesh-kernel] lines; partial calls, torch.sum over the shards and a
+   batched torch.searchsorted, printed as partial);
    then the serve phase: the port's MySQL wire server (Server(storage,
    port=0), on the card) over phase 3's tables answers a Q6 substitution
    stream (8 connections, TPC-H Clause 2.4.6.3) and a Q1 stream (4,
@@ -132,6 +147,12 @@ KERNELS = {
     # :2030); its membership is HK3's
     "semi_pick": ("tinysql_tpu_torch/csrc/semi_pick.cu",
                   "tinysql_tpu/ops/kernels.py:1987"),
+    # the mesh tier: K11's and K25's psum / pmin / pmax, K25's
+    # per-partition probe (the mesh phase's path)
+    "shard_merge": ("tinysql_tpu_torch/csrc/shard_merge.cu",
+                    "tinysql_tpu/ops/kernels.py:1474"),
+    "shard_probe": ("tinysql_tpu_torch/csrc/shard_join.cu",
+                    "tinysql_tpu/ops/shardops.py:271"),
 }
 # per device tier (its tidb_devpipe value), the kernels each query of the
 # main path must launch
@@ -215,6 +236,26 @@ BLOCK_STREAMS = ("Q1", "Q3", "Q6")
 #: the most CUDA kernels one warm Q6 may launch (the per-operator
 #: executors: HK7, HK1's two passes; copies are counted apart)
 Q6_PER_OP_MAX_KERNELS = 6
+#: the mesh phase: virtual shards (TINYSQL_MESH_SHARDS, set for that
+#: phase only), and per device tier the launches one mesh run of each
+#: query must make of the mesh path's kernels ("at least" where a count
+#: depends on the plan's other operators).  Q1 under the pipeline tier
+#: is aggregate-only and goes to the per-operator tier's K11, as in the
+#: reference; pipeline Q3 runs its two unique joins in the broadcast
+#: mode (HK6) and its TopN as K21 mesh (HK4 twice)
+MESH_SHARDS = 8
+MESH_USES = {
+    "pipeline": {"Q1": {"segment_reduce": 8, "shard_merge": 1},
+                 "Q3": {"dense_probe": 2, "lex_order": (2,),
+                        "csr_reduce": 1},
+                 "Q6": {"masked_reduce": 8, "shard_merge": 1}},
+    "per_op": {"Q1": {"segment_reduce": 8, "shard_merge": 1},
+               "Q3": {"shard_probe": 2, "lex_order": (3,),
+                      "segment_reduce": 8, "shard_merge": 1},
+               "Q6": {"masked_reduce": 8, "shard_merge": 1}},
+}
+MESH_KINDS = {"Q3": {"leaf", "join", "aggindex", "order_mesh"}}
+MESH_WARM = 3
 
 
 class Mismatch(AssertionError):
@@ -561,10 +602,16 @@ def phase_kernels(K, dev):
     lanes_q3 = K.sort_lanes([(rev, nul0), (date, nul0)], [True, False],
                             validq)
     hk4_case(lanes_q3, nq, 10, "lex_order Q3 top-10")
-    key8 = K.sort_lanes([(t(rng.integers(0, 1 << 62, n), torch.int64),
-                          t(np.zeros(n, bool)))], [False],
+    v8 = t(rng.integers(0, 1 << 62, n), torch.int64)
+    key8 = K.sort_lanes([(v8, t(np.zeros(n, bool)))], [False],
                         t(np.ones(n, bool)))
     hk4_case(key8, n, None, "lex_order full sort 2^23")
+    # one NULL-free int64 key, all rows valid: HK4 over its order lane
+    # computes what torch.argsort(stable=True) does (the K9 / K21 mesh /
+    # K25 build-sort yardstick)
+    if not torch.equal(K.lex_order([key8[1]], n),
+                       torch.argsort(v8, stable=True)):
+        raise Mismatch("lex_order one key 2^23: differs from argsort")
     rec["lex_order"] = {
         "max_abs_err": 0.0,
         **timed(lambda: K.lex_order(lanes_q3, nq, 10)),
@@ -577,7 +624,11 @@ def phase_kernels(K, dev):
         "sort_2e23_ms": cuda_ms(lambda: K.lex_order(key8, n), reps=3,
                                 warm=1),
         "one_lane_torch_sort_2e23_ms": cuda_ms(lambda: torch.sort(
-            key8[1], stable=True), reps=3, warm=1)}
+            key8[1], stable=True), reps=3, warm=1),
+        "one_key_2e23_ms": cuda_ms(lambda: K.lex_order([key8[1]], n),
+                                   reps=3, warm=1),
+        "one_key_2e23_library_argsort_ms": cuda_ms(
+            lambda: torch.argsort(v8, stable=True), reps=3, warm=1)}
     # edges: NULLs first/last, DESC, int64 extremes, floats with NaN/-0.0,
     # ties (row index decides), invalid rows last, >8 lanes, k > n
     ints = t(rng.integers(-3, 3, ne), torch.int64)
@@ -1796,6 +1847,11 @@ def phase_main_path(K, kinfo, device=None):
 
     def add_launches(launches, tier):
         for k, v in launches.items():
+            if k not in kinfo:  # the mesh kernels: the mesh phase's
+                if v:
+                    raise Mismatch(f"{tier}: {k} launched {v} times "
+                                   f"without a mesh")
+                continue
             kinfo[k]["launches"] += v
             by_tier = kinfo[k].setdefault("launches_by_tier", {})
             by_tier[tier] = by_tier.get(tier, 0) + v
@@ -1811,8 +1867,10 @@ def phase_main_path(K, kinfo, device=None):
             tier_rows[tier].update(rows)
             add_launches(launches, tier)
     for k, info in kinfo.items():
-        # the batched entry points launch on the serve phase's path
-        if info["launches"] <= 0 and not k.endswith("_batched"):
+        # the batched entry points launch on the serve phase's path, the
+        # mesh kernels on the mesh phase's
+        if info["launches"] <= 0 and not k.endswith("_batched") \
+                and k not in ("shard_merge", "shard_probe"):
             raise Mismatch(f"kernel {k} never launched on the main path")
     # Q13 and Q5: numpy's answers from the generated columns, both tiers
     for q, want in numpy_rows.items():
@@ -1851,6 +1909,262 @@ def phase_main_path(K, kinfo, device=None):
                 print(f"[main] {tier} {q}: {rows[q][0]}", flush=True)
     sess.execute("set tidb_use_tpu=1")
     return sess.storage
+
+
+# ---- the mesh phase -------------------------------------------------------
+
+def kernel_entry(name: str, r: dict) -> dict:
+    """The kernels JSON line's entry for one kernel record (launches 0:
+    the main path's run adds them)."""
+    bound_s = max(r["bytes"] / MEM_BPS, r["ops"] / OPS_PS)
+    by = "bytes" if r["bytes"] / MEM_BPS >= r["ops"] / OPS_PS \
+        else "operations"
+    src, repl = KERNELS[name]
+    extra = {k: v for k, v in r.items()
+             if k not in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                          "library_ms")}
+    print(f"[kernel] {name}: ms {r['ms']:.4f}, device {r['device_ms']},"
+          f" plain {r['plain_ms']:.4f},"
+          f" library {r['library_ms']}, bound {bound_s * 1e3:.5f} ms "
+          f"({by}), max_abs_err {r['max_abs_err']:.3g}, {extra}",
+          flush=True)
+    return {"name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bound_s * 1e3,
+            "bound_by": by, "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"]}
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] > before[k]}
+
+
+def _check_mesh_uses(tier: str, q: str, used: dict) -> None:
+    for k, want in MESH_USES[tier][q].items():
+        got = used.get(k, 0)
+        if (got < want[0]) if isinstance(want, tuple) else (got != want):
+            raise Mismatch(f"mesh {tier} {q}: {k} launched {got} times in "
+                           f"one run, want {want}")
+
+
+def mesh_kernel_checks(K, merges: dict, probes: dict, sorts: list) -> dict:
+    """HK11 and HK12 on the tensors the mesh run handed them (captured at
+    their first call of each query): byte for byte against their plain
+    versions and a second launch, timed beside their bounds.  The record
+    of each is the per-operator Q3 shape (the largest); the others print
+    on [mesh-kernel] lines, and so do K21 mesh's two HK4 calls of
+    pipeline Q3 (the shard-led order of every row, then the merge of the
+    candidates), against HK4's plain version."""
+    import torch
+    rec = {}
+    best = {}
+    for j, (lanes, n, k) in enumerate(sorts):
+        a = K.lex_order(lanes, n, k)
+        same_bytes(a, K.lex_order(lanes, n, k), f"K21 mesh sort {j + 1}")
+        want = n if k is None else min(k, n)
+        same_bytes(a, K.lex_order_plain(lanes, n)[:want],
+                   f"K21 mesh sort {j + 1} vs plain")
+        r = {**timed(lambda: K.lex_order(lanes, n, k)),
+             "plain_ms": cuda_ms(lambda: K.lex_order_plain(lanes, n)),
+             "bound_ms": (8 * len(lanes) * n + 8 * want) / MEM_BPS * 1e3,
+             "shape": f"{len(lanes)} lanes, n={n}, k={k}"}
+        print(f"[mesh-kernel] lex_order K21 mesh sort {j + 1}: {r}",
+              flush=True)
+    for label, (parts, ops, m, nb) in merges.items():
+        k1 = K.shard_merge(parts, ops, m, nb)
+        same_bytes(k1, K.shard_merge(parts, ops, m, nb),
+                   f"shard_merge {label}")
+        same_bytes(k1, K.shard_merge_plain(parts, ops, m, nb),
+                   f"shard_merge {label} vs plain")
+        n, rows, width = (int(x) for x in parts.shape)
+        r = {"max_abs_err": 0.0,
+             **timed(lambda: K.shard_merge(parts, ops, m, nb)),
+             "plain_ms": cuda_ms(lambda: K.shard_merge_plain(
+                 parts, ops, m, nb), reps=3, warm=1),
+             "library_ms": None,
+             "partial_int64_sum_dim0_ms": cuda_ms(
+                 lambda: torch.sum(parts, dim=0)),
+             "bytes": 8 * (n + 1) * rows * width, "ops": n * rows * width,
+             "shape": f"{n} shards x {rows} rows x {width} ({label})"}
+        print(f"[mesh-kernel] shard_merge {label}: {r}", flush=True)
+        if parts.numel() > best.get("shard_merge", (0,))[0]:
+            best["shard_merge"] = (parts.numel(), r)
+    for label, calls in probes.items():
+        for j, (n, pk, pid, bk, bid) in enumerate(calls):
+            blive = bid >= 0
+            sent = float("inf") if bk.dtype == torch.float64 else K.I64_MAX
+            bord = K._u64_lane(torch.where(blive, bk,
+                                           torch.full_like(bk, sent)), False)
+            nbb, npb = int(bk.shape[0]), int(pk.shape[0])
+            perm = K.lex_order([K.shard_lane(n, nbb // n), bord,
+                                (~blive).to(torch.int64)], nbb)
+            k1 = K.shard_probe(pk, pid, bord, bid, perm, n)
+            same_bytes([k1[0].to(torch.int64), k1[1]],
+                       [x.to(torch.int64) if x.dtype == torch.bool else x
+                        for x in K.shard_probe(pk, pid, bord, bid, perm, n)],
+                       f"shard_probe {label} join {j + 1}")
+            p1 = K.shard_probe_plain(pk, pid, bord, bid, perm, n)
+            same_bytes([k1[0].to(torch.int64), k1[1]],
+                       [p1[0].to(torch.int64), p1[1]],
+                       f"shard_probe {label} join {j + 1} vs plain")
+            run = perm.reshape(n, nbb // n)
+            sk = (bord ^ K.I64_MIN)[run]
+            pv = K._probe_order(pk).reshape(n, npb // n).contiguous()
+            steps = max(1, (nbb // n - 1).bit_length())
+            r = {"max_abs_err": 0.0,
+                 **timed(lambda: K.shard_probe(pk, pid, bord, bid, perm, n)),
+                 "plain_ms": cuda_ms(lambda: K.shard_probe_plain(
+                     pk, pid, bord, bid, perm, n)),
+                 "library_ms": None,
+                 "partial_batched_searchsorted_ms": cuda_ms(
+                     lambda: torch.searchsorted(sk, pv)),
+                 "bytes": npb * (8 + 8 + 1 + 8) + nbb * 3 * 8,
+                 "ops": npb * steps,
+                 "hits": int(k1[0].sum()),
+                 "shape": f"{n} shards, probe {npb} slots (cap "
+                          f"{npb // n}), build {nbb} (cap {nbb // n}), "
+                          f"{pk.dtype} keys ({label} join {j + 1})"}
+            print(f"[mesh-kernel] shard_probe {label} join {j + 1}: {r}",
+                  flush=True)
+            if npb > best.get("shard_probe", (0,))[0]:
+                best["shard_probe"] = (npb, r)
+    for name in ("shard_merge", "shard_probe"):
+        if name not in best:
+            raise Mismatch(f"the mesh run never called {name}")
+        rec[name] = best[name][1]
+    return rec
+
+
+def phase_mesh(K, storage, kinfo, device=None) -> None:
+    """Q1, Q3 and Q6 at SF=1 under tidb_mesh_parallel = 1 with
+    MESH_SHARDS virtual shards on the card (TINYSQL_MESH_SHARDS, set for
+    this phase only), on both device tiers over phase 3's storage.  Per
+    tier: the mesh-off runs (rows, warm walls, device time), then, with
+    the launch counters set to 0 just before and read just after, the
+    mesh runs: rows equal to the mesh-off rows (floats within 1e-6
+    relative), warm runs byte-equal to the first, shard rounds counted,
+    the mesh kernels launched as MESH_USES says, no plain version.  Then
+    HK11 and HK12 against their plain versions on the tensors the run
+    gave them."""
+    import torch
+    from tinysql_tpu_torch.bench import tpch
+    from tinysql_tpu_torch.executor import devpipe
+    from tinysql_tpu_torch.ops import shardops
+    from tinysql_tpu_torch.session import new_session
+    print(f"[mesh] {MESH_SHARDS} virtual shards on {card_line()}",
+          flush=True)
+    old_env = os.environ.get("TINYSQL_MESH_SHARDS")
+    os.environ["TINYSQL_MESH_SHARDS"] = str(MESH_SHARDS)
+    merges, probes, sorts = {}, {}, []
+    state = {"label": None}
+    orig_merge, orig_join = K.shard_merge, shardops._local_unique_join
+    orig_order = K.lex_order
+
+    def cap_order(lanes, n, k=None):
+        if state["label"] == "pipeline Q3":
+            sorts.append(([t.clone() for t in lanes], n, k))
+        return orig_order(lanes, n, k)
+
+    def cap_merge(parts, ops, m, nb):
+        if state["label"] is not None:
+            merges.setdefault(state["label"], (parts, list(ops), m, nb))
+        return orig_merge(parts, ops, m, nb)
+
+    def cap_join(n, pk, pid, bk, bid):
+        if state["label"] is not None:
+            probes.setdefault(state["label"], []).append(
+                (n, pk, pid, bk, bid))
+        return orig_join(n, pk, pid, bk, bid)
+    K.shard_merge, shardops._local_unique_join = cap_merge, cap_join
+    K.lex_order = cap_order
+    launches = {}
+    try:
+        for tier in TIERS:
+            sess = new_session(storage, "tpch", device=device)
+            sess.execute("set tidb_use_tpu = 1")
+            sess.execute(f"set tidb_devpipe = {TIERS[tier]}")
+            off = {}
+            for q, sql in tpch.QUERIES.items():
+                rows = sess.query(sql).rows
+                walls = []
+                for _ in range(MESH_WARM):
+                    t1 = time.perf_counter()
+                    sess.query(sql)
+                    _sync(torch)
+                    walls.append(time.perf_counter() - t1)
+                off[q] = (rows, min(walls), warm_profile(sess, sql, torch))
+            sess.execute("set tidb_mesh_parallel = 1")
+            K.reset_kernel_counts()
+            shardops.reset_stats()
+            for q, sql in tpch.QUERIES.items():
+                st0 = shardops.stats_snapshot()
+                before = K.kernel_counts()["launches"]
+                devpipe.COMPILED_NODE_KEYS.clear()
+                state["label"] = f"{tier} {q}"
+                t1 = time.perf_counter()
+                rows = sess.query(sql).rows
+                _sync(torch)
+                first_s = time.perf_counter() - t1
+                state["label"] = None
+                used = _launch_delta(before, K.kernel_counts()["launches"])
+                _check_mesh_uses(tier, q, used)
+                kinds = {k[0] for k in devpipe.COMPILED_NODE_KEYS}
+                want = MESH_KINDS.get(q) if tier == "pipeline" else None
+                if want is not None and kinds != want:
+                    raise Mismatch(f"mesh {tier} {q}: pipeline node kinds "
+                                   f"{kinds}, want {want}")
+                rounds = shardops.stats_snapshot()["shard_rounds"] \
+                    - st0["shard_rounds"]
+                walls = []
+                for _ in range(MESH_WARM):
+                    t1 = time.perf_counter()
+                    again = sess.query(sql).rows
+                    _sync(torch)
+                    walls.append(time.perf_counter() - t1)
+                    if repr(again) != repr(rows):
+                        raise Mismatch(f"mesh {tier} {q}: a warm run "
+                                       f"differs from the first")
+                prof = warm_profile(sess, sql, torch)
+                rows_off, wall_off, prof_off = off[q]
+                same_rel(rows, rows_off, f"mesh {tier} {q} vs mesh-off")
+                check_rows(rows, f"mesh {tier} {q}")
+                print(f"[mesh] {tier} {q}: {len(rows)} rows equal to the "
+                      f"mesh-off run, first run {first_s:.4f} s, warm best "
+                      f"of {MESH_WARM} {min(walls):.4f} s (mesh-off "
+                      f"{wall_off:.4f} s), one warm run: {prof['kernels']}"
+                      f" CUDA kernels + {prof['copies']} copies, device "
+                      f"{prof['device_ms']} ms (mesh-off {prof_off['kernels']}"
+                      f" + {prof_off['copies']}, {prof_off['device_ms']} "
+                      f"ms); shard rounds {rounds}, node kinds "
+                      f"{sorted(kinds)}, launches of the first run {used}",
+                      flush=True)
+            st = shardops.stats_snapshot()
+            if st["shard_rounds"] <= 0:
+                raise Mismatch(f"mesh {tier}: no shard round ({st})")
+            counts = K.kernel_counts()
+            if any(counts["plain_calls"].values()):
+                raise Mismatch(f"plain versions ran on the mesh {tier} "
+                               f"tier: {counts['plain_calls']}")
+            print(f"[mesh] {tier}: shard stats {st}", flush=True)
+            for k, v in counts["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    finally:
+        K.shard_merge, shardops._local_unique_join = orig_merge, orig_join
+        K.lex_order = orig_order
+        if old_env is None:
+            os.environ.pop("TINYSQL_MESH_SHARDS", None)
+        else:
+            os.environ["TINYSQL_MESH_SHARDS"] = old_env
+    for name, r in mesh_kernel_checks(K, merges, probes, sorts).items():
+        kinfo[name] = kernel_entry(name, r)
+    for k, v in launches.items():
+        if k in kinfo:
+            kinfo[k]["launches"] += v
+            by_tier = kinfo[k].setdefault("launches_by_tier", {})
+            by_tier["mesh"] = by_tier.get("mesh", 0) + v
+    for k in ("shard_merge", "shard_probe"):
+        if kinfo[k]["launches"] <= 0:
+            raise Mismatch(f"kernel {k} never launched on the mesh path")
 
 
 # ---- serve phase ----------------------------------------------------------
@@ -2155,28 +2469,12 @@ def main() -> int:
         print(f"[offpath] {name}: ms {r['ms']:.4f}, device "
               f"{r['device_ms']}, plain {r['plain_ms']:.4f}, bound "
               f"{r['bound_ms']:.5f} ms (bytes)", flush=True)
-    kinfo = {}
-    for name, r in rec.items():
-        bound_s = max(r["bytes"] / MEM_BPS, r["ops"] / OPS_PS)
-        by = "bytes" if r["bytes"] / MEM_BPS >= r["ops"] / OPS_PS \
-            else "operations"
-        src, repl = KERNELS[name]
-        kinfo[name] = {
-            "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": bound_s * 1e3,
-            "bound_by": by, "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"]}
-        extra = {k: v for k, v in r.items()
-                 if k not in ("max_abs_err", "ms", "device_ms", "plain_ms",
-                              "library_ms")}
-        print(f"[kernel] {name}: ms {r['ms']:.4f}, device {r['device_ms']},"
-              f" plain {r['plain_ms']:.4f},"
-              f" library {r['library_ms']}, bound {bound_s * 1e3:.5f} ms "
-              f"({by}), max_abs_err {r['max_abs_err']:.3g}, {extra}",
-              flush=True)
+    kinfo = {name: kernel_entry(name, r) for name, r in rec.items()}
     # phase 3
     storage = phase_main_path(K, kinfo)
+    # the mesh phase, over phase 3's storage
+    with K.use_device(dev):
+        phase_mesh(K, storage, kinfo)
 
     # the serve phase: the wire server over phase 3's storage
     phase_serve(K, storage, kinfo)

@@ -449,9 +449,11 @@ def test_tpch_on_the_card_matches_the_cpu_tier(dev):
         for k, v in counts["launches"].items():
             launched[k] += v
     # the batched entry points launch only in a stacked round (the
-    # serve phase of chip_smoke.py, the tests above)
+    # serve phase of chip_smoke.py, the tests above), the mesh kernels
+    # only under tidb_mesh_parallel (the mesh phase, the tests below)
     assert all(v for k, v in launched.items()
-               if not k.endswith("_batched")), launched
+               if not k.endswith("_batched")
+               and k not in ("shard_merge", "shard_probe")), launched
     s.execute("set tidb_use_tpu = 0")
     for q, sql in queries.items():
         cpu = tpch.canon_rows(s.query(sql).rows)
@@ -548,3 +550,76 @@ def test_batched_expr_eval_equals_solo_launches(dev):
                     ob = [(None if v is None else v[b], m[b])
                           for v, m in got[1]]
                     _same_expr((mb, ob), solo, f"{name} member {b}")
+
+
+def test_shard_merge_matches_plain(dev):
+    """HK11: the mesh tier's merge of per-shard partial tables, byte for
+    byte against its plain left fold (NaN partials, sentinels, int64
+    wrap), and the sharded HK1 / HK2 routes against their single-device
+    tables."""
+    rng = np.random.default_rng(11)
+    ops_all = K.MERGE_OPS
+    for n, width in ((8, 1), (8, 4096), (2, 33)):
+        ops = [ops_all["sum_i"], ops_all["first_seg"], ops_all["sum_f"],
+               ops_all["sum_i"], ops_all["min_f"], ops_all["max_f"],
+               ops_all["min_i"], ops_all["max_i"], ops_all["first_scalar"]]
+        m = 1000
+        parts = rng.integers(-(1 << 62), 1 << 62, (n, len(ops), width))
+        parts[:, 1] = rng.integers(0, m + 1, (n, width))
+        parts[:, 8] = rng.integers(0, m, (n, width))
+        parts[:, 0] = rng.integers(0, 2, (n, width))
+        for r in (2, 4, 5):
+            f = rng.normal(size=(n, width)) * 1e3
+            f[rng.random((n, width)) < 0.1] = np.nan
+            parts[:, r] = f.view(np.int64)
+        p = _t(parts.astype(np.int64), dev)
+        a = K.shard_merge(p, ops, m, n * m)
+        assert torch.equal(a, K.shard_merge_plain(p, ops, m, n * m))
+        assert torch.equal(a, K.shard_merge(p, ops, m, n * m))
+    nb, ns = 1 << 14, 50
+    valid = _t(rng.random(nb) < 0.6, dev)
+    gid = _t(rng.integers(0, ns, nb), dev, torch.int64)
+    x = _t(rng.normal(size=nb), dev)
+    lanes = [(x, None, "sum"), (x, None, "min"), (None, None, "count")]
+    for got, one in ((K.sharded_segment_reduce(gid, valid, ns, lanes, 8),
+                      K.segment_reduce(gid, valid, ns, lanes)),
+                     (K.sharded_masked_reduce(valid, lanes, 8)[:, None],
+                      K.masked_reduce(valid, lanes)[:, None])):
+        assert torch.equal(got[[0, 3, 4, 5, 6, 7]], one[[0, 3, 4, 5, 6, 7]])
+        torch.testing.assert_close(got[2].view(torch.float64),
+                                   one[2].view(torch.float64), rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_shard_probe_matches_plain(dev):
+    """HK12 over HK4's sort of the build blocks, byte for byte against
+    its plain version (torch.searchsorted per shard), int64 and float64
+    keys with their sentinels, NaN, -0.0 and padding slots."""
+    from tinysql_tpu_torch.ops import shardops
+    rng = np.random.default_rng(12)
+    for dt in (np.int64, np.float64):
+        n, cp, cb = 8, 2048, 512
+        pk = rng.integers(-300, 300, n * cp).astype(dt)
+        bk = rng.integers(-300, 300, n * cb).astype(dt)
+        if dt == np.float64:
+            pk[:3] = [np.nan, -0.0, np.inf]
+            bk[:2] = [0.0, np.inf]
+        else:
+            pk[:2] = [K.I64_MAX, K.I64_MIN]
+            bk[:2] = [K.I64_MAX, K.I64_MIN]
+        pid = np.where(rng.random(n * cp) < 0.9, np.arange(n * cp), -1)
+        bid = np.where(rng.random(n * cb) < 0.8, np.arange(n * cb), -1)
+        args = [_t(a, dev) for a in (pk, pid.astype(np.int64), bk,
+                                     bid.astype(np.int64))]
+        hit, brow = shardops._local_unique_join(n, *args)
+        blive = args[3] >= 0
+        sent = float("inf") if dt == np.float64 else K.I64_MAX
+        bord = K._u64_lane(torch.where(blive, args[2],
+                                       torch.full_like(args[2], sent)),
+                           False)
+        perm = K.lex_order([K.shard_lane(n, cb), bord,
+                            (~blive).to(torch.int64)], n * cb)
+        ph, pb = K.shard_probe_plain(args[0], args[1], bord, args[3], perm,
+                                     n)
+        assert torch.equal(hit, ph) and torch.equal(brow, pb)
+        assert bool(hit.any())

@@ -394,30 +394,31 @@ def test_pipeline_kernels_run_their_plain_versions_on_the_cpu(pair, kinds):
      "select u.v, count(*), sum(t.c) from t join u on t.fk = u.k "
      "group by u.v", "tidb_mesh_parallel.*ROADMAP queue 1, item 10"),
 ])
-def test_unported_modes_raise_when_forced(pair, sysvar, sql, item):
-    """What the port has not built raises under tidb_devpipe=1, naming
-    its ROADMAP item: the mesh tier.  Block-wise execution (item 1) is
-    ported: a TopN over a table past tidb_device_block_rows (a join or
-    GROUP BY there takes the pipeline through a host leaf, as in the
-    reference) runs block-wise and gives the reference's rows under the
-    same sysvar.  Without the sysvar the same statement runs as the
-    reference runs it."""
+def test_unported_modes_raise_when_forced(pair, sysvar, sql, item,
+                                         monkeypatch):
+    """Both modes that once raised under tidb_devpipe=1 are ported now
+    and give the reference's rows under the same sysvar.  Block-wise
+    execution (item 1): a TopN over a table past tidb_device_block_rows
+    (a join or GROUP BY there takes the pipeline through a host leaf, as
+    in the reference) runs block-wise.  The mesh tier's slice (item 10,
+    8 virtual shards): the join + GROUP BY runs its unique join in the
+    broadcast mode, keyed with the mesh size.  The mesh routes still to
+    port raise in tests/test_torch_mesh.py.  Without the sysvar the same
+    statement runs as the reference runs it."""
     ref, port = pair
     name = sysvar.split("=")[0].strip()
-    port.execute(f"set @@{sysvar}")
+    monkeypatch.setenv("TINYSQL_MESH_SHARDS", "8")
+    before = set(devpipe.COMPILED_NODE_KEYS)
+    for s in (ref, port):
+        s.execute(f"set @@{sysvar}")
     try:
-        if name == "tidb_device_block_rows":
-            ref.execute(f"set @@{sysvar}")
-            try:
-                _same_rows(port.query(sql).rows, ref.query(sql).rows, False,
-                           sql)
-            finally:
-                ref.execute(f"set @@{name} = 0")
-        else:
-            with pytest.raises(NotImplementedError, match=item):
-                port.query(sql)
+        _same_rows(port.query(sql).rows, ref.query(sql).rows, False, sql)
     finally:
-        port.execute(f"set @@{name} = 0")
+        for s in (ref, port):
+            s.execute(f"set @@{name} = 0")
+    if name == "tidb_mesh_parallel":
+        assert any(k[0] == "join" and k[-1] == 8
+                   for k in set(devpipe.COMPILED_NODE_KEYS) - before)
     _same_rows(port.query(sql).rows, pair[0].query(sql).rows, False, sql)
 
 

@@ -156,11 +156,16 @@ def test_generators_agree():
             assert (a[t][c] == b[t][c]).all(), (t, c)
 
 
-def test_not_ported_paths_fail_loudly(sessions):
-    """The mesh tier raises, naming its ROADMAP item.  Block-wise
-    execution is ported: a TopN over a table past tidb_device_block_rows
-    runs block-wise and gives the unblocked rows."""
-    _, port = sessions
+def test_not_ported_paths_fail_loudly(sessions, monkeypatch):
+    """What the port has not built raises, naming its ROADMAP item; what
+    it has built runs.  Block-wise execution is ported: a TopN over a
+    table past tidb_device_block_rows runs block-wise and gives the
+    unblocked rows.  The mesh tier's slice is ported (8 virtual shards,
+    TINYSQL_MESH_SHARDS): Q3 under tidb_mesh_parallel gives the
+    reference's mesh rows on the per-operator tier (the sharded unique
+    joins and grouped aggregate); a single-key ORDER BY, whose sharded
+    sort the reference runs, raises naming item 10."""
+    ref, port = sessions
     topn = ("select l_orderkey from lineitem order by l_extendedprice desc, "
             "l_orderkey limit 3")
     want = port.query(topn).rows
@@ -169,12 +174,23 @@ def test_not_ported_paths_fail_loudly(sessions):
         assert port.query(topn).rows == want
     finally:
         port.execute("set tidb_device_block_rows = 0")
-    port.execute("set tidb_mesh_parallel = 1")
+    monkeypatch.setenv("TINYSQL_MESH_SHARDS", "8")
+    from tinysql_tpu.ops import shardops as ref_shardops
+    from tinysql_tpu_torch.ops import shardops
+    for s in (ref, port):
+        s.execute("set tidb_mesh_parallel = 1")
     try:
+        shardops.reset_stats()
+        ref_shardops.reset_stats()
+        got = port.query(port_tpch.QUERIES["Q3"]).rows
+        _same(got, ref.query(ref_tpch.QUERIES["Q3"]).rows, "Q3")
+        assert shardops.stats_snapshot()["shard_rounds"] \
+            == ref_shardops.stats_snapshot()["shard_rounds"] > 0
         with pytest.raises(NotImplementedError, match="item 10"):
-            port.query(port_tpch.QUERIES["Q3"])
+            port.query("select o_orderkey from orders order by o_totalprice")
     finally:
-        port.execute("set tidb_mesh_parallel = 0")
+        for s in (ref, port):
+            s.execute("set tidb_mesh_parallel = 0")
 
 
 @pytest.mark.parametrize("point", ["kernelDispatchError", "kernelD2HError"])

@@ -66,9 +66,17 @@ def _node_path(path: List[str]) -> str:
 
 
 def _live_device_count() -> Optional[int]:
-    """CUDA device count when torch is imported and CUDA is already
-    initialised; None offline (the checker must not initialise CUDA just
-    to validate an annotation)."""
+    """The mesh's shard count (parallel/dist.py): ``TINYSQL_MESH_SHARDS``
+    when set, else the CUDA device count when CUDA is already initialised;
+    None offline (the checker must not initialise CUDA just to validate
+    an annotation)."""
+    from ..parallel import dist
+    try:
+        n = dist.env_shards()
+    except ValueError:
+        return None
+    if n is not None:
+        return n
     import sys
     torch = sys.modules.get("torch")
     if torch is None:

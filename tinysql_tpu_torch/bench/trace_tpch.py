@@ -1,5 +1,6 @@
 """Where the time of TPC-H Q1, Q3, Q6, Q13, K8's path (NOT IN, Q22), a
-block-wise run and the workload trio Q5, Q10, Q18 goes on the card.
+block-wise run, a mesh run and the workload trio Q5, Q10, Q18 goes on
+the card.
 
     python3 -m tinysql_tpu_torch.bench.trace_tpch [--out FILE]
 
@@ -9,7 +10,10 @@ tidb_devpipe=-1, the default; the per-operator tier, tidb_devpipe=0) and
 each query (Q1, Q3, Q6 on both tiers, then Q13, then tpch.K8_QUERIES,
 then Q1, Q3, Q6 and NOT IN block-wise under tidb_device_block_rows =
 2^20 — recorded under the tier names "pipeline_blockwise" and
-"per_op_blockwise" —, then the trio): the first run's wall, the best of
+"per_op_blockwise" —, then Q1, Q3, Q6 under tidb_mesh_parallel = 1
+with 8 virtual shards — TINYSQL_MESH_SHARDS set for that run only, the
+tiers "pipeline_mesh" and "per_op_mesh" —, then the trio): the first
+run's wall, the best of
 three warm walls,
 and one more warm run under torch.profiler (CPU + CUDA activities; taken
 again, up to three times, when its trace holds no device event) giving
@@ -37,6 +41,8 @@ TIERS = {"pipeline": -1, "per_op": 0}
 #: the block-wise run: tidb_device_block_rows and its queries
 BLOCK_ROWS = 1 << 20
 BLOCK_QUERIES = ("Q1", "Q3", "Q6", "NOT_IN")
+#: the mesh run's virtual shards (TINYSQL_MESH_SHARDS)
+MESH_SHARDS = 8
 
 
 def _card() -> str:
@@ -125,20 +131,33 @@ def main(argv=None) -> int:
     blockwise = {q: named[q] for q in BLOCK_QUERIES}
     # Q1, Q3, Q6 and Q13 on both tiers before the trio: after Q5's run,
     # torch.profiler loses some kernel events of later traces
+    mesh = dict(tpch.QUERIES)
+    env_shards = os.environ.get("TINYSQL_MESH_SHARDS")
     for queries in (tpch.QUERIES, {"Q13": tpch.Q13}, tpch.K8_QUERIES,
-                    blockwise, tpch.WORKLOAD):
+                    blockwise, mesh, tpch.WORKLOAD):
         block = queries is blockwise
+        on_mesh = queries is mesh
+        if on_mesh:
+            os.environ["TINYSQL_MESH_SHARDS"] = str(MESH_SHARDS)
         for tier in TIERS:
             sess.execute(f"set tidb_devpipe = {TIERS[tier]}")
             sess.execute("set tidb_device_block_rows = "
                          f"{BLOCK_ROWS if block else 0}")
-            name = tier + ("_blockwise" if block else "")
+            sess.execute(f"set tidb_mesh_parallel = {int(on_mesh)}")
+            name = tier + ("_blockwise" if block else "") \
+                + ("_mesh" if on_mesh else "")
             for q, sql in queries.items():
                 rec = trace_query(sess, sql, torch)
                 out["tiers"].setdefault(name, {})[q] = rec
                 print(json.dumps({"tier": name, "query": q, **rec},
                                  default=str), flush=True)
+        if on_mesh:
+            if env_shards is None:
+                os.environ.pop("TINYSQL_MESH_SHARDS", None)
+            else:
+                os.environ["TINYSQL_MESH_SHARDS"] = env_shards
     sess.execute("set tidb_device_block_rows = 0")
+    sess.execute("set tidb_mesh_parallel = 0")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

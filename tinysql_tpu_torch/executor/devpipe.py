@@ -60,9 +60,19 @@ block-wise runs (a table over ``tidb_device_block_rows``): inline by
 default; at ``tidb_pipeline_depth`` > 0, uploads on a thread and a CUDA
 side stream, kernels on the statement's stream.
 
-Not ported yet (ROADMAP queue 1): graph capture of a pipeline key, and
-the mesh modes (``_JoinNode``'s shuffle join, the mesh TopN:
-``tidb_mesh_parallel=1`` raises NotImplementedError).
+Under ``tidb_mesh_parallel`` (N virtual shards on the device,
+parallel/dist.py) a pipeline runs the reference's mesh modes: the unique
+join's broadcast mode (the probe sharded, the build replicated: HK6
+over the probe lanes as they lie, the output in the same shard-major
+layout), and K21 mesh, the distributed TopN (``_OrderNode._prepare_
+mesh``: HK4 over shard-led lanes, each shard's top candidates, HK4 again
+over the gathered candidates).  An aggregate-only pipeline goes to the
+per-operator tier's sharded aggregates, as in the reference.  The
+shuffle join (K18 shuffle) and the CSR join's mesh mode raise
+NotImplementedError where the reference would run them (ROADMAP queue 1,
+item 10); their single-device gates are kept.
+
+Not ported yet (ROADMAP queue 1): graph capture of a pipeline key.
 """
 from __future__ import annotations
 
@@ -491,9 +501,15 @@ class _Ctx:
     """Per-query compile context; ``opened`` lists the executors the
     leaves opened, so a failed compile can close them all."""
 
-    def __init__(self, exec_ctx):
+    def __init__(self, exec_ctx, mesh=None):
         self.exec_ctx = exec_ctx
+        self.mesh = mesh  # the session's mesh (tidb_mesh_parallel) or None
         self.opened: list = []
+
+
+def mesh_if_enabled(session_vars):
+    from ..parallel import dist
+    return dist.session_mesh(session_vars)
 
 
 def _dev_upload(rep, key, build_np):
@@ -857,6 +873,7 @@ class _AggIndexNode:
         self.slots = slots
         self.out_map = out_map      # schema slot -> ("agg", i) | ("gb", j)
         self.gidx: Optional[GroupIndex] = None
+        self._sids: Optional[tuple] = None
 
     @staticmethod
     def compile(plan: PhysicalHashAgg, ctx: _Ctx):
@@ -918,6 +935,7 @@ class _AggIndexNode:
         key_cols, sids, decodes = got
         gidx = _group_index(rep, sids, key_cols)
         self.gidx = gidx
+        self._sids = sids
         ng = gidx.n_groups
         ngb = kernels.bucket(max(ng, 1))
         nb = tv.nb
@@ -1027,7 +1045,8 @@ class _JoinNode:
     """
 
     def __init__(self, probe, build, probe_keys, build_keys, tp,
-                 probe_is_left, plan, mult=False):
+                 probe_is_left, plan, mesh=None, mult=False,
+                 session_vars=None):
         self.probe = probe
         self.build = build
         self.probe_keys = list(probe_keys)
@@ -1038,7 +1057,10 @@ class _JoinNode:
         self.tp = tp
         self.probe_is_left = probe_is_left
         self.plan = plan
+        self.mesh = mesh
         self.mult = mult
+        self.session_vars = session_vars or {}
+        self.n_mesh = int(mesh.n_shards) if mesh is not None else 0
 
     @staticmethod
     def compile(plan: PhysicalHashJoin, ctx: _Ctx):
@@ -1078,7 +1100,10 @@ class _JoinNode:
             if probe is None:
                 _close_node(build)
                 return None
-            return _JoinNode(probe, build, [lk], [rk], plan.tp, True, plan)
+            return _JoinNode(probe, build, [lk], [rk], plan.tp, True, plan,
+                             mesh=ctx.mesh,
+                             session_vars=getattr(ctx.exec_ctx,
+                                                  "session_vars", None))
         if nk > 1:
             # multi-key: composite lane over a dense range, leaf/sel
             # build sides only; non-unique key sets ride the same CSR
@@ -1113,7 +1138,9 @@ class _JoinNode:
             _close_node(build)
             return None
         return _JoinNode(probe, build, probe_keys, build_keys, plan.tp,
-                         probe_side == 0, plan, mult=mult)
+                         probe_side == 0, plan, mesh=ctx.mesh, mult=mult,
+                         session_vars=getattr(ctx.exec_ctx,
+                                              "session_vars", None))
 
     def prepare(self, pb: _PipeBuilder) -> Optional[_TView]:
         btv = self.build.prepare(pb)
@@ -1235,7 +1262,117 @@ class _JoinNode:
 
     # ---- unique build side: dense pos table + gather -------------------
 
+    def _host_key_lane(self, node, key: ExprColumn):
+        """The raw (pre-filter) host values of a node view's key lane
+        (unpadded), the live row count, and a (rep, memo_key) handle for
+        replica-backed lanes so the capacity histogram memoizes per
+        replica version.  None = no host-visible keys (broadcast)."""
+        if isinstance(node, _SelNode):
+            return self._host_key_lane(node.child, key)
+        if isinstance(node, _ReplicaLeaf):
+            rep = node.replica()
+            if rep is None:
+                return None
+            from .gpu_executors import _slot_id
+            sid = _slot_id(node.ex, key.index)
+            kv = rep.handles if sid == "handle" else rep.columns[sid][0]
+            if kv.dtype != np.int64:
+                return None
+            return kv, rep.n_rows, (rep, ("shufcap", sid))
+        if isinstance(node, _AggIndexNode):
+            if node.gidx is None or node.key_slot() != key.index:
+                return None
+            gk = node.gidx.gkeys
+            if gk.dtype != np.int64:
+                return None
+            rep = node.leaf.replica()
+            return gk, node.gidx.n_groups, (rep, ("shufcap_gi",
+                                                  node._sids))
+        if isinstance(node, _HostLeaf):
+            chk = node.chunk()
+            if chk is None:
+                return None
+            v = chk.columns[key.index].values()
+            if v.dtype != np.int64:
+                return None
+            return v, chk.num_rows(), None  # per-query data: no memo
+        return None
+
+    @staticmethod
+    def _shuffle_cap_of(lane, nbucket: int, n: int) -> int:
+        from ..parallel import dist
+        kv, n_rows, memo = lane
+
+        def calc():
+            return dist.shuffle_cap(kernels.pad1(kv, nbucket), n, n_rows)
+        if memo is None:
+            return calc()
+        rep, mkey = memo
+        return rep.memo(mkey + (nbucket, n), calc)
+
+    @staticmethod
+    def _broadcast_default() -> int:
+        """The sysvar's shipped default: a session value differing from
+        it is an explicit operator override."""
+        from ..session.session import DEFAULT_SYSVARS
+        return int(DEFAULT_SYSVARS["tidb_broadcast_build_max_rows"])
+
+    def _shuffle_wanted(self, nb: int, nbb: int, mesh) -> bool:
+        """Broadcast-vs-shuffle strategy: the planner decides by cost
+        (planner/device.py _mesh_join_strategy); the
+        tidb_broadcast_build_max_rows knob applies only when set away
+        from its default, and a plan-time broadcast stays subject to it
+        at run time (the actual build bucket may outgrow the
+        estimate)."""
+        if mesh is None:
+            return False
+        n = int(mesh.n_shards)
+        if n & (n - 1) or nb % n or nbb % n:
+            return False
+        default = self._broadcast_default()
+        try:
+            thresh = int(self.session_vars.get(
+                "tidb_broadcast_build_max_rows", default))
+        except (TypeError, ValueError):
+            return False
+        if thresh != default:
+            return nbb > thresh  # explicit knob override
+        if getattr(self.plan, "mesh_strategy", None) == "shuffle":
+            return True
+        return nbb > thresh
+
+    def _prepare_unique_shuffle(self, pb, btv, ptv, mesh) \
+            -> Optional[_TView]:
+        """The partitioned-build mesh join (K18 shuffle: an all-to-all of
+        both sides by key hash, then a local join per shard).  Returns
+        None where the reference does — no host key lane on either side,
+        or a skew gate — and the broadcast mode runs; past those gates
+        the exchange is not ported (item 10)."""
+        n = int(mesh.n_shards)
+        nb, nbb = ptv.nb, btv.nb
+        got_p = self._host_key_lane(self.probe, self.probe_key)
+        got_b = self._host_key_lane(self.build, self.build_key)
+        if got_p is None or got_b is None:
+            return None
+        capp = self._shuffle_cap_of(got_p, nb, n)
+        capb = self._shuffle_cap_of(got_b, nbb, n)
+        from ..ops import shardops
+        if n * n * capp > max(MAX_EXPAND, 2 * nb) \
+                or n * n * capb > max(MAX_EXPAND, 2 * nbb):
+            shardops.record_skew_retry()
+            return None
+        raise NotImplementedError(shardops.MESH_TODO.format(
+            "pipeline shuffle join (K18 shuffle)"))
+
     def _prepare_unique(self, pb, btv, ptv) -> Optional[_TView]:
+        from ..parallel import dist
+        if self._shuffle_wanted(ptv.nb, btv.nb,
+                                self.mesh if dist.shardable(ptv.nb,
+                                                            self.mesh)
+                                else None):
+            out = self._prepare_unique_shuffle(pb, btv, ptv, self.mesh)
+            if out is not None:
+                return out  # else: broadcast below
         info = _prepare_build_key_info(self.build, self.build_key, pb)
         if info is None:
             return None
@@ -1244,8 +1381,14 @@ class _JoinNode:
         nb, nbb = ptv.nb, btv.nb
         pk_slot = self.probe_key.index
         mode = "left" if self.tp == "left" else "inner"
+        # the mesh's broadcast mode: the probe shards over the mesh and
+        # the build table replicates; on one device every shard's probe
+        # block is its row range of the probe lanes, so one HK6 launch
+        # over the lanes as they lie is every shard's probe, and its
+        # output is the reference's shard-major layout of nb rows
+        n_mesh = self.n_mesh if dist.shardable(nb, self.mesh) else 0
         pb.key(("join", nb, nbb, tbl_len, pk_slot, mode == "left",
-                self.probe_is_left, len(btv.meta), len(ptv.meta)))
+                self.probe_is_left, len(btv.meta), len(ptv.meta), n_mesh))
 
         def emit(args):
             bvalid, bpairs = btv.emit(args)
@@ -1298,6 +1441,16 @@ class _JoinNode:
         outer = self.tp == "left"
         per_probe = self._per_probe_counts(raw, tbl, lo, hi, ptv, outer,
                                            cspec=cspec)
+        from ..parallel import dist
+        if per_probe is not None and dist.shardable(ptv.nb, self.mesh):
+            # the reference shards the probe side here, with per-shard
+            # expansion buckets; a probe skew past them retries unsharded
+            from ..ops import shardops
+            if self._expand_bucket(raw, ptv, outer, per_probe,
+                                   shards=self.n_mesh) is not None:
+                raise NotImplementedError(shardops.MESH_TODO.format(
+                    "pipeline CSR join's mesh mode (K18 mult)"))
+            shardops.record_skew_retry()
         ob = self._expand_bucket(raw, ptv, outer, per_probe)
         if ob is None:
             return None
@@ -1373,15 +1526,19 @@ class _JoinNode:
             per = np.maximum(per, 1)
         return kernels.pad1(per.astype(np.int64), ptv.nb)
 
-    def _expand_bucket(self, raw, ptv, outer, per_probe):
-        """Static output bucket for the CSR expansion.  None = too large,
-        the per-operator tier takes the plan."""
+    def _expand_bucket(self, raw, ptv, outer, per_probe, shards: int = 1):
+        """Static (per-shard) output bucket for the CSR expansion.  None =
+        too large: the per-operator tier takes the plan (or, over shards,
+        the single-device expansion does)."""
         if per_probe is None:
             mx = int(raw.max()) if len(raw) else 0
             bound = ptv.nb * max(mx, 1 if outer else 0)
+        elif shards > 1:
+            blk = ptv.nb // shards
+            bound = int(per_probe.reshape(shards, blk).sum(axis=1).max())
         else:
             bound = int(per_probe.sum())
-        if bound > MAX_EXPAND:
+        if bound * shards > MAX_EXPAND:
             return None
         return kernels.bucket(max(bound, 1))
 
@@ -1749,14 +1906,22 @@ class _OrderNode:
     """TopN (static offset/count slice after the lexicographic order —
     valid rows sort first, so perm[offset : offset+count_bucket] IS the
     answer) or full Sort over a view, through HK4 (top-k mode for TopN).
-    The row index breaks ties, so the result is the stable sort's."""
+    The row index breaks ties, so the result is the stable sort's.
 
-    def __init__(self, child, by, offset, count, plan):
+    Under ``tidb_mesh_parallel`` a TopN runs distributed (K21 mesh, the
+    reference's per-region TopN and root merge): each shard orders its
+    row range and keeps its top (offset + count) candidates, the
+    candidates gather, and a merge sort slices the final window.  The
+    global row index breaks ties in both sorts, so the result is the
+    single-device stable sort's, bit for bit."""
+
+    def __init__(self, child, by, offset, count, plan, mesh=None):
         self.child = child
         self.by = by
         self.off = offset        # None = full sort
         self.count = count
         self.plan = plan
+        self.mesh = mesh
 
     @staticmethod
     def compile(plan, ctx: _Ctx):
@@ -1772,7 +1937,7 @@ class _OrderNode:
         off = count = None
         if isinstance(plan, PhysicalTopN):
             off, count = plan.offset, plan.count
-        return _OrderNode(child, plan.by, off, count, plan)
+        return _OrderNode(child, plan.by, off, count, plan, mesh=ctx.mesh)
 
     def prepare(self, pb: _PipeBuilder) -> Optional[_TView]:
         tv = self.child.prepare(pb)
@@ -1800,6 +1965,11 @@ class _OrderNode:
             kb = min(kernels.bucket(max(self.count, 1)) + off, nb)
         count = self.count
         ip, fp = pb.params(pt)
+        from ..parallel import dist
+        if self.off is not None and dist.shardable(nb, self.mesh):
+            return self._prepare_mesh(pb, tv, prog, srcs, bool(exprs),
+                                      tuple(keys), descs, off, kb, count,
+                                      ip, fp)
         pb.key(("order", tuple(keys), off, kb, count, nb, len(tv.meta)))
         top = self.off is not None
 
@@ -1821,6 +1991,43 @@ class _OrderNode:
                 out_valid = out_valid & (kernels._arange(kb - off) < count)
             outs = [(v[take], m[take]) for v, m in pairs]
             return out_valid, outs
+        return _TView(emit, kb - off, tv.meta)
+
+    def _prepare_mesh(self, pb, tv, prog, srcs, has_fn, key_ids, descs,
+                      off, kb, count, ip, fp):
+        """K21 mesh: per-shard top-(offset + count) and the merge.  One
+        HK4 launch orders every shard's row range at once (the shard id
+        leads the lanes, the row index — the global row — breaks ties),
+        each shard's first kc rows are its candidates (a gather of
+        indices), and a second HK4 launch orders the n * kc candidates
+        with the global row index as the last key."""
+        n = int(self.mesh.n_shards)
+        nb = tv.nb
+        per = nb // n
+        kc = min(kb, per)  # per-shard candidate count
+        pb.key(("order_mesh", key_ids, off, kb, count, nb, len(tv.meta), n,
+                kc))
+
+        def emit(args):
+            valid, pairs = tv.emit(args)
+            got = kernels.expr_eval(prog, pairs, (args[ip], args[fp]),
+                                    nb)[1] if has_fn else []
+            kvs = [pairs[j] if kind == "col" else got[j]
+                   for kind, j in srcs]
+            perm = kernels.lex_order(
+                [kernels.shard_lane(n, per)]
+                + kernels.sort_lanes(kvs, descs, valid), nb)
+            cand = perm.reshape(n, per)[:, :kc].reshape(-1)
+            g_valid = valid[cand]
+            g_kvs = [(v[cand], m[cand]) for v, m in kvs]
+            perm2 = kernels.lex_order(
+                kernels.sort_lanes(g_kvs, descs, g_valid) + [cand],
+                n * kc, kb)
+            take = cand[perm2[off:kb]]
+            out_valid = valid[take]
+            if count is not None:
+                out_valid = out_valid & (kernels._arange(kb - off) < count)
+            return out_valid, [(v[take], m[take]) for v, m in pairs]
         return _TView(emit, kb - off, tv.meta)
 
     def close(self):
@@ -1992,17 +2199,25 @@ class DevPipeExec:
         return [c.ret_type for c in self.plan.schema.columns]
 
     def open(self, ctx):
-        from .gpu_executors import _check_mesh
         self.ctx = ctx
         self._done = False
         self._node = None
-        _check_mesh(ctx)
         if not self._enabled(ctx) or self._spill_pressure(ctx):
             # spill pressure: the pipeline holds whole tables resident and
             # has no spill path; the per-operator gates decide
             self._open_fallback(ctx)
             return
-        cctx = _Ctx(ctx)
+        mesh = mesh_if_enabled(ctx.session_vars)
+        if mesh is not None and not _contains_join(self.plan) \
+                and _contains_grouped_agg(self.plan):
+            # aggregate-only pipelines under tidb_mesh_parallel ride the
+            # per-operator tier's sharded aggregate (the partial merge
+            # over the mesh); the pipeline's aggregate nodes are
+            # single-device.  Join pipelines and TopNs keep their mesh
+            # modes here.
+            self._open_fallback(ctx)
+            return
+        cctx = _Ctx(ctx, mesh=mesh)
         try:
             self._node = _compile_device(self.plan, cctx)
         except BaseException:

@@ -24,9 +24,15 @@ probe side in blocks against the resident build keys, TopN carries its
 candidates across blocks, and a full Sort orders on the host (the
 reference's route for it).  Staging runs on devpipe.BlockPipeline.
 
+Under ``tidb_mesh_parallel`` (a mesh of N virtual shards on the
+session's device, parallel/dist.py) the fused aggregates and the unique
+joins run sharded (ops/shardops.py, ``kernels.fused_segment_aggregate_
+sharded``), as the reference's do; the sharded semi join, ORDER BY and
+top-k keep the reference's single-device gates and raise past them
+(ROADMAP queue 1, item 10).
+
 Not ported yet, and failing loudly instead of falling back: the
-memory-adaptive spill route (ROADMAP queue 1, item 6) and the
-multi-device mesh tier (item 10).
+memory-adaptive spill route (item 6).
 """
 from __future__ import annotations
 
@@ -51,8 +57,6 @@ from .executors import Executor, build_executor
 
 _SPILL_TODO = ("memory-adaptive spill execution is not ported yet: "
                "ROADMAP queue 1, item 6")
-_MESH_TODO = ("the multi-device mesh tier (tidb_mesh_parallel) is not "
-              "ported yet: ROADMAP queue 1, item 10")
 
 
 def _drain_chunk(ex: Executor, fields) -> Chunk:
@@ -83,15 +87,23 @@ def _block_budget(session_vars) -> int:
         return 0
 
 
-def _check_mesh(ctx) -> None:
-    """The reference shards over a device mesh under tidb_mesh_parallel;
-    the port has no mesh tier yet."""
-    try:
-        on = int(ctx.session_vars.get("tidb_mesh_parallel", 0) or 0)
-    except (TypeError, ValueError):
-        on = 0
-    if on:
-        raise NotImplementedError(_MESH_TODO)
+def _mesh_for(ctx, nb: int, plan=None):
+    """Execution mesh for one sharded dispatch, or None = single-device.
+    Gates, in order: session opt-in (tidb_mesh_parallel), the planner's
+    estRows-driven shard count when annotated (plan.mesh_shards from
+    planner/device.py — 1 means stay single-device, >= 2 clips to a
+    cached smaller mesh), and the runtime row-bucket gate
+    (dist.shardable) on the actual padded row count."""
+    from ..parallel import dist
+    mesh = dist.session_mesh(ctx.session_vars)
+    if mesh is None:
+        return None
+    want = int(getattr(plan, "mesh_shards", 0) or 0)
+    if want == 1:
+        return None
+    if want >= 2:
+        mesh = dist.sized_mesh(min(want, dist.mesh_shards(mesh)))
+    return mesh if dist.shardable(nb, mesh) else None
 
 
 def _est_rows_of(plan_child) -> float:
@@ -700,21 +712,36 @@ class GPUHashAggExec(Executor):
             mask[:n] = fmask if fmask is not None else True
             mask_spec = ("host", kernels.h2d(mask))
 
-        _check_mesh(self.ctx)
+        mesh = _mesh_for(self.ctx, nb, plan)
         if not plan.group_by:
             out_keys = []
-            # batchable: THE single-shot dispatch cross-query
-            # micro-batching coalesces (ops/batching.py)
-            out_aggs, first_orig = kernels.fused_scalar_aggregate(
-                dev_cols, specs, prog, lane_of, n, nb, mask_spec,
-                program_key=program_key, params=params, batchable=True)
+            if mesh is not None:
+                # partial -> final over the mesh's shards; not batchable
+                # (stacked rounds over a sharded program: item 7)
+                from ..ops import shardops
+                out_aggs, first_orig = \
+                    shardops.fused_scalar_aggregate_sharded(
+                        mesh, dev_cols, specs, prog, lane_of, n, nb,
+                        mask_spec, program_key=program_key, params=params)
+            else:
+                # batchable: THE single-shot dispatch cross-query
+                # micro-batching coalesces (ops/batching.py)
+                out_aggs, first_orig = kernels.fused_scalar_aggregate(
+                    dev_cols, specs, prog, lane_of, n, nb, mask_spec,
+                    program_key=program_key, params=params, batchable=True)
         else:
             gid_dev = _dev_memo(
                 rep, "gid_dev", tuple(slot_ids[e.index]
                                       for e in plan.group_by), nb,
                 lambda: kernels.h2d_pad(
                     self._compose_gid(key_layouts, n), nb))
-            if self._can_device_passthrough(plan, slots, key_layouts) \
+            if mesh is not None:
+                present, out_aggs, first_orig = \
+                    kernels.fused_segment_aggregate_sharded(
+                        mesh, dev_cols, gid_dev, n_segments, specs, prog,
+                        lane_of, n, mask_spec, program_key=program_key,
+                        params=params)
+            elif self._can_device_passthrough(plan, slots, key_layouts) \
                     and not batching.active():
                 # a live batch round prefers the batchable fused path
                 # below: members must park (collect) and consume
@@ -728,11 +755,12 @@ class GPUHashAggExec(Executor):
                         params=params)
                 return self._assemble_device_output(
                     plan, slots, key_layouts, ids, live, out_aggs_d, np_)
-            present, out_aggs, first_orig = \
-                kernels.fused_segment_aggregate(
-                    dev_cols, gid_dev, n_segments, specs, prog, lane_of, n,
-                    mask_spec, program_key=program_key, params=params,
-                    batchable=True)
+            else:
+                present, out_aggs, first_orig = \
+                    kernels.fused_segment_aggregate(
+                        dev_cols, gid_dev, n_segments, specs, prog, lane_of,
+                        n, mask_spec, program_key=program_key,
+                        params=params, batchable=True)
             out_keys = self._decode_present(present, key_layouts)
         return self._assemble_output(chk, plan, slots, out_keys, out_aggs,
                                      first_orig,
@@ -1058,7 +1086,6 @@ class GPUHashAggExec(Executor):
 
         if dev_args:
             arg_cols = _device_args(chk, n, arg_cols, dev_args)
-        _check_mesh(self.ctx)
         if not plan.group_by:
             out_keys = []
             out_aggs, first_orig = kernels.scalar_aggregate(
@@ -1304,8 +1331,17 @@ class GPUHashJoinExec(Executor):
         composite = len(plan.left_keys) > 1
         stream = (budget > 0 and probe_chk.full_rows() > budget
                   and not composite)
-        if not stream:
-            _check_mesh(self.ctx)
+        # the partitioned unique join over the mesh (the probe side's
+        # bucket decides) scatters HOST key lanes with the spill
+        # partitioner, so under a live mesh the keys come from the host
+        # columns, never from the replica's device memo: the reference's
+        # semi join's rule, and what its unique join does on its CPU mesh
+        # (where every key lands on the host)
+        mesh = None
+        if not stream and not composite and (
+                right_unique or (left_unique and plan.tp == "inner")):
+            mesh = _mesh_for(self.ctx, kernels.bucket(max(
+                (lchk if right_unique else rchk).full_rows(), 1)), plan)
         from .devpipe import BlockPipeline, pipeline_depth
         depth = pipeline_depth(self.ctx.session_vars)
 
@@ -1313,7 +1349,8 @@ class GPUHashJoinExec(Executor):
             if stream and side == probe_side:
                 v, m = expr.vec_eval(chk)  # host: no whole-column upload
                 return np.asarray(v), np.asarray(m)
-            return self._key_arrays(expr, chk, rep, side)
+            return self._key_arrays(expr, chk, rep, side,
+                                    host_keys=mesh is not None)
 
         if composite:
             # multi-key equi-joins ride ONE composite int64 lane (joint
@@ -1380,6 +1417,17 @@ class GPUHashJoinExec(Executor):
                 return z, z
             return np.concatenate(pis), np.concatenate(bis)
 
+        def sharded(pkey, n_probe, pmask, bkey, n_build, bmask, outer_):
+            """The mesh's partitioned unique join, or None (skew, key
+            dtypes, no mesh): the single-device kernel then runs."""
+            if mesh is None or not isinstance(pkey[0], np.ndarray) \
+                    or not isinstance(bkey[0], np.ndarray):
+                return None
+            from ..ops import shardops
+            return shardops.unique_join_match_sharded(
+                mesh, pkey, n_probe, bkey, n_build, outer=outer_,
+                lvalid=pmask, rvalid=bmask)
+
         if right_unique:
             # unique build side: no expansion, no size sync
             if stream:
@@ -1388,10 +1436,13 @@ class GPUHashJoinExec(Executor):
                     lmask, (rk, rnull), rchk.full_rows(), rmask,
                     outer=outer)
             else:
-                li, ri = kernels.unique_join_match(
-                    (lk, lnull), lchk.full_rows(), (rk, rnull),
-                    rchk.full_rows(), outer=outer, lvalid=lmask,
-                    rvalid=rmask)
+                got = sharded((lk, lnull), lchk.full_rows(), lmask,
+                              (rk, rnull), rchk.full_rows(), rmask, outer)
+                li, ri = got if got is not None else \
+                    kernels.unique_join_match(
+                        (lk, lnull), lchk.full_rows(), (rk, rnull),
+                        rchk.full_rows(), outer=outer, lvalid=lmask,
+                        rvalid=rmask)
         elif left_unique and plan.tp == "inner":
             if stream:
                 ri, li = stream_match(
@@ -1399,10 +1450,13 @@ class GPUHashJoinExec(Executor):
                     rmask, (lk, lnull), lchk.full_rows(), lmask,
                     outer=False)
             else:
-                ri, li = kernels.unique_join_match(
-                    (rk, rnull), rchk.full_rows(), (lk, lnull),
-                    lchk.full_rows(), outer=False, lvalid=rmask,
-                    rvalid=lmask)
+                got = sharded((rk, rnull), rchk.full_rows(), rmask,
+                              (lk, lnull), lchk.full_rows(), lmask, False)
+                ri, li = got if got is not None else \
+                    kernels.unique_join_match(
+                        (rk, rnull), rchk.full_rows(), (lk, lnull),
+                        lchk.full_rows(), outer=False, lvalid=rmask,
+                        rvalid=lmask)
         elif stream:
             li, ri = stream_match(
                 kernels.join_match, lk, lnull, lchk.full_rows(), lmask,
@@ -1475,34 +1529,54 @@ class GPUHashJoinExec(Executor):
         rchk, rmask, rrep = self._side_input(1, plan.right_conditions)
         _spill_gate(self.ctx, est, lchk.full_rows() + rchk.full_rows(),
                     _JOIN_ROW_BYTES)
-        _check_mesh(self.ctx)
+        mesh = None if len(plan.left_keys) > 1 else \
+            _mesh_for(self.ctx, kernels.bucket(max(lchk.full_rows(), 1)),
+                      plan)
+        # the partitioned semi join scatters HOST key lanes
+        host_keys = mesh is not None
         if len(plan.left_keys) > 1:
             (lk, lnull), (rk, rnull) = _composite_key_lanes(
                 plan.left_keys, lchk, plan.right_keys, rchk)
         else:
-            lk, lnull = self._key_arrays(plan.left_keys[0], lchk, lrep, 0)
-            rk, rnull = self._key_arrays(plan.right_keys[0], rchk, rrep, 1)
-        li = kernels.semi_join_match(
-            (lk, lnull), lchk.full_rows(), (rk, rnull), rchk.full_rows(),
-            anti=anti, null_aware=null_aware, lvalid=lmask, rvalid=rmask)
+            lk, lnull = self._key_arrays(plan.left_keys[0], lchk, lrep, 0,
+                                         host_keys=host_keys)
+            rk, rnull = self._key_arrays(plan.right_keys[0], rchk, rrep, 1,
+                                         host_keys=host_keys)
+        li = None
+        if mesh is not None:
+            from ..ops import shardops
+            li = shardops.semi_join_match_sharded(
+                mesh, (lk, lnull), lchk.full_rows(), (rk, rnull),
+                rchk.full_rows(), anti=anti, null_aware=null_aware,
+                lvalid=lmask, rvalid=rmask)
+        if li is None:
+            li = kernels.semi_join_match(
+                (lk, lnull), lchk.full_rows(), (rk, rnull),
+                rchk.full_rows(), anti=anti, null_aware=null_aware,
+                lvalid=lmask, rvalid=rmask)
         if len(li) == 0:
             return None
         cols: List[CCol] = [LazyTakeColumn(c, li) for c in lchk.columns]
         return Chunk.from_columns(cols)
 
-    def _key_arrays(self, key_expr, chk, rep, side):
+    def _key_arrays(self, key_expr, chk, rep, side, host_keys=False):
         """Join key (values, null) — for a bare Column over an uncompacted
         replica, PADDED device tensors memoized on the replica (no
         re-upload per query); device-resident for a DeviceColumn child (an
-        aggregate output that never landed on host); numpy otherwise."""
+        aggregate output that never landed on host); numpy otherwise.
+        ``host_keys`` (a partitioned join over the mesh) lands the keys on
+        the host instead."""
         from ..chunk import DeviceColumn
         from ..expression import Column as ExprColumn
         from .executors import TableReaderExec
         if isinstance(key_expr, ExprColumn):
             col = chk.columns[key_expr.index]
             if isinstance(col, DeviceColumn) and col._data is None:
+                if host_keys:
+                    return key_expr.vec_eval(chk)
                 return col.device_pair()
-        if rep is not None and isinstance(key_expr, ExprColumn):
+        if rep is not None and isinstance(key_expr, ExprColumn) \
+                and not host_keys:
             child = self.children[side]
             if isinstance(child, TableReaderExec):
                 ci = child._decode_cols[key_expr.index]
@@ -1550,8 +1624,17 @@ class GPUSortExec(Executor):
                     # break tidb_device_block_rows
                     perm = kernels.host_sort_permutation(keys, descs, n)
                 else:
-                    _check_mesh(self.ctx)
-                    perm = kernels.sort_permutation(keys, descs, n)
+                    perm = None
+                    mesh = _mesh_for(self.ctx, kernels.bucket(max(n, 1)),
+                                     self.plan)
+                    if mesh is not None:
+                        # per-shard sort + rank merge; None (multi-key,
+                        # unscorable) runs the single-device kernel
+                        from ..ops import shardops
+                        perm = shardops.sort_permutation_sharded(
+                            mesh, keys, descs, n)
+                    if perm is None:
+                        perm = kernels.sort_permutation(keys, descs, n)
                 chk.set_sel(perm)
                 self._out = iter([chk.compact()])
         return next(self._out, None)
@@ -1585,8 +1668,17 @@ class GPUTopNExec(Executor):
                 if budget > 0 and n > budget:
                     perm = self._blockwise_topk(keys, descs, n, k, budget)
                 else:
-                    _check_mesh(self.ctx)
-                    perm = kernels.top_k(keys, descs, n, k)
+                    perm = None
+                    mesh = _mesh_for(self.ctx, kernels.bucket(max(n, 1)),
+                                     self.plan)
+                    if mesh is not None:
+                        # per-shard top-k + merge; None (multi-key, k past
+                        # a shard, unscorable) runs the single-device one
+                        from ..ops import shardops
+                        perm = shardops.top_k_sharded(
+                            mesh, keys, descs, n, k)
+                    if perm is None:
+                        perm = kernels.top_k(keys, descs, n, k)
                 sel = perm[self.plan.offset:]
                 chk.set_sel(sel)
                 self._out = iter([chk.compact()] if len(sel) else [])

@@ -594,10 +594,10 @@ class FlightWriter:
     # -- segments ------------------------------------------------------------
     def _counters(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
-        # the reference also probes ops/shardops.py (ROADMAP queue 1,
-        # item 10) and ops/spill.py (item 6), which the port lacks yet
+        # the reference also probes ops/spill.py (ROADMAP queue 1, item
+        # 6), which the port lacks yet
         probes = (
-            ("wal", "..kv.wal"),
+            ("wal", "..kv.wal"), ("shard", "..ops.shardops"),
             ("batching", "..ops.batching"),
             ("admission", "..server.admission"),
             ("prewarm", "..session.prewarm"),

@@ -403,9 +403,8 @@ class Sampler:
 # ---- built-in sources -----------------------------------------------------
 # Each source is lazy-importing and exception-isolated: /metrics and the
 # ring must stay alive without a card, without a server, without a pool.
-# The reference's spill, shardops and degrade sources are left out: the
-# port has no ops/spill.py or ops/degrade.py yet (ROADMAP queue 1, item
-# 6) and no ops/shardops.py (item 10).
+# The reference's spill and degrade sources are left out: the port has no
+# ops/spill.py or ops/degrade.py yet (ROADMAP queue 1, item 6).
 
 def _src_queries() -> Dict[str, float]:
     from .metrics import query_counter_totals
@@ -484,6 +483,13 @@ def _src_batching() -> Dict[str, float]:
 def _src_memory() -> Dict[str, float]:
     from ..utils import memory as mem
     return {"tinysql_mem_quota_exceeded_total": mem.aborts_total()}
+
+
+def _src_shardops() -> Dict[str, float]:
+    from ..ops.shardops import stats_snapshot
+    from .metrics import SHARD_METRIC_NAMES
+    s = stats_snapshot()
+    return {name: s.get(key, 0) for key, name in SHARD_METRIC_NAMES}
 
 
 def _src_wal() -> Dict[str, float]:
@@ -573,7 +579,7 @@ for _name, _fn in (("queries", _src_queries), ("kernels", _src_kernels),
                    ("progcache", _src_progcache), ("pool", _src_pool),
                    ("conn", _src_conn), ("admission", _src_admission),
                    ("batching", _src_batching), ("memory", _src_memory),
-                   ("wal", _src_wal),
+                   ("shardops", _src_shardops), ("wal", _src_wal),
                    ("flight", _src_flight),
                    ("identity", _src_identity),
                    ("failpoints", _src_failpoints),

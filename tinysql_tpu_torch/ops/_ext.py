@@ -22,7 +22,7 @@ from typing import Dict, Optional
 
 SOURCES = ("masked_reduce", "segment_reduce", "equi_join", "lex_order",
            "csr_reduce", "dense_probe", "expr_eval", "csr_expand",
-           "run_bounds", "semi_pick")
+           "run_bounds", "semi_pick", "shard_merge", "shard_join")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -107,6 +107,14 @@ _SIGNATURES = {
     "semi_pick": {
         "hk10_semi_pick": (_int, [_vp, _vp, _vp, _i64, _vp, _vp, _i64, _int,
                                   _int, _vp, _vp, _vp, _vp, _vp]),
+    },
+    "shard_merge": {
+        "hk11_shard_merge": (_int, [_vp, _int, _int, _i64, _int, _int, _vp,
+                                    _i64, _i64, _vp, _vp]),
+    },
+    "shard_join": {
+        "hk12_shard_probe": (_int, [_vp, _vp, _i64, _vp, _vp, _vp, _i64,
+                                    _int, _int, _vp, _vp, _vp]),
     },
 }
 

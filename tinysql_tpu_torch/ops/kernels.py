@@ -2,7 +2,7 @@
 
 The port of tinysql_tpu/ops/kernels.py.  The JAX package compiled every
 operator family into XLA programs; here each family's core is one of
-ten kernels written by hand for Hopper (csrc/*.cu, built by
+twelve kernels written by hand for Hopper (csrc/*.cu, built by
 ops/_ext.py), and the glue around them (key normalisation, packing,
 present-row extraction) runs as plain torch tensor operations:
 
@@ -33,7 +33,14 @@ present-row extraction) runs as plain torch tensor operations:
 - HK9 :func:`run_bounds` (csrc/run_bounds.cu) — the runs of equal keys
   after an HK4 sort (K19's GROUP BY above a join, K4's boundary scan);
 - HK10 :func:`semi_pick` (csrc/semi_pick.cu) — K8's semi / anti / NOT IN
-  ladder over HK3's membership and the compaction of the kept rows.
+  ladder over HK3's membership and the compaction of the kept rows;
+- HK11 :func:`shard_merge` (csrc/shard_merge.cu) — the mesh tier's psum /
+  pmin / pmax of per-shard partial tables (K11
+  :func:`fused_segment_aggregate_sharded` over HK2, K25's scalar
+  aggregate over HK1);
+- HK12 :func:`shard_probe` (csrc/shard_join.cu) — the per-partition probe
+  of the mesh tier's unique join (K25), over an HK4 sort of the build
+  blocks.
 
 Every kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain torch version (same contract: inputs, outputs, NULL, sentinel and
@@ -158,7 +165,8 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "segment_reduce": 0,
                             "expr_eval_batched": 0,
                             "masked_reduce_batched": 0,
                             "segment_reduce_batched": 0,
-                            "semi_pick": 0}
+                            "semi_pick": 0, "shard_merge": 0,
+                            "shard_probe": 0}
 #: plain-version calls per wrapper (CPU tensors)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
@@ -721,11 +729,12 @@ def masked_reduce_batched_plain(valid: torch.Tensor, lanes) -> torch.Tensor:
 # =========================================================================
 
 def segment_reduce(gid: torch.Tensor, valid: torch.Tensor, ns: int,
-                   lanes) -> torch.Tensor:
+                   lanes, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-segment reduction over int64 group ids in [0, ns).  Returns the
     int64 table [(2 + 2 * len(lanes)), ns]: presence, first valid row
     (sentinel n when empty), then per lane its values (float64 bit-cast;
-    identity when empty) and live counts."""
+    identity when empty) and live counts.  ``out``: a contiguous table of
+    that shape to write into (the mesh tier's per-shard partials)."""
     n = int(valid.shape[0])
     dev = valid.device
     on_card = _on_card(valid, "segment_reduce")
@@ -735,24 +744,33 @@ def segment_reduce(gid: torch.Tensor, valid: torch.Tensor, ns: int,
     lanes = _norm_lanes(lanes, n, dev, "segment_reduce")
     if ns < 1:
         raise ValueError("segment_reduce: ns must be >= 1")
+    if out is not None and (tuple(out.shape) != (2 + 2 * len(lanes), ns)
+                            or out.dtype != I64 or not out.is_contiguous()
+                            or out.device != dev):
+        raise ValueError("segment_reduce: out must be a contiguous int64 "
+                         f"[{2 + 2 * len(lanes)}, {ns}] table on {dev}")
     if not on_card:
-        return segment_reduce_plain(gid, valid, ns, lanes)
+        table = segment_reduce_plain(gid, valid, ns, lanes)
+        return table if out is None else out.copy_(table)
     from . import _ext
     lib = _ext.lib("segment_reduce")
     tables = []
     for c0 in range(0, max(len(lanes), 1), _MAX_LANES):
         chunk = lanes[c0:c0 + _MAX_LANES]
-        out = torch.empty((2 + 2 * len(chunk), ns), dtype=I64, device=dev)
+        whole = out is not None and len(lanes) <= _MAX_LANES
+        out_c = out if whole else torch.empty(
+            (2 + 2 * len(chunk), ns), dtype=I64, device=dev)
         scratch = torch.empty(max(lib.hk2_scratch_bytes(n, ns, len(chunk)),
                                   8), dtype=torch.uint8, device=dev)
         cl = _c_lanes(chunk)
         _ext.check(lib.hk2_segment_reduce(
             gid.data_ptr(), valid.data_ptr(), n, ns, ctypes.byref(cl),
-            scratch.data_ptr(), out.data_ptr(), _stream()),
+            scratch.data_ptr(), out_c.data_ptr(), _stream()),
             "segment_reduce")
         _count(LAUNCHES, "segment_reduce")
-        tables.append(out if not tables else out[2:])
-    return tables[0] if len(tables) == 1 else torch.cat(tables)
+        tables.append(out_c if not tables else out_c[2:])
+    table = tables[0] if len(tables) == 1 else torch.cat(tables)
+    return table if out is None or table is out else out.copy_(table)
 
 
 def segment_reduce_plain(gid: torch.Tensor, valid: torch.Tensor, ns: int,
@@ -2537,6 +2555,44 @@ def fused_segment_aggregate_keep(dev_cols, gid_dev, n_segments: int,
     return ids, live, out_aggs, np_, ob
 
 
+def fused_segment_aggregate_sharded(mesh, dev_cols, gid_dev,
+                                    n_segments: int, agg_specs, prog,
+                                    lane_of, n_rows: int, mask,
+                                    program_key: tuple = (), params=None):
+    """The mesh variant of the fused grouped aggregate (K11): rows shard
+    over the mesh's N virtual shards, HK7 evaluates the filter mask and
+    the argument lanes, HK2 segment-reduces each shard's rows, and HK11
+    merges the partial tables (the reference's psum / pmin / pmax).
+    Returns (present_ids, out_aggs, first_orig) as
+    :func:`fused_segment_aggregate` does.  The bucket must divide over
+    the shards (power-of-two buckets over power-of-two meshes do)."""
+    from ..parallel import dist
+    from . import shardops
+    nb = int(gid_dev.shape[0])
+    n_dev = dist.mesh_shards(mesh)
+    assert nb % n_dev == 0, (nb, n_dev)
+    ns = bucket(max(n_segments, 1))
+    mask_key, mask_arr = _mask_parts(mask)
+    key = ("seg_sharded", tuple(agg_specs), program_key, mask_key, ns, nb,
+           ("shards", n_dev))
+
+    def build():
+        xp, lo = prog, list(lane_of)
+
+        def program(cols, gid, mask_in, n, pr):
+            valid, pairs = _run_agg_program(xp, lo, cols, mask_in, pr, nb,
+                                            n)
+            lanes, plan = _spec_lanes(agg_specs, pairs)
+            return sharded_segment_reduce(gid, valid, ns, lanes,
+                                          n_dev), plan
+        return counted_launch(program)
+    fn = progcache.get(key, build)
+    shardops.note_round(nb // n_dev)
+    table, plan = fn(dev_cols, gid_dev, mask_arr, n_rows,
+                     _params_dev(params))
+    return _present_extract(table, plan, ns, nb, limit=n_segments)
+
+
 def segment_group_aggregate(gids: np.ndarray, n_segments: int, agg_specs,
                             arg_cols, n_rows: int,
                             filter_mask: np.ndarray = None):
@@ -2740,6 +2796,237 @@ def semi_pick_plain(match, ln, lv, rn, rv, anti: bool,
     out[0] = idx.shape[0]
     out[1:1 + idx.shape[0]] = idx
     return out
+
+
+# =========================================================================
+# HK11 shard_merge, HK12 shard_probe (the mesh tier, K11 and K25)
+# =========================================================================
+# The mesh is N virtual shards on one device (parallel/dist.py): shard s
+# owns rows [s * m, (s + 1) * m) of every padded lane, m = nb / N.
+
+#: how one row of a partial table folds over the shards
+#: (csrc/shard_merge.cu's MergeOp)
+MERGE_OPS = {"sum_i": 0, "sum_f": 1, "min_i": 2, "max_i": 3, "min_f": 4,
+             "max_f": 5, "first_seg": 6, "first_scalar": 7}
+_MERGE_ROWS = 64  # rows one HK11 launch folds (kMaxMergeRows)
+
+
+def merge_ops(lanes, first: str) -> List[int]:
+    """HK11's per-row ops for an HK1 (``first="first_scalar"``) or HK2
+    (``"first_seg"``) table over ``lanes``: the count / presence row
+    sums, the first-row row takes its sentinel rule, then per lane its
+    value row (sum, min or max in its type; a count lane's zeros sum) and
+    its live-count row (sum)."""
+    ops = [MERGE_OPS["sum_i"], MERGE_OPS[first]]
+    for v, _m, op in lanes:
+        kind = "sum" if op == "count" else op
+        ops += [MERGE_OPS[f"{kind}_{'f' if _lane_kind(v) else 'i'}"],
+                MERGE_OPS["sum_i"]]
+    return ops
+
+
+def shard_merge(parts: torch.Tensor, ops: Sequence[int], shard_rows: int,
+                nb: int) -> torch.Tensor:
+    """HK11: fold the per-shard partial tables ``parts`` (int64 [n, rows,
+    width], shard s's table at parts[s], float values as their bits) into
+    one int64 [rows, width] table, row r by ``ops[r]`` (:data:`MERGE_OPS`),
+    over the shards in ascending order.  ``shard_rows`` (m) and ``nb``
+    place a shard's local first row: ``first_seg`` maps HK2's "no row"
+    sentinel (>= m) to nb - 1, ``first_scalar`` an empty shard (row 0 is
+    0) to nb and a merged nb to 0.  Float min / max give NaN when any
+    partial is NaN."""
+    if parts.dim() != 3 or parts.dtype != I64:
+        raise ValueError("shard_merge: parts must be int64 [n, rows, width]")
+    n, rows, width = (int(x) for x in parts.shape)
+    ops = [int(o) for o in ops]
+    if len(ops) != rows or n < 1 or width < 1 \
+            or any(o not in MERGE_OPS.values() for o in ops):
+        raise ValueError(f"shard_merge: {len(ops)} ops for {rows} rows of "
+                         f"{n} shards x {width}")
+    parts = parts.contiguous()
+    if not _on_card(parts, "shard_merge"):
+        return shard_merge_plain(parts, ops, shard_rows, nb)
+    from . import _ext
+    lib = _ext.lib("shard_merge")
+    out = torch.empty((rows, width), dtype=I64, device=parts.device)
+    for r0 in range(0, rows, _MERGE_ROWS):
+        k = min(_MERGE_ROWS, rows - r0)
+        _ext.check(lib.hk11_shard_merge(
+            parts.data_ptr(), n, rows, width, r0, k,
+            (ctypes.c_int * k)(*ops[r0:r0 + k]), int(shard_rows), int(nb),
+            out.data_ptr(), _stream()), "shard_merge")
+        _count(LAUNCHES, "shard_merge")
+    return out
+
+
+def shard_merge_plain(parts: torch.Tensor, ops: Sequence[int],
+                      shard_rows: int, nb: int) -> torch.Tensor:
+    """Plain torch version of HK11: the same left fold over the shards,
+    row by row, so kernel and plain version agree byte for byte."""
+    _count(PLAIN_CALLS, "shard_merge")
+    n, rows, width = (int(x) for x in parts.shape)
+    dev = parts.device
+    out = torch.empty((rows, width), dtype=I64, device=dev)
+    base = torch.arange(n, dtype=I64, device=dev)[:, None] * shard_rows
+    for r, op in enumerate(int(o) for o in ops):
+        col = parts[:, r, :]
+        if op == MERGE_OPS["first_seg"]:
+            g = torch.where(col >= shard_rows,
+                            torch.full_like(col, nb - 1), col + base)
+            out[r] = g.min(dim=0).values
+        elif op == MERGE_OPS["first_scalar"]:
+            g = torch.where(parts[:, 0, :] == 0, torch.full_like(col, nb),
+                            col + base)
+            acc = g.min(dim=0).values
+            out[r] = torch.where(acc >= nb, torch.zeros_like(acc), acc)
+        elif op in (MERGE_OPS["sum_f"], MERGE_OPS["min_f"],
+                    MERGE_OPS["max_f"]):
+            acc = col[0].view(F64)
+            for s in range(1, n):
+                x = col[s].view(F64)
+                if op == MERGE_OPS["sum_f"]:
+                    acc = acc + x
+                    continue
+                better = x < acc if op == MERGE_OPS["min_f"] else x > acc
+                take = ~torch.isnan(acc) & (torch.isnan(x) | better)
+                acc = torch.where(take, x, acc)
+            out[r] = acc.view(I64)
+        else:
+            acc = col[0]
+            for s in range(1, n):
+                if op == MERGE_OPS["sum_i"]:
+                    acc = acc + col[s]
+                elif op == MERGE_OPS["min_i"]:
+                    acc = torch.minimum(acc, col[s])
+                else:
+                    acc = torch.maximum(acc, col[s])
+            out[r] = acc
+    return out
+
+
+def _shard_partials(n_shards: int, shard_rows: int, rows: int, width: int,
+                    dev, reduce_one) -> torch.Tensor:
+    """int64 [n_shards, rows, width]: shard s's partial table, written by
+    ``reduce_one(row slice, out)`` over its own row range."""
+    parts = torch.empty((n_shards, rows, width), dtype=I64, device=dev)
+    for s in range(n_shards):
+        reduce_one(slice(s * shard_rows, (s + 1) * shard_rows), parts[s])
+    return parts
+
+
+def _lane_rows(lanes, sl: slice):
+    return [(None if v is None else v[sl], None if m is None else m[sl], op)
+            for v, m, op in lanes]
+
+
+def sharded_masked_reduce(valid: torch.Tensor, lanes,
+                          n_shards: int) -> torch.Tensor:
+    """K25's scalar aggregate on the card: HK1 over each shard's row
+    range (one launch per shard), HK11 merges the partials.  Same contract
+    as :func:`masked_reduce` (the first valid row is global; 0 when
+    none)."""
+    nb = int(valid.shape[0])
+    m = nb // n_shards
+    lanes = _norm_lanes(lanes, nb, valid.device, "sharded_masked_reduce")
+    rows = 2 + 2 * len(lanes)
+
+    def one(sl, out):
+        out[:, 0] = masked_reduce(valid[sl], _lane_rows(lanes, sl))
+    parts = _shard_partials(n_shards, m, rows, 1, valid.device, one)
+    return shard_merge(parts, merge_ops(lanes, "first_scalar"), m,
+                       nb).reshape(-1)
+
+
+def sharded_segment_reduce(gid: torch.Tensor, valid: torch.Tensor, ns: int,
+                           lanes, n_shards: int) -> torch.Tensor:
+    """K11 on the card: HK2 over each shard's row range into its slice of
+    one partial table (one launch per shard), HK11 merges the partials.
+    Same contract as :func:`segment_reduce` (first rows are global; a
+    segment no shard holds carries nb - 1)."""
+    nb = int(valid.shape[0])
+    m = nb // n_shards
+    lanes = _norm_lanes(lanes, nb, valid.device, "sharded_segment_reduce")
+    rows = 2 + 2 * len(lanes)
+
+    def one(sl, out):
+        segment_reduce(gid[sl], valid[sl], ns, _lane_rows(lanes, sl),
+                       out=out)
+    parts = _shard_partials(n_shards, m, rows, ns, valid.device, one)
+    return shard_merge(parts, merge_ops(lanes, "first_seg"), m, nb)
+
+
+def _probe_order(pk: torch.Tensor) -> torch.Tensor:
+    """A probe key lane as the signed form of HK4's uint64 order keys."""
+    return _u64_lane(pk, False) ^ I64_MIN
+
+
+def shard_probe(pk: torch.Tensor, pid: torch.Tensor, bord: torch.Tensor,
+                bid: torch.Tensor, perm: torch.Tensor, n_shards: int):
+    """HK12: per probe slot of shard s (slot i, s = i // cap_p), the
+    binary search of its key in shard s's sorted build run.  ``pk``,
+    ``pid``: int64 or float64 keys and int64 global ids (-1 = padding) of
+    the probe blocks [n * cap_p]; ``bord``: the build blocks' uint64
+    order keys (dead slots at the sentinel), ``bid`` their ids, ``perm``
+    HK4's order of (shard, bord, dead) over [n * cap_b].  Returns (hit
+    bool, brow int64) per probe slot: the live build slot with an equal
+    key, and its id (-1 without one)."""
+    n = int(n_shards)
+    npb, nbb = int(pk.shape[0]), int(bord.shape[0])
+    if n < 1 or npb % n or nbb % n or npb == 0 or nbb == 0:
+        raise ValueError(f"shard_probe: {npb} probe / {nbb} build slots "
+                         f"over {n} shards")
+    dev = pk.device
+    if pk.dtype not in (I64, F64):
+        raise ValueError(f"shard_probe: key dtype {pk.dtype}")
+    pk = pk.contiguous()
+    _need(pk, pk.dtype, npb, dev, "shard_probe pk")
+    for t, ln, w in ((pid, npb, "pid"), (bord, nbb, "bord"),
+                     (bid, nbb, "bid"), (perm, nbb, "perm")):
+        _need(t, I64, ln, dev, f"shard_probe {w}")
+    if not _on_card(pk, "shard_probe"):
+        return shard_probe_plain(pk, pid, bord, bid, perm, n)
+    from . import _ext
+    hit = torch.empty(npb, dtype=torch.bool, device=dev)
+    brow = torch.empty(npb, dtype=I64, device=dev)
+    _ext.check(_ext.lib("shard_join").hk12_shard_probe(
+        pk.data_ptr(), pid.data_ptr(), npb // n, bord.data_ptr(),
+        bid.data_ptr(), perm.data_ptr(), nbb // n, n, int(pk.dtype == F64),
+        hit.data_ptr(), brow.data_ptr(), _stream()), "shard_probe")
+    _count(LAUNCHES, "shard_probe")
+    return hit, brow
+
+
+def shard_probe_plain(pk, pid, bord, bid, perm, n_shards: int):
+    """Plain torch version of HK12: ``torch.searchsorted`` per shard (one
+    batched call over the [n, cap_b] sorted runs)."""
+    _count(PLAIN_CALLS, "shard_probe")
+    n = int(n_shards)
+    cap_p, cap_b = int(pk.shape[0]) // n, int(bord.shape[0]) // n
+    run = perm.reshape(n, cap_b)
+    sk = (bord ^ I64_MIN)[run]
+    pv = _probe_order(pk).reshape(n, cap_p).contiguous()
+    lo = torch.searchsorted(sk, pv)
+    loc = torch.clamp(lo, max=cap_b - 1)
+    j = run.gather(1, loc)
+    ok = (pid.reshape(n, cap_p) >= 0) & (lo < cap_b) \
+        & (sk.gather(1, loc) == pv) & (bid[j] >= 0)
+    if pk.dtype == F64:
+        ok &= ~torch.isnan(pk).reshape(n, cap_p)
+    brow = torch.where(ok, bid[j], torch.full_like(j, -1))
+    return ok.reshape(-1), brow.reshape(-1)
+
+
+def shard_lane(n_shards: int, cap: int) -> torch.Tensor:
+    """Each slot's shard id over [n_shards * cap] blocks (HK4's leading
+    lane for a per-shard sort), memoized per device."""
+    dev = device()
+    key = ("shard_lane", n_shards, cap, str(dev))
+    with _ARANGE_MU:
+        t = _ARANGE.get(key)
+        if t is None:
+            t = _ARANGE[key] = torch.arange(
+                n_shards, dtype=I64, device=dev).repeat_interleave(cap)
+    return t
 
 
 def sort_permutation(key_cols: List[Tuple[np.ndarray, np.ndarray]],

@@ -239,8 +239,8 @@ def place_devices(p: PhysicalPlan, enabled: bool = True,
         # absent means "no planner opinion, the executor's runtime row
         # gate decides alone"
         if p.use_tpu and mesh_shards >= 2 and mesh_admissible(p) is None:
-            # the sharded operator tier (parallel/dist.py) is not ported
-            raise NotImplementedError(
-                "the multi-device mesh tier is not ported yet: ROADMAP "
-                "queue 1, item 10")
+            est = _input_rows(p)
+            if est > 0:
+                from ..parallel import dist
+                p.mesh_shards = dist.shard_bucket(est, mesh_shards)
     return p

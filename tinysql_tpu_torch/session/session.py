@@ -854,11 +854,10 @@ class Session:
         min_rows = float(self.get_sysvar("tidb_tpu_min_rows") or 0)
         shards = 0
         if use_tpu and bool(self.get_sysvar("tidb_mesh_parallel")):
-            # the reference sized its device mesh here; the port has no
-            # mesh tier yet
-            raise NotImplementedError(
-                "the multi-device mesh tier (tidb_mesh_parallel) is not "
-                "ported yet: ROADMAP queue 1, item 10")
+            # mesh size feeds the planner's broadcast-vs-shuffle join
+            # cost compare (device.py _mesh_join_strategy)
+            from ..parallel import dist
+            shards = dist.device_count()
         verify = bool(self.get_sysvar("tidb_qlint_verify"))
         if bool(self.get_sysvar("tidb_enable_cascades_planner")):
             from ..planner.cascades import find_best_plan
