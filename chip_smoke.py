@@ -7,7 +7,7 @@ Phases (any mismatch raises, and the script exits nonzero without a
 result line):
 
 1. the card's name and power limit (nvidia-smi) and the build of the
-   twelve hand-written kernel sources (HK1-HK12; K12's batched entry
+   fourteen hand-written kernel sources (HK1-HK14; K12's batched entry
    points live in HK7's, HK1's and HK2's) from tinysql_tpu_torch/csrc;
 2. each kernel against its plain torch version on the card, at the shapes
    the main path gives it at TPC-H SF=1 plus edge cases: integers, counts,
@@ -69,20 +69,29 @@ result line):
    (a warm Q6, which runs the per-operator executors on both tiers, may
    launch at most six kernels);
    then the mesh phase: with TINYSQL_MESH_SHARDS=8 set in this process
-   for the phase only, Q1, Q3 and Q6 over phase 3's tables under
-   tidb_mesh_parallel = 1 (8 virtual shards on the card) on both tiers:
-   rows equal to the same tier's mesh-off rows (floats within 1e-6
-   relative, same order), warm runs byte-equal to the first, shard rounds
-   counted, the mesh path's kernels launched as MESH_USES says in one run
-   (HK11 shard_merge after HK2 / HK1 per shard for K11 and K25's scalar
-   aggregate, HK12 shard_probe after HK4 for K25's unique join, HK4
-   twice for K21 mesh, HK6 for the broadcast joins), no plain version;
-   [mesh] lines print mesh and mesh-off warm walls and device time; then
-   HK11 and HK12 against their plain versions, byte for byte, on the
-   tensors that run handed them (per-operator Q3's K11 table and its
-   two joins, Q1's and Q6's tables), timed beside their bounds
-   ([mesh-kernel] lines; partial calls, torch.sum over the shards and a
-   batched torch.searchsorted, printed as partial);
+   for the phase only, over phase 3's tables under tidb_mesh_parallel =
+   1 (8 virtual shards on the card), on both tiers Q1, Q3, Q6, Q18, NOT
+   IN, Q22, NOT EXISTS, a single-key ORDER BY over orders and its TopN
+   (limit 10), and on the pipeline tier Q10 and Q13: rows equal to the
+   same tier's mesh-off rows (floats within 1e-6 relative, same order),
+   warm runs byte-equal to the first, shard counters, the mesh path's
+   kernels launched as MESH_USES says in one run (HK11 shard_merge after
+   HK2 / HK1 per shard for K11 and K25's scalar aggregate, HK12
+   shard_probe after HK4 for K25's unique join, HK4 twice for K21 mesh,
+   HK6 for the broadcast joins, HK13 shard_exchange for Q10's shuffle
+   join, HK8's shard mode for Q13, HK12's member mode for K25 member
+   under Q18, NOT IN, Q22 and NOT EXISTS, HK14 shard_rank after HK4 for
+   K25 sort and top-k), no plain version; pipeline Q10 runs again under
+   tidb_broadcast_build_max_rows = 0 only when the default budget does
+   not shuffle it (the [mesh] line says which); [mesh] lines print mesh
+   and mesh-off warm walls and device time; then K26's step
+   (dist.distributed_query_step: lineitem's l_orderkey, 8 x 2^20 rows,
+   probing the 1.5M sorted o_orderkey, l_extendedprice summed into 64
+   buckets) against a numpy oracle; then every mesh kernel and mode
+   against its plain version, byte for byte, on the tensors those runs
+   handed it, timed beside its bound ([mesh-kernel] lines; partial
+   calls printed as partial, torch.sort(stable=True) of the score lane
+   as K25 sort's library call);
    then the serve phase: the port's MySQL wire server (Server(storage,
    port=0), on the card) over phase 3's tables answers a Q6 substitution
    stream (8 connections, TPC-H Clause 2.4.6.3) and a Q1 stream (4,
@@ -153,6 +162,20 @@ KERNELS = {
                     "tinysql_tpu/ops/kernels.py:1474"),
     "shard_probe": ("tinysql_tpu_torch/csrc/shard_join.cu",
                     "tinysql_tpu/ops/shardops.py:271"),
+    # the rest of the mesh tier: K25 member (HK12's member mode), K26's
+    # broadcast join counts (its count mode), K18 mult on the mesh (HK8's
+    # shard mode), K18 shuffle / K26's exchange (HK13), K25 sort and
+    # top-k (HK14)
+    "shard_member": ("tinysql_tpu_torch/csrc/shard_join.cu",
+                     "tinysql_tpu/ops/shardops.py:380"),
+    "shard_count": ("tinysql_tpu_torch/csrc/shard_join.cu",
+                    "tinysql_tpu/parallel/dist.py:197"),
+    "csr_expand_shard": ("tinysql_tpu_torch/csrc/csr_expand.cu",
+                         "tinysql_tpu/executor/devpipe.py:1539"),
+    "shard_exchange": ("tinysql_tpu_torch/csrc/shard_exchange.cu",
+                       "tinysql_tpu/parallel/dist.py:270"),
+    "shard_rank": ("tinysql_tpu_torch/csrc/shard_rank.cu",
+                   "tinysql_tpu/ops/shardops.py:618"),
 }
 # per device tier (its tidb_devpipe value), the kernels each query of the
 # main path must launch
@@ -244,18 +267,50 @@ Q6_PER_OP_MAX_KERNELS = 6
 #: reference; pipeline Q3 runs its two unique joins in the broadcast
 #: mode (HK6) and its TopN as K21 mesh (HK4 twice)
 MESH_SHARDS = 8
+#: the single-key ORDER BY and TopN of the mesh phase (K25 sort, top-k)
+MESH_SORTS = {"ORDER_BY": "select o_orderkey, o_totalprice from orders "
+                          "order by o_totalprice desc",
+              "TOPN": "select o_orderkey, o_totalprice from orders "
+                      "order by o_totalprice desc limit 10"}
+#: the queries of the mesh phase per tier: Q1, Q3, Q6, then the
+#: shuffle join (Q10), the CSR join's mesh mode (Q13), K25 member (Q18's
+#: IN subquery, NOT IN, Q22, NOT EXISTS) and K25 sort / top-k
+MESH_QUERIES = {
+    "pipeline": ("Q1", "Q3", "Q6", "Q10", "Q13", "Q18", "NOT_IN", "Q22",
+                 "NOT_EXISTS", "ORDER_BY", "TOPN"),
+    "per_op": ("Q1", "Q3", "Q6", "Q18", "NOT_IN", "Q22", "NOT_EXISTS",
+               "ORDER_BY", "TOPN"),
+}
 MESH_USES = {
     "pipeline": {"Q1": {"segment_reduce": 8, "shard_merge": 1},
                  "Q3": {"dense_probe": 2, "lex_order": (2,),
                         "csr_reduce": 1},
-                 "Q6": {"masked_reduce": 8, "shard_merge": 1}},
+                 "Q6": {"masked_reduce": 8, "shard_merge": 1},
+                 "Q10": {},
+                 "Q10_SHUFFLE": {"shard_exchange": (2,),
+                                 "shard_probe": (1,)},
+                 "Q13": {"csr_expand_shard": 1},
+                 "Q18": {"shard_probe": (1,)}},
     "per_op": {"Q1": {"segment_reduce": 8, "shard_merge": 1},
                "Q3": {"shard_probe": 2, "lex_order": (3,),
                       "segment_reduce": 8, "shard_merge": 1},
-               "Q6": {"masked_reduce": 8, "shard_merge": 1}},
+               "Q6": {"masked_reduce": 8, "shard_merge": 1},
+               "Q18": {"shard_member": (1,)}},
 }
+for _tier in MESH_USES:
+    for _q in ("NOT_IN", "Q22", "NOT_EXISTS"):
+        MESH_USES[_tier][_q] = {"shard_member": (1,)}
+    for _q in MESH_SORTS:
+        MESH_USES[_tier][_q] = {"shard_rank": (1,)}
 MESH_KINDS = {"Q3": {"leaf", "join", "aggindex", "order_mesh"}}
+#: warm repeats of Q1, Q3 and Q6 under the mesh, and of the others (whose
+#: runs take seconds: NOT IN's build side, 1.5M sorted rows to the host)
 MESH_WARM = 3
+MESH_WARM_NEW = 1
+#: K26's step at 8 x 2^20 rows: lineitem's l_orderkey probing the sorted
+#: o_orderkey, l_extendedprice summed into 64 buckets of l_orderkey
+K26_ROWS = 1 << 23
+K26_BUCKETS = 64
 
 
 class Mismatch(AssertionError):
@@ -1870,7 +1925,7 @@ def phase_main_path(K, kinfo, device=None):
         # the batched entry points launch on the serve phase's path, the
         # mesh kernels on the mesh phase's
         if info["launches"] <= 0 and not k.endswith("_batched") \
-                and k not in ("shard_merge", "shard_probe"):
+                and k not in K.MESH_LAUNCHES:
             raise Mismatch(f"kernel {k} never launched on the main path")
     # Q13 and Q5: numpy's answers from the generated columns, both tiers
     for q, want in numpy_rows.items():
@@ -1947,18 +2002,39 @@ def _check_mesh_uses(tier: str, q: str, used: dict) -> None:
                            f"one run, want {want}")
 
 
-def mesh_kernel_checks(K, merges: dict, probes: dict, sorts: list) -> dict:
-    """HK11 and HK12 on the tensors the mesh run handed them (captured at
-    their first call of each query): byte for byte against their plain
-    versions and a second launch, timed beside their bounds.  The record
-    of each is the per-operator Q3 shape (the largest); the others print
-    on [mesh-kernel] lines, and so do K21 mesh's two HK4 calls of
-    pipeline Q3 (the shard-led order of every row, then the merge of the
-    candidates), against HK4's plain version."""
+def _same_lanes(a, b, what: str) -> None:
     import torch
-    rec = {}
+    if len(a) != len(b):
+        raise Mismatch(f"{what}: {len(a)} vs {len(b)} lanes")
+    for x, y in zip(a, b):
+        if x.shape != y.shape or not torch.equal(
+                x.contiguous().view(torch.uint8),
+                y.contiguous().view(torch.uint8)):
+            raise Mismatch(f"{what}: a lane differs")
+
+
+def _keep_largest(best: dict, name: str, size: int, r: dict) -> None:
+    if size > best.get(name, (-1,))[0]:
+        best[name] = (size, r)
+
+
+def _bounded(r: dict) -> dict:
+    """A [mesh-kernel] record with its bound (ms) beside its times."""
+    return {**r, "bound_ms": max(r["bytes"] / MEM_BPS,
+                                 r["ops"] / OPS_PS) * 1e3}
+
+
+def mesh_kernel_checks(K, cap: dict) -> dict:
+    """The mesh kernels on the tensors the mesh run handed them (captured
+    at their calls, per query): each byte for byte against its plain
+    version and a second launch, timed beside its bound.  The record of
+    each is its largest call; every call prints a [mesh-kernel] line, and
+    so do K21 mesh's two HK4 calls of pipeline Q3 (the shard-led order of
+    every row, then the merge of the candidates), against HK4's plain
+    version."""
+    import torch
     best = {}
-    for j, (lanes, n, k) in enumerate(sorts):
+    for j, (lanes, n, k) in enumerate(cap["sorts"]):
         a = K.lex_order(lanes, n, k)
         same_bytes(a, K.lex_order(lanes, n, k), f"K21 mesh sort {j + 1}")
         want = n if k is None else min(k, n)
@@ -1970,7 +2046,7 @@ def mesh_kernel_checks(K, merges: dict, probes: dict, sorts: list) -> dict:
              "shape": f"{len(lanes)} lanes, n={n}, k={k}"}
         print(f"[mesh-kernel] lex_order K21 mesh sort {j + 1}: {r}",
               flush=True)
-    for label, (parts, ops, m, nb) in merges.items():
+    for label, (parts, ops, m, nb) in cap["merges"].items():
         k1 = K.shard_merge(parts, ops, m, nb)
         same_bytes(k1, K.shard_merge(parts, ops, m, nb),
                    f"shard_merge {label}")
@@ -1986,97 +2062,386 @@ def mesh_kernel_checks(K, merges: dict, probes: dict, sorts: list) -> dict:
                  lambda: torch.sum(parts, dim=0)),
              "bytes": 8 * (n + 1) * rows * width, "ops": n * rows * width,
              "shape": f"{n} shards x {rows} rows x {width} ({label})"}
-        print(f"[mesh-kernel] shard_merge {label}: {r}", flush=True)
-        if parts.numel() > best.get("shard_merge", (0,))[0]:
-            best["shard_merge"] = (parts.numel(), r)
-    for label, calls in probes.items():
-        for j, (n, pk, pid, bk, bid) in enumerate(calls):
-            blive = bid >= 0
-            sent = float("inf") if bk.dtype == torch.float64 else K.I64_MAX
-            bord = K._u64_lane(torch.where(blive, bk,
-                                           torch.full_like(bk, sent)), False)
-            nbb, npb = int(bk.shape[0]), int(pk.shape[0])
-            perm = K.lex_order([K.shard_lane(n, nbb // n), bord,
-                                (~blive).to(torch.int64)], nbb)
-            k1 = K.shard_probe(pk, pid, bord, bid, perm, n)
-            same_bytes([k1[0].to(torch.int64), k1[1]],
-                       [x.to(torch.int64) if x.dtype == torch.bool else x
-                        for x in K.shard_probe(pk, pid, bord, bid, perm, n)],
-                       f"shard_probe {label} join {j + 1}")
-            p1 = K.shard_probe_plain(pk, pid, bord, bid, perm, n)
-            same_bytes([k1[0].to(torch.int64), k1[1]],
-                       [p1[0].to(torch.int64), p1[1]],
-                       f"shard_probe {label} join {j + 1} vs plain")
-            run = perm.reshape(n, nbb // n)
-            sk = (bord ^ K.I64_MIN)[run]
-            pv = K._probe_order(pk).reshape(n, npb // n).contiguous()
-            steps = max(1, (nbb // n - 1).bit_length())
+        print(f"[mesh-kernel] shard_merge {label}: {_bounded(r)}",
+              flush=True)
+        _keep_largest(best, "shard_merge", parts.numel(), r)
+    for mode, calls in (("shard_probe", cap["probes"]),
+                        ("shard_member", cap["members"])):
+        member = mode == "shard_member"
+        for label, per in calls.items():
+            for j, (n, pk, pid, bk, bid) in enumerate(per):
+                from tinysql_tpu_torch.ops import shardops
+                bord, perm = shardops._build_order(n, bk, bid)
+                nbb, npb = int(bk.shape[0]), int(pk.shape[0])
+                what = f"{mode} {label} join {j + 1}"
+
+                def probe():
+                    return K.shard_probe(pk, pid, bord, bid, perm, n,
+                                         member=member)
+
+                def as_list(x):
+                    x = [x] if member else list(x)
+                    return [x[0].to(torch.int64)] + x[1:]
+                k1 = as_list(probe())
+                same_bytes(k1, as_list(probe()), what)
+                same_bytes(k1, as_list(K.shard_probe_plain(
+                    pk, pid, bord, bid, perm, n, member)), f"{what} vs "
+                    f"plain")
+                run = perm.reshape(n, nbb // n)
+                sk = (bord ^ K.I64_MIN)[run]
+                pv = K._probe_order(pk).reshape(n, npb // n).contiguous()
+                steps = max(1, (nbb // n - 1).bit_length())
+                r = {"max_abs_err": 0.0, **timed(probe),
+                     "plain_ms": cuda_ms(lambda: K.shard_probe_plain(
+                         pk, pid, bord, bid, perm, n, member)),
+                     "library_ms": None,
+                     "partial_batched_searchsorted_ms": cuda_ms(
+                         lambda: torch.searchsorted(sk, pv)),
+                     "bytes": npb * (8 + 8 + 1 + (0 if member else 8))
+                     + nbb * 3 * 8,
+                     "ops": npb * steps,
+                     "hits": int(k1[0].sum()),
+                     "shape": f"{n} shards, probe {npb} slots (cap "
+                              f"{npb // n}), build {nbb} (cap {nbb // n}),"
+                              f" {pk.dtype} keys ({label} join {j + 1})"}
+                if member:
+                    live = bk[bid >= 0]
+                    r["partial_isin_live_keys_ms"] = cuda_ms(
+                        lambda: torch.isin(pk, live))
+                print(f"[mesh-kernel] {what}: {_bounded(r)}", flush=True)
+                _keep_largest(best, mode, npb, r)
+    for label, per in cap["exchanges"].items():
+        for j, (keys, n_rows, lanes, c, n) in enumerate(per):
+            what = f"shard_exchange {label} side {j + 1}"
+            k1 = K.shard_exchange(keys, n_rows, lanes, c, n)
+            _same_lanes(k1, K.shard_exchange(keys, n_rows, lanes, c, n),
+                        what)
+            _same_lanes(k1, K.shard_exchange_plain(keys, n_rows, lanes, c,
+                                                   n), f"{what} vs plain")
+            nb = int(keys.shape[0])
+            width = sum(v.element_size() for v, _ in lanes)
             r = {"max_abs_err": 0.0,
-                 **timed(lambda: K.shard_probe(pk, pid, bord, bid, perm, n)),
-                 "plain_ms": cuda_ms(lambda: K.shard_probe_plain(
-                     pk, pid, bord, bid, perm, n)),
+                 **timed(lambda: K.shard_exchange(keys, n_rows, lanes, c,
+                                                  n)),
+                 "plain_ms": cuda_ms(lambda: K.shard_exchange_plain(
+                     keys, n_rows, lanes, c, n), reps=3, warm=1),
                  "library_ms": None,
-                 "partial_batched_searchsorted_ms": cuda_ms(
-                     lambda: torch.searchsorted(sk, pv)),
-                 "bytes": npb * (8 + 8 + 1 + 8) + nbb * 3 * 8,
-                 "ops": npb * steps,
-                 "hits": int(k1[0].sum()),
-                 "shape": f"{n} shards, probe {npb} slots (cap "
-                          f"{npb // n}), build {nbb} (cap {nbb // n}), "
-                          f"{pk.dtype} keys ({label} join {j + 1})"}
-            print(f"[mesh-kernel] shard_probe {label} join {j + 1}: {r}",
-                  flush=True)
-            if npb > best.get("shard_probe", (0,))[0]:
-                best["shard_probe"] = (npb, r)
-    for name in ("shard_merge", "shard_probe"):
+                 "bytes": nb * (8 + width) + n * n * c * width,
+                 "ops": nb,
+                 "shape": f"{n} shards, {nb} rows ({n_rows} live), cap "
+                          f"{c}, {len(lanes)} lanes of {width} B a row "
+                          f"({label} side {j + 1})"}
+            print(f"[mesh-kernel] {what}: {_bounded(r)}", flush=True)
+            _keep_largest(best, "shard_exchange", nb * len(lanes), r)
+    for label, per in cap["ranks"].items():
+        for j, (ordl, ids, stride, run, n, k_out) in enumerate(per):
+            what = f"shard_rank {label} call {j + 1}"
+            k1 = K.shard_rank(ordl, ids, stride, run, n, k_out)
+            same_bytes(k1, K.shard_rank(ordl, ids, stride, run, n, k_out),
+                       what)
+            same_bytes(k1, K.shard_rank_plain(ordl, ids, stride, run, n,
+                                              k_out), f"{what} vs plain")
+            total = n * run
+            steps = max(1, (run - 1).bit_length())
+            r = {"max_abs_err": 0.0,
+                 **timed(lambda: K.shard_rank(ordl, ids, stride, run, n,
+                                              k_out)),
+                 "plain_ms": cuda_ms(lambda: K.shard_rank_plain(
+                     ordl, ids, stride, run, n, k_out), reps=3, warm=1),
+                 "library_ms": None,
+                 "bytes": total * 16 + k_out * 8,
+                 "ops": total * (n - 1) * steps,
+                 "shape": f"{n} runs of {run}, {k_out} out ({label})"}
+            if k_out == total:  # K25 sort: the whole route and one sort
+                r["route_ms"] = cuda_ms(lambda: K.shard_rank(
+                    ordl, K.lex_order([K.shard_lane(n, run), ordl],
+                                      total), run, run, n, total))
+                r["library_ms"] = cuda_ms(
+                    lambda: torch.sort(ordl ^ K.I64_MIN, stable=True))
+            else:  # K25 top-k: ties are not lowest-index there
+                r["partial_topk_ms"] = cuda_ms(lambda: torch.topk(
+                    ordl ^ K.I64_MIN, k_out, largest=False))
+            print(f"[mesh-kernel] {what}: {_bounded(r)}", flush=True)
+            _keep_largest(best, "shard_rank", total, r)
+    for label, (a, kw) in cap["expands"].items():
+        what = f"csr_expand_shard {label}"
+        k1 = K.csr_expand(*a, **kw)
+        k2 = K.csr_expand(*a, **kw)
+        p1 = K.csr_expand_plain(*a, **kw)
+        for x, what2 in ((k2, what), (p1, f"{what} vs plain")):
+            same_bytes(k1[0], x[0], what2)
+            _same_lanes([v for pr in k1[1] + k1[2] for v in pr],
+                        [v for pr in x[1] + x[2] for v in pr], what2)
+        (order, ends, ng, n_rows, _bv, _tbl, _lo, _hi, keys, _spec,
+         pvalid, _outer, ob, plns, blns) = a
+        nbp, nvp = int(pvalid.shape[0]), int(pvalid.sum())
+        total = int(k1[0].sum())
+        out = sum(v.element_size() + 1 for v, _m in plns + blns)
+        r = {"max_abs_err": 0.0,
+             **timed(lambda: K.csr_expand(*a, **kw)),
+             "plain_ms": cuda_ms(lambda: K.csr_expand_plain(*a, **kw),
+                                 reps=3, warm=1),
+             "library_ms": None,
+             "bytes": (n_rows * 9 + 8 * ng + nbp + nvp * 4
+                       + _lane_bytes(keys, nvp) + _lane_bytes(plns, nvp)
+                       + _lane_bytes(blns, n_rows) + ob * kw["shards"]
+                       + total * out),
+             "ops": total,
+             "shape": f"{kw['shards']} shards, probe {nbp}, build "
+                      f"{int(order.shape[0])}, ob {ob} a shard, {total} "
+                      f"pairs ({label})"}
+        print(f"[mesh-kernel] {what}: {_bounded(r)}", flush=True)
+        _keep_largest(best, "csr_expand_shard", nbp, r)
+    counts, rkeys = cap["count"]
+    lk, lv = counts
+    what = "shard_count K26"
+    k1 = K.shard_count(lk, lv, rkeys, MESH_SHARDS)
+    same_bytes(list(k1), list(K.shard_count(lk, lv, rkeys, MESH_SHARDS)),
+               what)
+    same_bytes(list(k1), list(K.shard_count_plain(lk, lv, rkeys,
+                                                  MESH_SHARDS)),
+               f"{what} vs plain")
+    nl, nr = int(lk.shape[0]), int(rkeys.shape[0])
+    r = {"max_abs_err": 0.0,
+         **timed(lambda: K.shard_count(lk, lv, rkeys, MESH_SHARDS)),
+         "plain_ms": cuda_ms(lambda: K.shard_count_plain(
+             lk, lv, rkeys, MESH_SHARDS)),
+         "library_ms": None,
+         "partial_two_searchsorted_ms": cuda_ms(lambda: (
+             torch.searchsorted(rkeys, lk),
+             torch.searchsorted(rkeys, lk, right=True))),
+         "bytes": nl * 17 + nr * 8 + MESH_SHARDS * 8,
+         "ops": nl * 2 * max(1, (nr - 1).bit_length()),
+         "shape": f"{MESH_SHARDS} shards x {nl // MESH_SHARDS} probe rows, "
+                  f"{nr} sorted build keys (K26 step)"}
+    print(f"[mesh-kernel] {what}: {_bounded(r)}", flush=True)
+    best["shard_count"] = (nl, r)
+    rec = {}
+    for name in K.MESH_LAUNCHES:
         if name not in best:
             raise Mismatch(f"the mesh run never called {name}")
         rec[name] = best[name][1]
     return rec
 
 
-def phase_mesh(K, storage, kinfo, device=None) -> None:
-    """Q1, Q3 and Q6 at SF=1 under tidb_mesh_parallel = 1 with
-    MESH_SHARDS virtual shards on the card (TINYSQL_MESH_SHARDS, set for
-    this phase only), on both device tiers over phase 3's storage.  Per
-    tier: the mesh-off runs (rows, warm walls, device time), then, with
-    the launch counters set to 0 just before and read just after, the
-    mesh runs: rows equal to the mesh-off rows (floats within 1e-6
-    relative), warm runs byte-equal to the first, shard rounds counted,
-    the mesh kernels launched as MESH_USES says, no plain version.  Then
-    HK11 and HK12 against their plain versions on the tensors the run
-    gave them."""
-    import torch
+def _mesh_sql(q: str) -> str:
     from tinysql_tpu_torch.bench import tpch
+    if q == "Q13":
+        return tpch.Q13
+    for table in (tpch.QUERIES, tpch.WORKLOAD, tpch.K8_QUERIES, MESH_SORTS):
+        if q in table:
+            return table[q]
+    raise KeyError(q)
+
+
+def _warm_runs(sess, sql: str, reps: int, torch, first=None) -> tuple:
+    """``reps`` warm runs: their best wall, each one's rows byte-equal
+    (by repr) to ``first`` where given."""
+    walls = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        again = sess.query(sql).rows
+        _sync(torch)
+        walls.append(time.perf_counter() - t1)
+        if first is not None and repr(again) != repr(first):
+            raise Mismatch("a warm run differs from the first")
+    return min(walls)
+
+
+def mesh_query(K, sess, tier: str, q: str, sql: str, off: tuple, state,
+               torch) -> dict:
+    """One query under the mesh: its first run (its launches, node kinds
+    and shard rounds), warm runs byte-equal to it, a profiled run, rows
+    equal to the mesh-off run; prints its [mesh] line and returns its
+    launches."""
     from tinysql_tpu_torch.executor import devpipe
+    from tinysql_tpu_torch.ops import shardops
+    st0 = shardops.stats_snapshot()
+    before = K.kernel_counts()["launches"]
+    devpipe.COMPILED_NODE_KEYS.clear()
+    state["label"] = f"{tier} {q}"
+    t1 = time.perf_counter()
+    rows = sess.query(sql).rows
+    _sync(torch)
+    first_s = time.perf_counter() - t1
+    state["label"] = None
+    used = _launch_delta(before, K.kernel_counts()["launches"])
+    _check_mesh_uses(tier, q, used)
+    keys = {(k[0], k[-1]) for k in devpipe.COMPILED_NODE_KEYS}
+    kinds = {k for k, _ in keys}
+    want = MESH_KINDS.get(q) if tier == "pipeline" else None
+    if want is not None and kinds != want:
+        raise Mismatch(f"mesh {tier} {q}: pipeline node kinds {kinds}, "
+                       f"want {want}")
+    st = shardops.stats_snapshot()
+    delta = {k: st[k] - st0[k] for k in ("shard_rounds",
+                                         "shard_exchange_bytes",
+                                         "shard_skew_retries")}
+    reps = MESH_WARM if q in ("Q1", "Q3", "Q6") else MESH_WARM_NEW
+    try:
+        warm = _warm_runs(sess, sql, reps, torch, first=rows)
+    except Mismatch as e:
+        raise Mismatch(f"mesh {tier} {q}: {e}") from None
+    prof = warm_profile(sess, sql, torch)
+    rows_off, wall_off, prof_off = off
+    same_rel(rows, rows_off, f"mesh {tier} {q} vs mesh-off")
+    check_rows(rows, f"mesh {tier} {q}", empty_ok=q in EMPTY_OK)
+    if q in NONZERO_COUNT and not rows[0][0]:
+        raise Mismatch(f"mesh {tier} {q}: a count of 0 ({rows})")
+    joins = sorted(k for k in keys if k[0] in ("join", "joinshuf", "joinm"))
+    print(f"[mesh] {tier} {q}: {len(rows)} rows equal to the mesh-off run, "
+          f"first run {first_s:.4f} s, warm best of {reps} {warm:.4f} s "
+          f"(mesh-off {wall_off:.4f} s), one warm run: {prof['kernels']} "
+          f"CUDA kernels + {prof['copies']} copies, device "
+          f"{prof['device_ms']} ms (mesh-off {prof_off['kernels']} + "
+          f"{prof_off['copies']}, {prof_off['device_ms']} ms); shard "
+          f"counters {delta}, node kinds {sorted(kinds)}, joins (kind, "
+          f"mesh) {joins}, launches of the first run {used}", flush=True)
+    return {"kinds": kinds}
+
+
+def phase_k26(K, storage, dev, cap) -> dict:
+    """K26's step (dist.distributed_query_step) at 8 x 2^20 rows over
+    phase 3's lineitem and orders, against a numpy oracle on the pulled
+    inputs; returns its launches (counts set to 0 just before it)."""
+    import numpy as np
+    import torch
+    from tinysql_tpu_torch.columnar.store import store_of
+    from tinysql_tpu_torch.parallel import dist
+    from tinysql_tpu_torch.session import new_session
+    sess = new_session(storage, "tpch", device=dev)
+
+    def column(table, name):
+        info = sess.infoschema().table_by_name("tpch", table)
+        cid = {c.name: c.id for c in info.public_columns()}[name]
+        return np.asarray(store_of(storage).get(info.id).columns[cid][0])
+    lk_h = column("lineitem", "l_orderkey")
+    price_h = column("lineitem", "l_extendedprice")
+    ok_h = np.sort(column("orders", "o_orderkey"))
+    n = len(lk_h)
+    if n > K26_ROWS:
+        raise Mismatch(f"K26: {n} lineitem rows above {K26_ROWS}")
+    shape = (MESH_SHARDS, K26_ROWS // MESH_SHARDS)
+    keys = torch.from_numpy(K.pad1(lk_h, K26_ROWS)).to(dev)
+    vals = torch.from_numpy(K.pad1(price_h, K26_ROWS)).to(dev)
+    valid = torch.arange(K26_ROWS, device=dev) < n
+    rkeys = torch.from_numpy(ok_h).to(dev)
+    ins = (keys.reshape(shape) & (K26_BUCKETS - 1), vals.reshape(shape),
+           valid.reshape(shape), keys.reshape(shape), valid.reshape(shape),
+           rkeys)
+    step = dist.distributed_query_step(dist.Mesh(MESH_SHARDS, dev),
+                                       K26_BUCKETS)
+    K.reset_kernel_counts()
+    t1 = time.perf_counter()
+    sums, cnts, counts, total = step(*ins)
+    _sync(torch)
+    first_s = time.perf_counter() - t1
+    got = K.kernel_counts()
+    if any(got["plain_calls"].values()):
+        raise Mismatch(f"K26: plain versions ran: {got['plain_calls']}")
+    launches = got["launches"]
+    want = {"segment_reduce": MESH_SHARDS, "shard_merge": 2,
+            "shard_count": 1}
+    if {k: launches[k] for k in want} != want:
+        raise Mismatch(f"K26: launches {launches}, want {want}")
+    b = lk_h & (K26_BUCKETS - 1)
+    w_sums = np.bincount(b, weights=price_h, minlength=K26_BUCKETS)
+    w_cnts = np.bincount(b, minlength=K26_BUCKETS)
+    w_counts = np.searchsorted(ok_h, lk_h, "right") \
+        - np.searchsorted(ok_h, lk_h, "left")
+    got_counts = counts.reshape(-1).cpu().numpy()
+    if not np.allclose(sums.cpu().numpy(), w_sums, rtol=1e-9, atol=0) \
+            or not (cnts.cpu().numpy() == w_cnts).all() \
+            or not (got_counts[:n] == w_counts).all() \
+            or got_counts[n:].any() or int(total) != int(w_counts.sum()):
+        raise Mismatch("K26: the step differs from the numpy oracle")
+    t = timed(lambda: step(*ins))
+    cap["count"] = ((keys, valid), rkeys)
+    print(f"[mesh] K26 distributed_query_step: {MESH_SHARDS} x "
+          f"{K26_ROWS // MESH_SHARDS} rows, {K26_BUCKETS} buckets, "
+          f"{len(ok_h)} sorted build keys: equal to numpy (sums 1e-9 rel, "
+          f"counts exact, total {int(total)}), first run {first_s:.4f} s, "
+          f"warm {t['ms']:.4f} ms by events, device {t['device_ms']} ms; "
+          f"launches {_launch_delta(dict.fromkeys(launches, 0), launches)}",
+          flush=True)
+    return launches
+
+
+def phase_mesh(K, storage, kinfo, device=None) -> None:
+    """The mesh tier at SF=1 with MESH_SHARDS virtual shards on the card
+    (TINYSQL_MESH_SHARDS, set for this phase only), on both device tiers
+    over phase 3's storage: MESH_QUERIES under tidb_mesh_parallel = 1.
+    Per tier: the mesh-off runs (rows, warm walls, device time), then,
+    with the launch counters set to 0 just before and read just after,
+    the mesh runs: rows equal to the mesh-off rows (floats within 1e-6
+    relative), warm runs byte-equal to the first, shard counters, the
+    mesh kernels launched as MESH_USES says, no plain version.  Pipeline
+    Q10 runs its shuffle join under the default broadcast budget where
+    the planner picks it, and again under tidb_broadcast_build_max_rows
+    = 0 where it does not (Q10_SHUFFLE).  Then K26's step, and every
+    mesh kernel against its plain version on the tensors the runs gave
+    it."""
+    import torch
     from tinysql_tpu_torch.ops import shardops
     from tinysql_tpu_torch.session import new_session
     print(f"[mesh] {MESH_SHARDS} virtual shards on {card_line()}",
           flush=True)
     old_env = os.environ.get("TINYSQL_MESH_SHARDS")
     os.environ["TINYSQL_MESH_SHARDS"] = str(MESH_SHARDS)
-    merges, probes, sorts = {}, {}, []
+    cap = {"merges": {}, "probes": {}, "members": {}, "sorts": [],
+           "exchanges": {}, "ranks": {}, "expands": {}}
     state = {"label": None}
-    orig_merge, orig_join = K.shard_merge, shardops._local_unique_join
-    orig_order = K.lex_order
+    orig = {"shard_merge": K.shard_merge, "lex_order": K.lex_order,
+            "shard_exchange": K.shard_exchange, "shard_rank": K.shard_rank,
+            "csr_expand": K.csr_expand}
+    orig_join, orig_member = (shardops._local_unique_join,
+                              shardops._local_member)
 
     def cap_order(lanes, n, k=None):
         if state["label"] == "pipeline Q3":
-            sorts.append(([t.clone() for t in lanes], n, k))
-        return orig_order(lanes, n, k)
+            cap["sorts"].append(([t.clone() for t in lanes], n, k))
+        return orig["lex_order"](lanes, n, k)
 
     def cap_merge(parts, ops, m, nb):
         if state["label"] is not None:
-            merges.setdefault(state["label"], (parts, list(ops), m, nb))
-        return orig_merge(parts, ops, m, nb)
+            cap["merges"].setdefault(state["label"],
+                                     (parts, list(ops), m, nb))
+        return orig["shard_merge"](parts, ops, m, nb)
 
     def cap_join(n, pk, pid, bk, bid):
         if state["label"] is not None:
-            probes.setdefault(state["label"], []).append(
+            cap["probes"].setdefault(state["label"], []).append(
                 (n, pk, pid, bk, bid))
         return orig_join(n, pk, pid, bk, bid)
-    K.shard_merge, shardops._local_unique_join = cap_merge, cap_join
-    K.lex_order = cap_order
+
+    def cap_member(n, pk, pid, bk, bid):
+        if state["label"] is not None:
+            cap["members"].setdefault(state["label"], []).append(
+                (n, pk, pid, bk, bid))
+        return orig_member(n, pk, pid, bk, bid)
+
+    def cap_exchange(keys, n_rows, lanes, c, n):
+        if state["label"] is not None:
+            cap["exchanges"].setdefault(state["label"], []).append(
+                (keys, n_rows, list(lanes), c, n))
+        return orig["shard_exchange"](keys, n_rows, lanes, c, n)
+
+    def cap_rank(ordl, ids, stride, run, n, k_out):
+        if state["label"] is not None:
+            cap["ranks"].setdefault(state["label"], []).append(
+                (ordl, ids, stride, run, n, k_out))
+        return orig["shard_rank"](ordl, ids, stride, run, n, k_out)
+
+    def cap_expand(*a, shards=1):
+        if state["label"] is not None and shards > 1:
+            cap["expands"].setdefault(state["label"],
+                                      (a, {"shards": shards}))
+        return orig["csr_expand"](*a, shards=shards)
+    K.shard_merge, K.lex_order = cap_merge, cap_order
+    K.shard_exchange, K.shard_rank, K.csr_expand = (cap_exchange, cap_rank,
+                                                     cap_expand)
+    shardops._local_unique_join, shardops._local_member = (cap_join,
+                                                           cap_member)
     launches = {}
     try:
         for tier in TIERS:
@@ -2084,60 +2449,38 @@ def phase_mesh(K, storage, kinfo, device=None) -> None:
             sess.execute("set tidb_use_tpu = 1")
             sess.execute(f"set tidb_devpipe = {TIERS[tier]}")
             off = {}
-            for q, sql in tpch.QUERIES.items():
+            for q in MESH_QUERIES[tier]:
+                sql = _mesh_sql(q)
                 rows = sess.query(sql).rows
-                walls = []
-                for _ in range(MESH_WARM):
-                    t1 = time.perf_counter()
-                    sess.query(sql)
-                    _sync(torch)
-                    walls.append(time.perf_counter() - t1)
-                off[q] = (rows, min(walls), warm_profile(sess, sql, torch))
+                reps = MESH_WARM if q in ("Q1", "Q3", "Q6") \
+                    else MESH_WARM_NEW
+                off[q] = (rows, _warm_runs(sess, sql, reps, torch),
+                          warm_profile(sess, sql, torch))
             sess.execute("set tidb_mesh_parallel = 1")
             K.reset_kernel_counts()
             shardops.reset_stats()
-            for q, sql in tpch.QUERIES.items():
-                st0 = shardops.stats_snapshot()
-                before = K.kernel_counts()["launches"]
-                devpipe.COMPILED_NODE_KEYS.clear()
-                state["label"] = f"{tier} {q}"
-                t1 = time.perf_counter()
-                rows = sess.query(sql).rows
-                _sync(torch)
-                first_s = time.perf_counter() - t1
-                state["label"] = None
-                used = _launch_delta(before, K.kernel_counts()["launches"])
-                _check_mesh_uses(tier, q, used)
-                kinds = {k[0] for k in devpipe.COMPILED_NODE_KEYS}
-                want = MESH_KINDS.get(q) if tier == "pipeline" else None
-                if want is not None and kinds != want:
-                    raise Mismatch(f"mesh {tier} {q}: pipeline node kinds "
-                                   f"{kinds}, want {want}")
-                rounds = shardops.stats_snapshot()["shard_rounds"] \
-                    - st0["shard_rounds"]
-                walls = []
-                for _ in range(MESH_WARM):
-                    t1 = time.perf_counter()
-                    again = sess.query(sql).rows
-                    _sync(torch)
-                    walls.append(time.perf_counter() - t1)
-                    if repr(again) != repr(rows):
-                        raise Mismatch(f"mesh {tier} {q}: a warm run "
-                                       f"differs from the first")
-                prof = warm_profile(sess, sql, torch)
-                rows_off, wall_off, prof_off = off[q]
-                same_rel(rows, rows_off, f"mesh {tier} {q} vs mesh-off")
-                check_rows(rows, f"mesh {tier} {q}")
-                print(f"[mesh] {tier} {q}: {len(rows)} rows equal to the "
-                      f"mesh-off run, first run {first_s:.4f} s, warm best "
-                      f"of {MESH_WARM} {min(walls):.4f} s (mesh-off "
-                      f"{wall_off:.4f} s), one warm run: {prof['kernels']}"
-                      f" CUDA kernels + {prof['copies']} copies, device "
-                      f"{prof['device_ms']} ms (mesh-off {prof_off['kernels']}"
-                      f" + {prof_off['copies']}, {prof_off['device_ms']} "
-                      f"ms); shard rounds {rounds}, node kinds "
-                      f"{sorted(kinds)}, launches of the first run {used}",
-                      flush=True)
+            for q in MESH_QUERIES[tier]:
+                got = mesh_query(K, sess, tier, q, _mesh_sql(q), off[q],
+                                 state, torch)
+                if q == "Q10":
+                    shuffled = "joinshuf" in got["kinds"]
+                    print(f"[mesh] pipeline Q10 under the default "
+                          f"tidb_broadcast_build_max_rows: "
+                          f"{'compiles' if shuffled else 'no'} joinshuf",
+                          flush=True)
+                    if not shuffled:
+                        sess.execute("set tidb_broadcast_build_max_rows "
+                                     "= 0")
+                        try:
+                            got = mesh_query(K, sess, tier, "Q10_SHUFFLE",
+                                             _mesh_sql("Q10"), off[q],
+                                             state, torch)
+                        finally:
+                            sess.execute("set tidb_broadcast_build_max_"
+                                         "rows = 1048576")
+                    if "joinshuf" not in got["kinds"]:
+                        raise Mismatch("pipeline Q10 never compiled "
+                                       "joinshuf")
             st = shardops.stats_snapshot()
             if st["shard_rounds"] <= 0:
                 raise Mismatch(f"mesh {tier}: no shard round ({st})")
@@ -2148,21 +2491,26 @@ def phase_mesh(K, storage, kinfo, device=None) -> None:
             print(f"[mesh] {tier}: shard stats {st}", flush=True)
             for k, v in counts["launches"].items():
                 launches[k] = launches.get(k, 0) + v
+        for k, v in phase_k26(K, storage, device or K.device(), cap).items():
+            launches[k] = launches.get(k, 0) + v
     finally:
-        K.shard_merge, shardops._local_unique_join = orig_merge, orig_join
-        K.lex_order = orig_order
+        K.shard_merge, K.lex_order = orig["shard_merge"], orig["lex_order"]
+        K.shard_exchange, K.shard_rank, K.csr_expand = (
+            orig["shard_exchange"], orig["shard_rank"], orig["csr_expand"])
+        shardops._local_unique_join, shardops._local_member = (orig_join,
+                                                               orig_member)
         if old_env is None:
             os.environ.pop("TINYSQL_MESH_SHARDS", None)
         else:
             os.environ["TINYSQL_MESH_SHARDS"] = old_env
-    for name, r in mesh_kernel_checks(K, merges, probes, sorts).items():
+    for name, r in mesh_kernel_checks(K, cap).items():
         kinfo[name] = kernel_entry(name, r)
     for k, v in launches.items():
         if k in kinfo:
             kinfo[k]["launches"] += v
             by_tier = kinfo[k].setdefault("launches_by_tier", {})
             by_tier["mesh"] = by_tier.get("mesh", 0) + v
-    for k in ("shard_merge", "shard_probe"):
+    for k in K.MESH_LAUNCHES:
         if kinfo[k]["launches"] <= 0:
             raise Mismatch(f"kernel {k} never launched on the mesh path")
 

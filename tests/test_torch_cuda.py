@@ -453,7 +453,7 @@ def test_tpch_on_the_card_matches_the_cpu_tier(dev):
     # only under tidb_mesh_parallel (the mesh phase, the tests below)
     assert all(v for k, v in launched.items()
                if not k.endswith("_batched")
-               and k not in ("shard_merge", "shard_probe")), launched
+               and k not in K.MESH_LAUNCHES), launched
     s.execute("set tidb_use_tpu = 0")
     for q, sql in queries.items():
         cpu = tpch.canon_rows(s.query(sql).rows)
@@ -623,3 +623,105 @@ def test_shard_probe_matches_plain(dev):
                                      n)
         assert torch.equal(hit, ph) and torch.equal(brow, pb)
         assert bool(hit.any())
+
+
+def test_shard_exchange_matches_plain(dev):
+    """HK13 byte for byte against its plain version: n = 2, 4, 8 and 64
+    shards, shards of fewer rows than a tile and of several tiles,
+    padding rows, 1- and 8-byte lanes, more lanes than one launch takes;
+    and an overflowing pair raises."""
+    rng = np.random.default_rng(13)
+    for n, m in ((2, 16), (4, 3000), (8, 1 << 14), (64, 256)):
+        nb = n * m
+        n_rows = nb - 7
+        keys = rng.integers(-1000, 1000, nb)
+        keys[:2] = [K.I64_MIN, K.I64_MAX]
+        kt = _t(keys, dev, torch.int64)
+        from tinysql_tpu_torch.parallel import dist
+        cap = dist.shuffle_cap(keys.astype(np.int64), n, n_rows)
+        lanes = []
+        for j in range(9):
+            lanes += [(_t(rng.normal(size=nb), dev), 0.0),
+                      (_t(rng.random(nb) < 0.3, dev), True)]
+        a = K.shard_exchange(kt, n_rows, lanes, cap, n)
+        b = K.shard_exchange_plain(kt, n_rows, lanes, cap, n)
+        for x, y in zip(a, b):
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+        c = K.shard_exchange(kt, n_rows, lanes, cap, n)
+        assert all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                   for x, y in zip(a, c))
+    with pytest.raises(RuntimeError, match="capacity"):
+        K.shard_exchange(_t(np.zeros(64), dev, torch.int64), 64,
+                         [(_t(np.zeros(64), dev, torch.int64), 0)], 4, 4)
+
+
+def test_shard_rank_matches_plain(dev):
+    """HK14 against its plain version: a full merge of 8 runs of 2^14
+    with heavy ties, and a top-k over 8 x 16 candidates."""
+    rng = np.random.default_rng(14)
+    n, m = 8, 1 << 14
+    ordl = _t(rng.integers(-50, 50, n * m), dev, torch.int64)
+    perm = K.lex_order([K.shard_lane(n, m), ordl], n * m)
+    a = K.shard_rank(ordl, perm, m, m, n, n * m)
+    assert torch.equal(a, K.shard_rank_plain(ordl, perm, m, m, n, n * m))
+    assert torch.equal(a, K.lex_order([ordl], n * m))
+    ids = torch.cat([K.lex_order([ordl[s * m:(s + 1) * m]], m, 16) + s * m
+                     for s in range(n)])
+    b = K.shard_rank(ordl, ids, 16, 16, n, 10)
+    assert torch.equal(b, K.shard_rank_plain(ordl, ids, 16, 16, n, 10))
+    assert torch.equal(b, K.lex_order([ordl], n * m, 10))
+
+
+def test_shard_member_and_count_match_plain(dev):
+    """HK12's member mode and count mode against their plain versions."""
+    from tinysql_tpu_torch.ops import shardops
+    rng = np.random.default_rng(15)
+    n, cp, cb = 8, 1024, 512
+    pk = _t(rng.integers(-300, 300, n * cp), dev, torch.int64)
+    bk = _t(rng.integers(-300, 300, n * cb), dev, torch.int64)
+    pid = _t(np.where(rng.random(n * cp) < 0.9, np.arange(n * cp), -1),
+             dev, torch.int64)
+    bid = _t(np.where(rng.random(n * cb) < 0.8, np.arange(n * cb), -1),
+             dev, torch.int64)
+    mem = shardops._local_member(n, pk, pid, bk, bid)
+    bord, perm = shardops._build_order(n, bk, bid)
+    assert torch.equal(mem, K.shard_probe_plain(pk, pid, bord, bid, perm, n,
+                                                member=True))
+    assert torch.equal(mem, shardops._local_unique_join(n, pk, pid, bk,
+                                                        bid)[0])
+    rs = torch.sort(bk).values
+    lv = _t(rng.random(n * cp) < 0.9, dev)
+    c, p = K.shard_count(pk, lv, rs, n)
+    pc, pp = K.shard_count_plain(pk, lv, rs, n)
+    assert torch.equal(c, pc) and torch.equal(p, pp)
+
+
+def test_csr_expand_shard_mode_matches_plain(dev):
+    """HK8's shard mode against its plain version (each shard's slice
+    expanded on its own), inner and LEFT."""
+    rng = np.random.default_rng(16)
+    nbb, nb, n = 4096, 8192, 8
+    keys = rng.integers(0, 500, nbb)
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    ends = np.nonzero(np.r_[sk[1:] != sk[:-1], True])[0]
+    gk = sk[ends]
+    tbl = np.full(int(gk.max()) + 1, -1, dtype=np.int32)
+    tbl[gk] = np.arange(len(gk), dtype=np.int32)
+    args = [_t(order, dev, torch.int64), _t(ends, dev, torch.int64),
+            len(ends), nbb, _t(rng.random(nbb) < 0.8, dev),
+            _t(tbl, dev), 0, int(gk.max())]
+    pk = _t(rng.integers(-5, 520, nb), dev, torch.int64)
+    pn = _t(rng.random(nb) < 0.05, dev)
+    pv = _t(rng.random(nb) < 0.9, dev)
+    plane = [(_t(rng.normal(size=nb), dev), pn)]
+    blane = [(_t(rng.integers(0, 9, nbb), dev, torch.int64), None)]
+    for outer in (False, True):
+        ob = 1 << 15
+        a = K.csr_expand(*args, [(pk, pn)], None, pv, outer, ob, plane,
+                         blane, shards=n)
+        b = K.csr_expand_plain(*args, [(pk, pn)], None, pv, outer, ob,
+                               plane, blane, shards=n)
+        assert torch.equal(a[0], b[0])
+        for (x, xm), (y, ym) in zip(a[1] + a[2], b[1] + b[2]):
+            assert torch.equal(x, y) and torch.equal(xm, ym)

@@ -402,8 +402,8 @@ def test_unported_modes_raise_when_forced(pair, sysvar, sql, item,
     (a join or GROUP BY there takes the pipeline through a host leaf, as
     in the reference) runs block-wise.  The mesh tier's slice (item 10,
     8 virtual shards): the join + GROUP BY runs its unique join in the
-    broadcast mode, keyed with the mesh size.  The mesh routes still to
-    port raise in tests/test_torch_mesh.py.  Without the sysvar the same
+    broadcast mode, keyed with the mesh size.  The other mesh routes run
+    in tests/test_torch_mesh.py.  Without the sysvar the same
     statement runs as the reference runs it."""
     ref, port = pair
     name = sysvar.split("=")[0].strip()

@@ -13,13 +13,15 @@ another order) and a second mesh run by ``repr`` (the port's merges fold
 in a fixed order).  Where both packages count them, the shard rounds and
 exchanged bytes must be equal.
 
-Families on this slice's path: K11 (the sharded grouped aggregate, HK2
-per shard + HK11), K25's scalar aggregate (HK1 per shard + HK11) and
-unique join (HK4 + HK12), K21 mesh (the pipeline's distributed TopN,
-HK4 twice) and the pipeline join's broadcast mode (HK6).  The routes
-still to port raise NotImplementedError naming ROADMAP item 10 where the
-reference runs them sharded: the pipeline's shuffle join, the CSR join's
-mesh mode, the per-operator semi join and single-key ORDER BY."""
+Families: K11 (the sharded grouped aggregate, HK2 per shard + HK11),
+K25's scalar aggregate (HK1 per shard + HK11), unique join (HK4 + HK12),
+member (HK4 + HK12's member mode), sort and top-k (HK4 per shard +
+HK14), K21 mesh (the pipeline's distributed TopN, HK4 twice), the
+pipeline join's broadcast mode (HK6), its shuffle mode (K18 shuffle:
+HK13 both sides, HK4 + HK12 per shard) and the CSR join's mesh mode
+(HK8's shard mode).  TPC-H Q10, Q13, Q18, NOT IN, Q22, NOT EXISTS and a
+single-key ORDER BY / TopN run sharded where the reference shards them,
+with the same node kinds, mesh sizes and shard counters."""
 import math
 import random
 
@@ -30,6 +32,7 @@ from tinysql_tpu.bench import tpch as ref_tpch
 from tinysql_tpu.columnar.store import bulk_load as ref_bulk_load
 from tinysql_tpu.columnar.store import store_of as ref_store_of
 from tinysql_tpu.executor import devpipe as ref_devpipe
+from tinysql_tpu.ops import progcache as ref_progcache
 from tinysql_tpu.ops import shardops as ref_shardops
 from tinysql_tpu.session import new_session as ref_new_session
 from tinysql_tpu_torch.bench import tpch as port_tpch
@@ -70,14 +73,16 @@ def _set(sessions, sysvar):
         s.execute(f"set @@{sysvar}")
 
 
-def _mesh_rows(pair, sql):
+def _mesh_rows(pair, sql, fresh_keys=False):
     """(port mesh rows, reference mesh rows, port mesh-off rows), the
     shard counters of both mesh runs and the port's kernel counts reset
-    before them."""
+    before them (and both packages' compiled node keys, ``fresh_keys``)."""
     ref, port = pair
     _set(pair, "tidb_mesh_parallel = 0")
     off = port.query(sql).rows
     _set(pair, "tidb_mesh_parallel = 1")
+    if fresh_keys:
+        _fresh_keys()
     try:
         kernels.reset_kernel_counts()
         shardops.reset_stats()
@@ -104,6 +109,11 @@ def mesh_env():
     mp.setenv("TINYSQL_DEVICE_JOIN_ONLY", "1")
     yield
     mp.undo()
+    # the reference's programs built here have the shapes of its own mesh
+    # battery (tests/test_mesh_parallel.py), which asserts that it compiles
+    # them: leave its cache as a fresh worker process has it
+    ref_progcache.clear()
+    ref_devpipe.COMPILED_NODE_KEYS.clear()
 
 
 def _session(new, db, **kw):
@@ -368,8 +378,11 @@ def test_shuffle_vs_broadcast_cost_gate(join_tk):
          "where big.x >= 5 order by big.a limit 7")
     _, port = join_tk
     port.execute("set @@tidb_broadcast_build_max_rows = 1048576")
+    before = _port_keys("joinshuf")
     got, want, off = _mesh_rows(join_tk, q)
     assert _canon(got) == _canon(off) == _canon(want)
+    assert _port_keys("joinshuf") == before, \
+        "a small build side must broadcast, not shuffle"
 
 
 def test_mesh_topn_distributed(join_tk):
@@ -378,8 +391,8 @@ def test_mesh_topn_distributed(join_tk):
     single-device stable sort (the global row index breaks ties)."""
     _, port = join_tk
     # a scan + TopN runs on the per-operator tier, where a two-key order
-    # stays single-device (the reference's gate) and a single key would
-    # take the sharded top-k that is still to port (raises, below)
+    # stays single-device (the reference's gate) and a single key takes
+    # the sharded top-k (K25 top-k: HK4 per shard, HK14)
     qs = [
         "select id, g, s from tn order by g, s limit 25",
         "select id, g, s from tn order by s, g limit 25",
@@ -388,6 +401,7 @@ def test_mesh_topn_distributed(join_tk):
         "select tn.id, dim.v from tn join dim on tn.g = dim.k "
         "order by dim.v desc, tn.id limit 100, 10",
         "select g, sum(s) from tn group by g order by sum(s) desc limit 3",
+        "select id, g from tn order by g desc limit 100, 10",
     ]
     before = _port_keys("order_mesh")
     for q in qs:
@@ -400,12 +414,17 @@ def test_mesh_topn_distributed(join_tk):
         assert repr(port.query(q).rows) == repr(off), q
     assert _port_keys("order_mesh") - before, \
         "distributed TopN never compiled"
-    port.execute("set @@tidb_mesh_parallel = 1")
+    kernels.reset_kernel_counts()
+    shardops.reset_stats()
+    ref_shardops.reset_stats()
+    _set(join_tk, "tidb_mesh_parallel = 1")
     try:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            port.query("select id, g from tn order by g desc limit 100, 10")
+        q = "select id, g from tn order by g desc limit 100, 10"
+        assert port.query(q).rows == join_tk[0].query(q).rows
     finally:
-        port.execute("set @@tidb_mesh_parallel = 0")
+        _set(join_tk, "tidb_mesh_parallel = 0")
+    assert kernels.kernel_counts()["plain_calls"]["shard_rank"] == 1
+    assert _same_shard_counts()["shard_rounds"] == 1
 
 
 def test_mesh_join_strategy_cost_based(join_tk):
@@ -449,41 +468,144 @@ def test_mesh_csr_skew_retries_unsharded(join_tk, monkeypatch):
     assert _same_shard_counts()["shard_skew_retries"] == 1
 
 
+def _fresh_keys():
+    devpipe.COMPILED_NODE_KEYS.clear()
+    ref_devpipe.COMPILED_NODE_KEYS.clear()
+
+
+def _mesh_node_keys(sized=False):
+    """(kind, mesh size) of the shuffle and CSR joins each package
+    compiled (since :func:`_fresh_keys`); ``sized``: only those compiled
+    for a mesh (a cached program notes no key again, so both packages'
+    keys accumulate over the module's mesh runs)."""
+    return [{(k[0], k[-1]) for k in keys if k and k[0] in ("joinshuf",
+                                                          "joinm")
+             and (k[-1] or not sized)}
+            for keys in (devpipe.COMPILED_NODE_KEYS,
+                         ref_devpipe.COMPILED_NODE_KEYS)]
+
+
 def test_pipeline_shuffle_join_raises(join_tk):
-    """K18 shuffle is the next slice: where the reference exchanges both
-    sides (the broadcast budget forced to 0 over two replica leaves; the
-    planner's shuffle choice for a self-join) the port raises."""
+    """K18 shuffle: where the reference exchanges both sides (the
+    broadcast budget forced to 0 over two replica leaves) the port does
+    too — HK13 for both sides, HK4 + HK12 per shard — with the
+    reference's rows, node key and shard counters."""
     ref, port = join_tk
     q = ("select big.a, dim.v from big join dim on big.fk = dim.k "
          "where big.x >= 9 order by big.a limit 5")
     _set(join_tk, "tidb_broadcast_build_max_rows = 0")
-    _set(join_tk, "tidb_mesh_parallel = 1")
     try:
-        ref.query(q)
-        assert any(k[0] == "joinshuf"
-                   for k in ref_devpipe.COMPILED_NODE_KEYS if k)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            port.query(q)
+        got, want, off = _mesh_rows(join_tk, q, fresh_keys=True)
+        plain = kernels.kernel_counts()["plain_calls"]
     finally:
         _set(join_tk, "tidb_broadcast_build_max_rows = 1048576")
-        _set(join_tk, "tidb_mesh_parallel = 0")
+    assert got == want == off
+    port_keys, ref_keys = _mesh_node_keys()
+    assert port_keys == ref_keys == {("joinshuf", 8)}
+    st = _same_shard_counts()
+    assert st["shard_exchange_bytes"] > 0 and st["shard_rounds"] == 1
+    assert plain["shard_exchange"] == 2 and plain["shard_probe"] == 1
 
 
 def test_mesh_csr_join_raises(join_tk):
-    """The CSR (non-unique build) join's mesh mode is the next slice: the
-    reference expands per shard, the port raises."""
-    ref, port = join_tk
+    """K18 mult on the mesh: the reference expands per shard, and so does
+    the port (HK8's shard mode), with the same rows and node key."""
     q = ("select big.a, dup.w from big join dup on big.fk = dup.k "
          "where big.x < 5 order by big.a, dup.w limit 50")
-    _set(join_tk, "tidb_mesh_parallel = 1")
+    got, want, off = _mesh_rows(join_tk, q, fresh_keys=True)
+    assert len(got) == 50 and got == off
+    assert _canon(got) == _canon(want)
+    port_keys, ref_keys = _mesh_node_keys()
+    assert port_keys == ref_keys == {("joinm", 8)}
+    assert kernels.kernel_counts()["plain_calls"]["csr_expand_shard"] == 1
+
+
+def test_shuffle_join_partitioned_build(join_tk):
+    """tests/test_mesh_parallel.py's battery: with the broadcast budget
+    forced to zero both sides hash-repartition and each shard joins its
+    partition; rows equal single-device, the CPU tier and the
+    reference's."""
+    ref, port = join_tk
+    _set(join_tk, "tidb_broadcast_build_max_rows = 0")
     try:
-        assert len(ref.query(q).rows) == 50
-        assert any(k[0] == "joinm" and k[-1] > 1
-                   for k in ref_devpipe.COMPILED_NODE_KEYS if k)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            port.query(q)
+        _fresh_keys()
+        for q in JOIN_QUERIES:
+            got, want, off = _mesh_rows(join_tk, q)
+            port.execute("set @@tidb_use_tpu = 0")
+            cpu = port.query(q).rows
+            port.execute("set @@tidb_use_tpu = 1")
+            assert _canon(got) == _canon(off) == _canon(cpu), q
+            assert _canon(got) == _canon(want), q
+            _same_shard_counts()
     finally:
-        _set(join_tk, "tidb_mesh_parallel = 0")
+        _set(join_tk, "tidb_broadcast_build_max_rows = 1048576")
+    assert ("joinshuf", 8) in _mesh_node_keys()[0]
+
+
+def test_mesh_csr_nonunique_join(join_tk):
+    """tests/test_mesh_parallel.py's battery: non-unique joins shard the
+    probe side with the CSR structures broadcast, per-shard buckets from
+    host-exact per-shard bounds."""
+    qs = ["select big.a, dup.w from big join dup on big.fk = dup.k "
+          "where big.x < 5 order by big.a, dup.w limit 50",
+          "select big.a, dup.w from big left join dup on big.fk = dup.k "
+          "order by big.a, dup.w limit 50",
+          "select dup.k, count(*), sum(big.x) from big join dup "
+          "on big.fk = dup.k group by dup.k order by dup.k"]
+    _fresh_keys()
+    for q in qs:
+        got, want, off = _mesh_rows(join_tk, q)
+        assert _canon(got) == _canon(off) == _canon(want), q
+    assert ("joinm", 8) in _mesh_node_keys()[0]
+
+
+@pytest.fixture(scope="module")
+def shuf_tk(mesh_env):
+    """__graft_entry__._dryrun_shuffle_join's tables at 8 shards: a build
+    side (dim, 512 rows) above the per-shard broadcast budget (64)."""
+    s = _session(port_new_session, "shuf", device="cpu")
+    s.execute("set @@tidb_devpipe = 1")
+    rng = np.random.default_rng(9)
+    n_fact, n_dim = 128 * 8, 64 * 8
+    fk = rng.integers(1, n_dim + 2, n_fact).astype(np.int64)
+    x = rng.random(n_fact) * 10
+    v = rng.integers(0, 100, n_dim).astype(np.int64)
+    for name, schema, cols in (
+            ("fact", "a bigint primary key, fk bigint, x double",
+             {"a": np.arange(1, n_fact + 1, dtype=np.int64), "fk": fk,
+              "x": x}),
+            ("dim", "k bigint primary key, v bigint",
+             {"k": np.arange(1, n_dim + 1, dtype=np.int64), "v": v})):
+        s.execute(f"create table {name} ({schema})")
+        port_bulk_load(s.storage, s.infoschema().table_by_name("shuf", name),
+                       cols)
+    return s, fk, x, v, n_dim
+
+
+def test_dryrun_shuffle_join_numpy_oracle(shuf_tk):
+    """The shuffle join, inner and LEFT, against a numpy oracle computed
+    from the generated arrays (__graft_entry__._dryrun_shuffle_join)."""
+    s, fk, x, v, n_dim = shuf_tk
+    s.execute("set @@tidb_mesh_parallel = 1")
+    s.execute(f"set @@tidb_broadcast_build_max_rows = {n_dim // 8}")
+    try:
+        devpipe.COMPILED_NODE_KEYS.clear()
+        got = s.query("select fact.a, dim.v from fact join dim "
+                      "on fact.fk = dim.k where fact.x < 5 "
+                      "order by fact.a").rows
+        assert ("joinshuf", 8) in {(k[0], k[-1])
+                                   for k in devpipe.COMPILED_NODE_KEYS}
+        left = s.query("select fact.a, dim.v from fact left join dim "
+                       "on fact.fk = dim.k order by fact.a limit 50").rows
+    finally:
+        s.execute("set @@tidb_mesh_parallel = 0")
+        s.execute("set @@tidb_broadcast_build_max_rows = 1048576")
+    a_ids = np.arange(1, len(fk) + 1, dtype=np.int64)
+    hit = (x < 5) & (fk >= 1) & (fk <= n_dim)
+    assert got == [[int(a), int(v[f - 1])]
+                   for a, f in zip(a_ids[hit], fk[hit])]
+    assert left == [[int(a), int(v[f - 1]) if 1 <= f <= n_dim else None]
+                    for a, f in zip(a_ids[:50], fk[:50])]
 
 
 # =========================================================================
@@ -575,15 +697,57 @@ def test_q6_shards_at_a_larger_estimate(tpch_pair):
 ], ids=["q10_pipeline_shuffle", "q13_csr_mesh", "q18_semi_per_op",
         "single_key_order_by"])
 def test_unported_mesh_routes_raise(tpch_pair, devpipe_mode, sql):
-    """The reference runs these sharded; the port raises past the
-    reference's single-device gates, naming ROADMAP item 10."""
-    ref, port = tpch_pair
+    """The routes that raised before this slice (the reference runs them
+    sharded) now run sharded in the port: rows equal the reference's mesh
+    rows and the port's mesh-off rows, shard counters equal."""
     _set(tpch_pair, f"tidb_devpipe = {devpipe_mode}")
-    _set(tpch_pair, "tidb_mesh_parallel = 1")
     try:
-        assert ref.query(sql).rows
-        with pytest.raises(NotImplementedError, match="item 10"):
-            port.query(sql)
+        got, want, off = _mesh_rows(tpch_pair, sql)
+    finally:
+        _set(tpch_pair, "tidb_devpipe = -1")
+    assert got and port_tpch.canon_rows(got) == ref_tpch.canon_rows(want)
+    _close(got, off, sql)
+    st = _same_shard_counts()
+    if sql == port_tpch.Q13:  # the CSR mesh mode counts no round
+        assert ("joinm", 8) in _mesh_node_keys(sized=True)[0]
+    else:
+        assert st["shard_rounds"] >= 1, st
+
+
+#: the slice through SQL: TPC-H Q10 and Q13 on the pipeline tier; Q18,
+#: NOT IN, Q22, NOT EXISTS and a single-key ORDER BY / TopN on both
+SLICE = {"Q10": port_tpch.WORKLOAD["Q10"], "Q13": port_tpch.Q13,
+         "Q18": port_tpch.WORKLOAD["Q18"], **port_tpch.K8_QUERIES,
+         "ORDER_BY": "select o_orderkey, o_totalprice from orders "
+                     "order by o_totalprice desc",
+         "TOPN": "select o_orderkey, o_totalprice from orders "
+                 "order by o_totalprice desc limit 10"}
+SLICE_CASES = [(1, q) for q in SLICE] + [
+    (0, q) for q in SLICE if q not in ("Q10", "Q13")]
+
+
+@pytest.mark.parametrize("devpipe_mode,q", SLICE_CASES)
+def test_mesh_slice_through_sql(tpch_pair, devpipe_mode, q):
+    """Rows equal the reference's mesh rows (tpch.canon_rows) and the
+    port's mesh-off rows; a second mesh run equal by repr; shard rounds,
+    exchange bytes and skew retries equal; the shuffle and CSR joins
+    compiled at the same mesh sizes as the reference's."""
+    sql = SLICE[q]
+    _set(tpch_pair, f"tidb_devpipe = {devpipe_mode}")
+    try:
+        got, want, off = _mesh_rows(tpch_pair, sql)
+        st = _same_shard_counts()
+        keys = _mesh_node_keys(sized=True)
+        _set(tpch_pair, "tidb_mesh_parallel = 1")
+        again = tpch_pair[1].query(sql).rows
     finally:
         _set(tpch_pair, "tidb_mesh_parallel = 0")
         _set(tpch_pair, "tidb_devpipe = -1")
+    assert port_tpch.canon_rows(got) == ref_tpch.canon_rows(want), q
+    _close(got, off, q)
+    assert repr(again) == repr(got), q
+    assert keys[0] == keys[1], (q, keys)
+    if q in ("Q10", "Q13"):
+        assert ("joinshuf" if q == "Q10" else "joinm", 8) in keys[0], keys
+    else:
+        assert st["shard_rounds"] >= 1, (q, st)

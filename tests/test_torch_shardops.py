@@ -1,7 +1,8 @@
 """The port's mesh-sharded operator tier (tinysql_tpu_torch/ops/shardops.py,
-parallel/dist.py) and its two kernels' plain versions, HK11 shard_merge
-and HK12 shard_probe, against the reference's (tinysql_tpu/ops/
-shardops.py, parallel/dist.py).
+parallel/dist.py) and its kernels' plain versions, HK11 shard_merge, HK12
+shard_probe (and its member and count modes), HK13 shard_exchange and
+HK14 shard_rank, against the reference's (tinysql_tpu/ops/shardops.py,
+parallel/dist.py).
 
 The reference runs on the 8 virtual CPU devices tests/conftest.py forces;
 the port's mesh is N virtual shards on the CPU device, with
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tinysql_tpu.ops import progcache as ref_progcache
 from tinysql_tpu.ops import shardops as ref_shardops
 from tinysql_tpu.ops import spill as ref_spill
 from tinysql_tpu.parallel import dist as ref_dist
@@ -23,6 +25,14 @@ from tinysql_tpu_torch.parallel import dist
 NDEV = 8
 MESH_SIZES = [1, 2, 4, 8]
 I64_MIN, I64_MAX = kernels.I64_MIN, kernels.I64_MAX
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_reference_programs():
+    """Leave the reference's program cache as a fresh worker process has
+    it: its own mesh tests assert that they compile these shapes."""
+    yield
+    ref_progcache.clear()
 
 
 @pytest.fixture(autouse=True)
@@ -212,10 +222,13 @@ def test_unique_join_counts_a_round_and_its_exchange():
 
 
 # =========================================================================
-# the routes still to port: the reference's gates, then item 10
+# K25 member, sort and top-k: the reference's gates, then its answers
 # =========================================================================
 
 def test_semi_join_gates_then_raise():
+    """The reference's gates and its answers without a device round stay;
+    past them the partitioned membership (HK4 + HK12's member mode) runs
+    and equals the reference's."""
     rng = _rng(414)
     lk, ln = _keys(rng, 900, 0, 400)
     rk, rn = _keys(rng, 300, 100, 500, null_frac=0.08)
@@ -232,11 +245,18 @@ def test_semi_join_gates_then_raise():
     got = shardops.semi_join_match_sharded(
         dist.sized_mesh(4), *args, anti=True, null_aware=True)
     assert len(got) == 0
-    with pytest.raises(NotImplementedError, match="item 10"):
-        shardops.semi_join_match_sharded(dist.sized_mesh(4), *args)
+    kernels.reset_kernel_counts()
+    got = shardops.semi_join_match_sharded(dist.sized_mesh(4), *args)
+    np.testing.assert_array_equal(got, ref_shardops.semi_join_match_sharded(
+        ref_dist.sized_mesh(4), *args))
+    assert len(got) and kernels.kernel_counts()["plain_calls"][
+        "shard_member"] == 1
 
 
 def test_sort_and_top_k_gates_then_raise():
+    """None where the reference returns None; past the gates the sharded
+    sort (HK4 per shard + HK14) and top-k (HK4's top-k per shard + HK14)
+    equal the reference's and the single-device kernels."""
     rng = _rng(657)
     v, m = _keys(rng, 1000, -300, 300)
     mesh = dist.sized_mesh(8)
@@ -254,10 +274,94 @@ def test_sort_and_top_k_gates_then_raise():
     assert shardops.sort_permutation_sharded(mesh, [(edge, m)], [False],
                                              1000) is None
     assert shardops.top_k_sharded(mesh, [(v, m)], [True], 10, 3) is None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        shardops.sort_permutation_sharded(mesh, [(v, m)], [True], 1000)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        shardops.top_k_sharded(mesh, [(v, m)], [False], 1000, 7)
+    rmesh = ref_dist.sized_mesh(8)
+    np.testing.assert_array_equal(
+        shardops.sort_permutation_sharded(mesh, [(v, m)], [True], 1000),
+        ref_shardops.sort_permutation_sharded(rmesh, [(v, m)], [True], 1000))
+    np.testing.assert_array_equal(
+        shardops.top_k_sharded(mesh, [(v, m)], [False], 1000, 7),
+        ref_shardops.top_k_sharded(rmesh, [(v, m)], [False], 1000, 7))
+
+
+@pytest.mark.parametrize("n_shards", MESH_SIZES)
+@pytest.mark.parametrize("anti,null_aware",
+                         [(False, False), (True, False), (True, True)])
+def test_semi_join_identity(n_shards, anti, null_aware):
+    """tests/test_shardops.py's battery: the port's partitioned semi /
+    anti / NOT IN equals the reference's and the single-device kernel."""
+    rng = _rng(1117 + 3 * n_shards + 2 * anti + null_aware)
+    n_left, n_right = 900, 300
+    lk, ln = _keys(rng, n_left, 0, 400)
+    rk, rn = _keys(rng, n_right, 100, 500,
+                   null_frac=0.0 if null_aware else 0.08)
+    lvalid = rng.random(n_left) < 0.9
+    rvalid = rng.random(n_right) < 0.9
+    args = ((lk, ln), n_left, (rk, rn), n_right)
+    kw = dict(anti=anti, null_aware=null_aware, lvalid=lvalid, rvalid=rvalid)
+    got = shardops.semi_join_match_sharded(dist.sized_mesh(n_shards), *args,
+                                           **kw)
+    want = ref_shardops.semi_join_match_sharded(
+        ref_dist.sized_mesh(n_shards), *args, **kw)
+    if n_shards < 2:
+        assert got is None and want is None
+        return
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, kernels.semi_join_match(*args, **kw))
+
+
+@pytest.mark.parametrize("n_shards", MESH_SIZES)
+@pytest.mark.parametrize("desc", [False, True])
+@pytest.mark.parametrize("dtype", [np.int64, np.float64])
+def test_sort_permutation_identity(n_shards, desc, dtype):
+    rng = _rng(1201 + n_shards + 2 * desc)
+    n = 1000
+    v, m = _keys(rng, n, -300, 300, dtype=dtype)
+    if dtype == np.float64:
+        v[:5] = -0.0  # folds into 0.0, as the reference's sort does
+    got = shardops.sort_permutation_sharded(
+        dist.sized_mesh(n_shards), [(v, m)], [desc], n)
+    want = ref_shardops.sort_permutation_sharded(
+        ref_dist.sized_mesh(n_shards), [(v, m)], [desc], n)
+    if n_shards < 2:
+        assert got is None and want is None
+        return
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, kernels.sort_permutation([(v, m)], [desc], n))
+
+
+@pytest.mark.parametrize("n_shards", MESH_SIZES)
+@pytest.mark.parametrize("desc", [False, True])
+@pytest.mark.parametrize("k", [1, 7, 50])
+def test_top_k_identity(n_shards, desc, k):
+    rng = _rng(1301 + n_shards + 2 * desc + k)
+    n = 1200
+    v, m = _keys(rng, n, -500, 500)
+    got = shardops.top_k_sharded(dist.sized_mesh(n_shards), [(v, m)],
+                                 [desc], n, k)
+    want = ref_shardops.top_k_sharded(ref_dist.sized_mesh(n_shards),
+                                      [(v, m)], [desc], n, k)
+    if n_shards < 2:
+        assert got is None and want is None
+        return
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, kernels.top_k([(v, m)], [desc], n, k))
+
+
+def test_sort_and_top_k_count_their_rounds():
+    rng = _rng(88)
+    v, m = _keys(rng, 700, -50, 50, dtype=np.float64)
+    for fn, rfn, extra in ((shardops.sort_permutation_sharded,
+                            ref_shardops.sort_permutation_sharded, ()),
+                           (shardops.top_k_sharded,
+                            ref_shardops.top_k_sharded, (9,))):
+        shardops.reset_stats()
+        ref_shardops.reset_stats()
+        fn(dist.sized_mesh(4), [(v, m)], [True], 700, *extra)
+        rfn(ref_dist.sized_mesh(4), [(v, m)], [True], 700, *extra)
+        got, want = shardops.stats_snapshot(), ref_shardops.stats_snapshot()
+        for k in ("shard_rounds", "shard_rows_hwm", "shard_exchange_bytes"):
+            assert got[k] == want[k], (k, got, want)
 
 
 # =========================================================================

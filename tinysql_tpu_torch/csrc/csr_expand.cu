@@ -40,7 +40,8 @@
 //      cancellation) and the compacted order comp;
 //   2. one thread per probe row: g and m;
 //   3. the inclusive ends of cnt, and the total, on the card;
-//   4. one thread per output slot: a binary search for its probe row.
+//   4. one thread per output slot: a binary search for its probe row
+//      among its shard's rows.
 // Then one launch per 16 lanes gathers the probe and build lanes.  All
 // integer, no atomics: the output is the same bytes from run to run.
 #include "dense_table.cuh"
@@ -104,23 +105,27 @@ struct ProbeCount {
 };
 
 __global__ void ce_fill(ProbeCount pc, const int64_t* __restrict__ incl,
-                        int64_t nb, const int64_t* __restrict__ total,
-                        const int64_t* __restrict__ g,
+                        int64_t nbl, const int64_t* __restrict__ g,
                         const int64_t* __restrict__ ends,
                         const int64_t* __restrict__ cx,
                         const int64_t* __restrict__ comp, int64_t ob,
-                        int64_t* __restrict__ prow, int64_t* __restrict__ brow,
+                        int64_t n_out, int64_t* __restrict__ prow,
+                        int64_t* __restrict__ brow,
                         uint8_t* __restrict__ matched,
                         uint8_t* __restrict__ valid_out) {
-  const int64_t tot = *total;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < ob;
-       j += stride) {
-    int64_t p = 0, b = 0;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       j < n_out; j += stride) {
+    // shard s's bucket [s * ob, (s + 1) * ob) holds its rows
+    // [s * nbl, (s + 1) * nbl): their slots restart at the bucket
+    const int64_t s = j / ob, jj = j - s * ob, r0 = s * nbl;
+    const int64_t base = r0 > 0 ? incl[r0 - 1] : 0;
+    const int64_t tot = incl[r0 + nbl - 1] - base;
+    int64_t p = r0, b = 0;
     bool mt = false;
-    if (j < tot) {
-      p = owner_of(incl, nb, j);
-      const int64_t k = j - (incl[p] - pc(p));
+    if (jj < tot) {
+      p = r0 + owner_of(incl + r0, nbl, jj + base);
+      const int64_t k = jj + base - (incl[p] - pc(p));
       const int64_t gp = g[p];
       mt = gp >= 0 && k < pc.m[p];
       if (mt) b = comp[cx[group_start(ends, gp)] + k];
@@ -128,7 +133,7 @@ __global__ void ce_fill(ProbeCount pc, const int64_t* __restrict__ incl,
     prow[j] = p;
     brow[j] = b;
     matched[j] = mt ? 1 : 0;
-    valid_out[j] = j < tot ? 1 : 0;
+    valid_out[j] = jj < tot ? 1 : 0;
   }
 }
 
@@ -150,18 +155,20 @@ TS_API int64_t hk8_scratch_words(int64_t nbb, int64_t nb) {
   return (nbb + 1) + nbb + 3 * nb + scan_nblocks(nbb) + scan_nblocks(nb) + 1;
 }
 
-// Expansion indices: prow / brow int64[ob], matched / valid_out uint8[ob];
-// *total (the last scratch word) holds the output size on the card.
+// Expansion indices: prow / brow int64[n_shards * ob], matched / valid_out
+// uint8[n_shards * ob] (ob per shard; n_shards divides nb); *total (the
+// last scratch word) holds the output size of all shards on the card.
 TS_API int hk8_csr_expand(const int64_t* order, int64_t nbb, int64_t n_rows,
                           const int64_t* ends, int64_t ng,
                           const uint8_t* bvalid, const int32_t* tbl,
                           int64_t tbl_len, int64_t lo, int64_t hi,
                           const KeySet* keys, const uint8_t* pvalid,
-                          int64_t nb, int outer, int64_t ob, int64_t* scratch,
-                          int64_t* prow, int64_t* brow, uint8_t* matched,
-                          uint8_t* valid_out, cudaStream_t st) {
+                          int64_t nb, int outer, int64_t ob, int n_shards,
+                          int64_t* scratch, int64_t* prow, int64_t* brow,
+                          uint8_t* matched, uint8_t* valid_out,
+                          cudaStream_t st) {
   if (nbb < 1 || nb < 1 || ob < 1 || n_rows < 0 || n_rows > nbb || ng < 0 ||
-      keys->n < 1 || keys->n > kMaxKeys)
+      keys->n < 1 || keys->n > kMaxKeys || n_shards < 1 || nb % n_shards)
     return -1;
   int64_t* cx = scratch;
   int64_t* comp = cx + nbb + 1;
@@ -178,9 +185,10 @@ TS_API int hk8_csr_expand(const int64_t* order, int64_t nbb, int64_t n_rows,
          m);
   const ProbeCount pc{pvalid, m, outer};
   launch_scan(InclusiveEnds<ProbeCount>{pc, incl}, nb, btot_p, total, st);
-  LAUNCH(ce_fill, grid_for(ob, kThreads, 1 << 16), kThreads, 0, st, pc,
-         (const int64_t*)incl, nb, (const int64_t*)total, (const int64_t*)g,
-         ends, (const int64_t*)cx, (const int64_t*)comp, ob, prow, brow,
+  const int64_t n_out = ob * n_shards;
+  LAUNCH(ce_fill, grid_for(n_out, kThreads, 1 << 16), kThreads, 0, st, pc,
+         (const int64_t*)incl, nb / n_shards, (const int64_t*)g, ends,
+         (const int64_t*)cx, (const int64_t*)comp, ob, n_out, prow, brow,
          matched, valid_out);
   return (int)cudaGetLastError();
 }

@@ -21,10 +21,23 @@
 // its monotone bits after -0.0 folds into +0.0; dead build slots carry
 // the sentinel of int64 max / +inf.  bord is that build order lane.
 //
+// Member mode (brow null): hit only, the membership bit of K25's
+// partitioned semi / anti join (tinysql_tpu/ops/shardops.py:380
+// _local_member_kernel); the host applies the NOT IN ladder.
+//
+// Count mode (hk12_shard_count): the match count of every probe row
+// against ONE replicated build run sorted ascending, hi - lo of the two
+// searchsorted bounds (0 for an invalid row), and each shard's sum of
+// them as a partial table [n][1][1] for HK11: K26's broadcast join
+// counts (tinysql_tpu/parallel/dist.py:197 make_broadcast_join_counts).
+//
 // Bound: bytes.  Each probe slot reads its key and id and writes hit and
 // brow (25 B); the search touches log2(cap_b) build slots through perm
-// (8 + 8 B each), which the L2 cache mostly serves.  Integer compares
-// only: the result is the same bytes on every run.
+// (8 + 8 B each), which the L2 cache mostly serves.  Count mode reads a
+// key and a valid byte and writes a count (17 B) per probe row, the
+// build run once.  Integer compares only (the partial sums are integer
+// atomics, exact in any order): the result is the same bytes on every
+// run.
 #include "common.cuh"
 
 namespace {
@@ -66,14 +79,57 @@ __global__ void sp_probe(const int64_t* __restrict__ pk,
                    (unsigned long long)bord[j] == key && bid[j] >= 0 &&
                    !(is_float && is_nan_f64(bits_to_f64(raw)));
     hit[i] = h ? 1 : 0;
-    brow[i] = h ? bid[j] : -1;
+    if (brow) brow[i] = h ? bid[j] : -1;
   }
+}
+
+// block (x, shard): rows of shard blockIdx.y; each block adds its sum to
+// the shard's partial once
+__global__ void sp_count(const int64_t* __restrict__ lk,
+                         const uint8_t* __restrict__ lvalid, int64_t rows,
+                         const int64_t* __restrict__ rs, int64_t nr,
+                         int64_t* __restrict__ counts,
+                         int64_t* __restrict__ partial) {
+  __shared__ int64_t red[kThreads];
+  const int64_t s = blockIdx.y;
+  int64_t acc = 0;
+  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < rows;
+       r += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t i = s * rows + r;
+    int64_t c = 0;
+    if (lvalid[i]) {
+      const int64_t x = lk[i];
+      int64_t lo = 0, hi = nr;
+      while (lo < hi) {  // first >= x
+        const int64_t mid = lo + ((hi - lo) >> 1);
+        if (rs[mid] < x) lo = mid + 1;
+        else hi = mid;
+      }
+      int64_t a = lo, b = nr;
+      while (a < b) {  // first > x
+        const int64_t mid = a + ((b - a) >> 1);
+        if (rs[mid] <= x) a = mid + 1;
+        else b = mid;
+      }
+      c = a - lo;
+    }
+    counts[i] = c;
+    acc += c;
+  }
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  for (int st = blockDim.x >> 1; st > 0; st >>= 1) {
+    if ((int)threadIdx.x < st) red[threadIdx.x] += red[threadIdx.x + st];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0 && red[0]) atomic_add_i64(&partial[s], red[0]);
 }
 
 }  // namespace
 
 // pk, pid: int64 [n * cap_p] (pk holds float64 bits when is_float);
 // bord, bid, perm: int64 [n * cap_b]; hit: bool, brow: int64 [n * cap_p]
+// (brow null: member mode)
 TS_API int hk12_shard_probe(const int64_t* pk, const int64_t* pid,
                             int64_t cap_p, const int64_t* bord,
                             const int64_t* bid, const int64_t* perm,
@@ -84,5 +140,19 @@ TS_API int hk12_shard_probe(const int64_t* pk, const int64_t* pid,
   LAUNCH(sp_probe, grid_for(n_slots, kThreads, 1 << 20), kThreads, 0, st,
          pk, pid, cap_p, bord, bid, perm, cap_b, n_slots, is_float, hit,
          brow);
+  return (int)cudaGetLastError();
+}
+
+// lk: int64 [n * rows], lvalid: bool [n * rows], rs: int64 [nr] sorted
+// ascending; counts: int64 [n * rows], partial: int64 [n] (zeroed here)
+TS_API int hk12_shard_count(const int64_t* lk, const uint8_t* lvalid,
+                            int64_t rows, int n, const int64_t* rs,
+                            int64_t nr, int64_t* counts, int64_t* partial,
+                            cudaStream_t st) {
+  if (n < 1 || n > 65535 || rows < 1 || nr < 0) return -1;
+  cudaMemsetAsync(partial, 0, (size_t)n * sizeof(int64_t), st);
+  dim3 grid(grid_for(rows, kThreads, 4096), (unsigned)n);
+  LAUNCH(sp_count, grid, kThreads, 0, st, lk, lvalid, rows, rs, nr, counts,
+         partial);
   return (int)cudaGetLastError();
 }

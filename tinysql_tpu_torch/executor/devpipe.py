@@ -64,13 +64,15 @@ Under ``tidb_mesh_parallel`` (N virtual shards on the device,
 parallel/dist.py) a pipeline runs the reference's mesh modes: the unique
 join's broadcast mode (the probe sharded, the build replicated: HK6
 over the probe lanes as they lie, the output in the same shard-major
-layout), and K21 mesh, the distributed TopN (``_OrderNode._prepare_
-mesh``: HK4 over shard-led lanes, each shard's top candidates, HK4 again
-over the gathered candidates).  An aggregate-only pipeline goes to the
-per-operator tier's sharded aggregates, as in the reference.  The
-shuffle join (K18 shuffle) and the CSR join's mesh mode raise
-NotImplementedError where the reference would run them (ROADMAP queue 1,
-item 10); their single-device gates are kept.
+layout), its shuffle mode (K18 shuffle: both sides exchanged by key hash
+through HK13, a local join per shard on HK4 + HK12), the CSR join's
+mesh mode (HK8's shard mode: each shard expands its own probe rows into
+its own bucket), and K21 mesh, the distributed TopN (``_OrderNode._
+prepare_mesh``: HK4 over shard-led lanes, each shard's top candidates,
+HK4 again over the gathered candidates).  An aggregate-only pipeline
+goes to the per-operator tier's sharded aggregates, as in the
+reference.  The reference's gates that run a join single-device (skew,
+no host key lane) are kept and counted as it counts them.
 
 Not ported yet (ROADMAP queue 1): graph capture of a pipeline key.
 """
@@ -1343,11 +1345,14 @@ class _JoinNode:
 
     def _prepare_unique_shuffle(self, pb, btv, ptv, mesh) \
             -> Optional[_TView]:
-        """The partitioned-build mesh join (K18 shuffle: an all-to-all of
-        both sides by key hash, then a local join per shard).  Returns
-        None where the reference does — no host key lane on either side,
-        or a skew gate — and the broadcast mode runs; past those gates
-        the exchange is not ported (item 10)."""
+        """The partitioned-build mesh join (K18 shuffle): both sides are
+        exchanged all-to-all by key hash (HK13), then every shard joins
+        its partition locally (HK4 + HK12) and the build columns gather
+        at the matched slots.  Returns None where the reference does — no
+        host key lane on either side, or a skew gate — and the broadcast
+        mode runs.  The view is the received probe layout: n * n * capp
+        slots, shard-major, as the reference's shard_map output."""
+        from ..parallel import dist
         n = int(mesh.n_shards)
         nb, nbb = ptv.nb, btv.nb
         got_p = self._host_key_lane(self.probe, self.probe_key)
@@ -1361,8 +1366,44 @@ class _JoinNode:
                 or n * n * capb > max(MAX_EXPAND, 2 * nbb):
             shardops.record_skew_retry()
             return None
-        raise NotImplementedError(shardops.MESH_TODO.format(
-            "pipeline shuffle join (K18 shuffle)"))
+        irows = pb.add((got_p[1], got_b[1]))
+        pk_slot = self.probe_key.index
+        bk_slot = self.build_key.index
+        outer = self.tp == "left"
+        npc, nbc = len(ptv.meta), len(btv.meta)
+        pb.key(("joinshuf", nb, nbb, capp, capb, pk_slot, bk_slot, outer,
+                self.probe_is_left, nbc, npc, n))
+        # the exchange's lane volume per dispatch (value + NULL byte per
+        # slot, plus the validity lane) and one round at the receive HWM
+        shardops.record_exchange(n * capp * (9 * npc + 1)
+                                 + n * capb * (9 * nbc + 1))
+        shardops.note_round(max(n * capp, n * capb))
+
+        def exchange(pairs, valid, slot, n_rows, cap):
+            lanes = []
+            for v, m in pairs:
+                lanes += [(v, 0), (torch.zeros_like(valid) if m is None
+                                   else m, True)]
+            lanes.append((valid, False))
+            got = dist.exchange_lanes(pairs[slot][0], n_rows, lanes, cap, n)
+            return ([(got[2 * i], got[2 * i + 1])
+                     for i in range(len(pairs))], got[-1])
+
+        def emit(args):
+            bvalid, bpairs = btv.emit(args)
+            pvalid, ppairs = ptv.emit(args)
+            pn_rows, bn_rows = args[irows]
+            pcols, pv_r = exchange(ppairs, pvalid, pk_slot, pn_rows, capp)
+            bcols, bv_r = exchange(bpairs, bvalid, bk_slot, bn_rows, capb)
+            bk_r, bkn_r = bcols[bk_slot]
+            pk_r, pkn_r = pcols[pk_slot]
+            hit, brow = dist.local_unique_join(bk_r, bv_r & ~bkn_r, pk_r, n)
+            matched = hit & ~pkn_r & pv_r
+            valid_out = pv_r if outer else matched
+            at = brow.clamp(min=0)
+            gathered = [(v[at], m[at] | ~matched) for v, m in bcols]
+            return self._joined(valid_out, pcols, gathered)
+        return _TView(emit, n * n * capp, self._meta(ptv, btv))
 
     def _prepare_unique(self, pb, btv, ptv) -> Optional[_TView]:
         from ..parallel import dist
@@ -1441,17 +1482,20 @@ class _JoinNode:
         outer = self.tp == "left"
         per_probe = self._per_probe_counts(raw, tbl, lo, hi, ptv, outer,
                                            cspec=cspec)
+        # the mesh mode shards the probe side, each shard expanding its
+        # rows into its own bucket over the broadcast CSR structures; the
+        # per-shard bound needs host probe keys, and a probe skew past it
+        # retries unsharded (counted)
         from ..parallel import dist
-        if per_probe is not None and dist.shardable(ptv.nb, self.mesh):
-            # the reference shards the probe side here, with per-shard
-            # expansion buckets; a probe skew past them retries unsharded
+        n_mesh = self.n_mesh if per_probe is not None \
+            and dist.shardable(ptv.nb, self.mesh) else 0
+        ob = self._expand_bucket(raw, ptv, outer, per_probe,
+                                 shards=max(n_mesh, 1))
+        if ob is None and n_mesh:
             from ..ops import shardops
-            if self._expand_bucket(raw, ptv, outer, per_probe,
-                                   shards=self.n_mesh) is not None:
-                raise NotImplementedError(shardops.MESH_TODO.format(
-                    "pipeline CSR join's mesh mode (K18 mult)"))
             shardops.record_skew_retry()
-        ob = self._expand_bucket(raw, ptv, outer, per_probe)
+            n_mesh = 0
+            ob = self._expand_bucket(raw, ptv, outer, per_probe)
         if ob is None:
             return None
         nbb = btv.nb          # build bucket == leaf bucket (sel keeps nb)
@@ -1474,7 +1518,8 @@ class _JoinNode:
                        else tuple(zip(cspec[0], cspec[1], cspec[2])))
         nb = ptv.nb
         pb.key(("joinm", nb, nbb, ngb, ob, tbl_len, pk_slots, outer,
-                self.probe_is_left, len(btv.meta), len(ptv.meta)))
+                self.probe_is_left, len(btv.meta), len(ptv.meta), n_mesh))
+        shards = max(n_mesh, 1)
 
         def emit(args):
             bvalid, bpairs = btv.emit(args)
@@ -1483,9 +1528,9 @@ class _JoinNode:
             valid_out, pcols, bcols = kernels.csr_expand(
                 args[io], args[ie], ng_, n_rows, bvalid, args[it], lo_, hi_,
                 [ppairs[i] for i in pk_slots], args[ispec], pvalid, outer,
-                ob, ppairs, bpairs)
+                ob, ppairs, bpairs, shards=shards)
             return self._joined(valid_out, pcols, bcols)
-        return _TView(emit, ob, self._meta(ptv, btv))
+        return _TView(emit, ob * shards, self._meta(ptv, btv))
 
     def _per_probe_counts(self, raw, tbl, lo, hi, ptv, outer, cspec=None):
         """Host per-probe-row match-count UPPER bounds (pre-filter group

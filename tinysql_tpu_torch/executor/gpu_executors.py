@@ -25,11 +25,10 @@ candidates across blocks, and a full Sort orders on the host (the
 reference's route for it).  Staging runs on devpipe.BlockPipeline.
 
 Under ``tidb_mesh_parallel`` (a mesh of N virtual shards on the
-session's device, parallel/dist.py) the fused aggregates and the unique
-joins run sharded (ops/shardops.py, ``kernels.fused_segment_aggregate_
-sharded``), as the reference's do; the sharded semi join, ORDER BY and
-top-k keep the reference's single-device gates and raise past them
-(ROADMAP queue 1, item 10).
+session's device, parallel/dist.py) the fused aggregates, the unique and
+semi / anti joins, and single-key ORDER BY and top-k run sharded
+(ops/shardops.py, ``kernels.fused_segment_aggregate_sharded``), as the
+reference's do, behind the reference's own single-device gates.
 
 Not ported yet, and failing loudly instead of falling back: the
 memory-adaptive spill route (item 6).

@@ -22,7 +22,8 @@ from typing import Dict, Optional
 
 SOURCES = ("masked_reduce", "segment_reduce", "equi_join", "lex_order",
            "csr_reduce", "dense_probe", "expr_eval", "csr_expand",
-           "run_bounds", "semi_pick", "shard_merge", "shard_join")
+           "run_bounds", "semi_pick", "shard_merge", "shard_join",
+           "shard_exchange", "shard_rank")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -97,7 +98,7 @@ _SIGNATURES = {
         "hk8_scratch_words": (_i64, [_i64, _i64]),
         "hk8_csr_expand": (_int, [_vp, _i64, _i64, _vp, _i64, _vp, _vp, _i64,
                                   _i64, _i64, _vp, _vp, _i64, _int, _i64,
-                                  _vp, _vp, _vp, _vp, _vp, _vp]),
+                                  _int, _vp, _vp, _vp, _vp, _vp, _vp]),
         "hk8_gather": (_int, [_vp, _vp, _vp, _i64, _vp, _vp]),
     },
     "run_bounds": {
@@ -115,6 +116,18 @@ _SIGNATURES = {
     "shard_join": {
         "hk12_shard_probe": (_int, [_vp, _vp, _i64, _vp, _vp, _vp, _i64,
                                     _int, _int, _vp, _vp, _vp]),
+        "hk12_shard_count": (_int, [_vp, _vp, _i64, _int, _vp, _i64, _vp,
+                                    _vp, _vp]),
+    },
+    "shard_exchange": {
+        "hk13_scratch_words": (_i64, [_i64, _int]),
+        "hk13_exchange_plan": (_int, [_vp, _i64, _i64, _int, _i64, _vp,
+                                      _vp]),
+        "hk13_exchange_lanes": (_int, [_vp, _i64, _int, _i64, _vp, _vp]),
+    },
+    "shard_rank": {
+        "hk14_shard_rank": (_int, [_vp, _vp, _i64, _i64, _int, _i64, _vp,
+                                   _vp, _vp]),
     },
 }
 

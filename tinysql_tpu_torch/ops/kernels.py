@@ -2,7 +2,7 @@
 
 The port of tinysql_tpu/ops/kernels.py.  The JAX package compiled every
 operator family into XLA programs; here each family's core is one of
-twelve kernels written by hand for Hopper (csrc/*.cu, built by
+fourteen kernels written by hand for Hopper (csrc/*.cu, built by
 ops/_ext.py), and the glue around them (key normalisation, packing,
 present-row extraction) runs as plain torch tensor operations:
 
@@ -29,7 +29,8 @@ present-row extraction) runs as plain torch tensor operations:
   ops/exprjit.compile_program;
 - HK8 :func:`csr_expand` (csrc/csr_expand.cu) — the pipeline tier's join
   with a non-unique build side, expanded over the build's group index
-  (K18's multiplicity mode, one key or the composite lane);
+  (K18's multiplicity mode, one key or the composite lane; its shard
+  mode expands each mesh shard's probe rows into its own bucket);
 - HK9 :func:`run_bounds` (csrc/run_bounds.cu) — the runs of equal keys
   after an HK4 sort (K19's GROUP BY above a join, K4's boundary scan);
 - HK10 :func:`semi_pick` (csrc/semi_pick.cu) — K8's semi / anti / NOT IN
@@ -40,7 +41,12 @@ present-row extraction) runs as plain torch tensor operations:
   aggregate over HK1);
 - HK12 :func:`shard_probe` (csrc/shard_join.cu) — the per-partition probe
   of the mesh tier's unique join (K25), over an HK4 sort of the build
-  blocks.
+  blocks; its member mode is K25's partitioned semi / anti join, its
+  count mode (:func:`shard_count`) K26's broadcast join counts;
+- HK13 :func:`shard_exchange` (csrc/shard_exchange.cu) — the mesh tier's
+  all-to-all of rows by key hash (K18 shuffle, K26);
+- HK14 :func:`shard_rank` (csrc/shard_rank.cu) — the exact merge of
+  per-shard sorted runs (K25 sort and top-k).
 
 Every kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain torch version (same contract: inputs, outputs, NULL, sentinel and
@@ -166,7 +172,12 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "segment_reduce": 0,
                             "masked_reduce_batched": 0,
                             "segment_reduce_batched": 0,
                             "semi_pick": 0, "shard_merge": 0,
-                            "shard_probe": 0}
+                            "shard_probe": 0, "shard_member": 0,
+                            "shard_count": 0, "csr_expand_shard": 0,
+                            "shard_exchange": 0, "shard_rank": 0}
+#: the entry points only the mesh tier (tidb_mesh_parallel) launches
+MESH_LAUNCHES = ("shard_merge", "shard_probe", "shard_member", "shard_count",
+                 "csr_expand_shard", "shard_exchange", "shard_rank")
 #: plain-version calls per wrapper (CPU tensors)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
@@ -1609,7 +1620,7 @@ def _dense_probe_plain(keys, spec, pvalid, lo, hi, tbl, bvalid, blanes,
 
 def csr_expand(order, ends, ng: int, n_rows: int, bvalid, tbl, lo: int,
                hi: int, keys, spec, pvalid, outer: bool, ob: int, probe_lanes,
-               build_lanes):
+               build_lanes, shards: int = 1):
     """K18's multiplicity join over the build's group index (HK8).
 
     ``order`` int64[nbb] / ``ends`` int64[ngb]: the group index of the
@@ -1624,7 +1635,13 @@ def csr_expand(order, ends, ng: int, n_rows: int, bvalid, tbl, lo: int,
     gathered, build lanes gathered with their NULL flag or-ed with
     "unmatched").  Slots past the total are invalid and name probe row 0
     and build row 0; ``ob`` must bound the total (the caller bounds it
-    from the pre-filter group sizes)."""
+    from the pre-filter group sizes).
+
+    Shard mode (``shards`` > 1, K18 mult on the mesh, counted as
+    ``csr_expand_shard``): shard s expands its own probe rows
+    [s * nb / shards, (s + 1) * nb / shards) into its own bucket
+    [s * ob, (s + 1) * ob) (``ob`` per shard), over the same build
+    structures; its invalid slots name its first probe row."""
     order, ends = order.contiguous(), ends.contiguous()
     nbb, ngb = int(order.shape[0]), int(ends.shape[0])
     dev = order.device
@@ -1647,49 +1664,81 @@ def csr_expand(order, ends, ng: int, n_rows: int, bvalid, tbl, lo: int,
                 m = m.contiguous()
                 _need(m, torch.bool, n, dev, "csr_expand lane null")
             lanes.append((side, v, m))
-    if not (0 <= ng <= ngb and 0 <= n_rows <= nbb and ob >= 1):
+    shards = int(shards)
+    if not (0 <= ng <= ngb and 0 <= n_rows <= nbb and ob >= 1
+            and shards >= 1 and nb % shards == 0):
         raise ValueError(f"csr_expand: ng={ng} ngb={ngb} n_rows={n_rows} "
-                         f"nbb={nbb} ob={ob}")
+                         f"nbb={nbb} ob={ob} shards={shards} nb={nb}")
     if not _on_card(pvalid, "csr_expand"):
         return csr_expand_plain(order, ends, ng, n_rows, bvalid, tbl, lo, hi,
                                 keys, spec, pvalid, outer, ob,
                                 [(v, m) for s_, v, m in lanes if s_ == 0],
-                                [(v, m) for s_, v, m in lanes if s_ == 1])
+                                [(v, m) for s_, v, m in lanes if s_ == 1],
+                                shards=shards)
     from . import _ext
     lib = _ext.lib("csr_expand")
     scratch = torch.empty(lib.hk8_scratch_words(nbb, nb), dtype=I64,
                           device=dev)
-    prow = torch.empty(ob, dtype=I64, device=dev)
-    brow = torch.empty(ob, dtype=I64, device=dev)
-    matched = torch.empty(ob, dtype=torch.bool, device=dev)
-    valid_out = torch.empty(ob, dtype=torch.bool, device=dev)
+    n_out = ob * shards
+    prow = torch.empty(n_out, dtype=I64, device=dev)
+    brow = torch.empty(n_out, dtype=I64, device=dev)
+    matched = torch.empty(n_out, dtype=torch.bool, device=dev)
+    valid_out = torch.empty(n_out, dtype=torch.bool, device=dev)
     ks = _key_set(keys, spec)
     _ext.check(lib.hk8_csr_expand(
         order.data_ptr(), nbb, n_rows, ends.data_ptr(), ng,
         bvalid.data_ptr(), tbl.data_ptr(), int(tbl.shape[0]), int(lo),
         int(hi), ctypes.byref(ks), pvalid.data_ptr(), nb, int(outer), ob,
-        scratch.data_ptr(), prow.data_ptr(), brow.data_ptr(),
+        shards, scratch.data_ptr(), prow.data_ptr(), brow.data_ptr(),
         matched.data_ptr(), valid_out.data_ptr(), _stream()), "csr_expand")
     outs = []
-    for cg, got in _gathers(lanes, ob, dev):
+    for cg, got in _gathers(lanes, n_out, dev):
         _ext.check(lib.hk8_gather(prow.data_ptr(), brow.data_ptr(),
-                                  matched.data_ptr(), ob, ctypes.byref(cg),
-                                  _stream()), "csr_expand gather")
+                                  matched.data_ptr(), n_out,
+                                  ctypes.byref(cg), _stream()),
+                   "csr_expand gather")
         outs += got
-    _count(LAUNCHES, "csr_expand")
+    _count(LAUNCHES, "csr_expand" if shards == 1 else "csr_expand_shard")
     return (valid_out, [(v, m) for s_, v, m in outs if s_ == 0],
             [(v, m) for s_, v, m in outs if s_ == 1])
 
 
 def csr_expand_plain(order, ends, ng: int, n_rows: int, bvalid, tbl,
                      lo: int, hi: int, keys, spec, pvalid, outer: bool,
-                     ob: int, probe_lanes, build_lanes):
+                     ob: int, probe_lanes, build_lanes, shards: int = 1):
     """Plain torch version of HK8 (same contract, any device): the
     reference's kernel (valid counts from a cumsum over the sorted
     validity, the compacted order, probe -> group -> multiplicity, an
     exclusive scan), with each output slot's probe row found by a
-    search over the inclusive ends instead of a running max."""
-    _count(PLAIN_CALLS, "csr_expand")
+    search over the inclusive ends instead of a running max.  Shard
+    mode: the same over each shard's slice of the probe, concatenated."""
+    _count(PLAIN_CALLS, "csr_expand" if shards == 1 else "csr_expand_shard")
+    if shards > 1:
+        nbl = int(pvalid.shape[0]) // shards
+        parts = []
+        for s in range(shards):
+            sl = slice(s * nbl, (s + 1) * nbl)
+            parts.append(_csr_expand_rows(
+                order, ends, ng, n_rows, bvalid, tbl, lo, hi,
+                [(v[sl], None if m is None else m[sl]) for v, m in keys],
+                spec, pvalid[sl], outer, ob,
+                [(v[sl], m if m is None else m[sl]) for v, m in probe_lanes],
+                build_lanes))
+        return (torch.cat([p[0] for p in parts]),
+                [(torch.cat([p[1][j][0] for p in parts]),
+                  torch.cat([p[1][j][1] for p in parts]))
+                 for j in range(len(probe_lanes))],
+                [(torch.cat([p[2][j][0] for p in parts]),
+                  torch.cat([p[2][j][1] for p in parts]))
+                 for j in range(len(build_lanes))])
+    return _csr_expand_rows(order, ends, ng, n_rows, bvalid, tbl, lo, hi,
+                            keys, spec, pvalid, outer, ob, probe_lanes,
+                            build_lanes)
+
+
+def _csr_expand_rows(order, ends, ng: int, n_rows: int, bvalid, tbl,
+                     lo: int, hi: int, keys, spec, pvalid, outer: bool,
+                     ob: int, probe_lanes, build_lanes):
     dev = order.device
     nbb, ngb = int(order.shape[0]), int(ends.shape[0])
     pos = torch.arange(nbb, dtype=I64, device=dev)
@@ -2961,7 +3010,8 @@ def _probe_order(pk: torch.Tensor) -> torch.Tensor:
 
 
 def shard_probe(pk: torch.Tensor, pid: torch.Tensor, bord: torch.Tensor,
-                bid: torch.Tensor, perm: torch.Tensor, n_shards: int):
+                bid: torch.Tensor, perm: torch.Tensor, n_shards: int,
+                member: bool = False):
     """HK12: per probe slot of shard s (slot i, s = i // cap_p), the
     binary search of its key in shard s's sorted build run.  ``pk``,
     ``pid``: int64 or float64 keys and int64 global ids (-1 = padding) of
@@ -2969,7 +3019,8 @@ def shard_probe(pk: torch.Tensor, pid: torch.Tensor, bord: torch.Tensor,
     order keys (dead slots at the sentinel), ``bid`` their ids, ``perm``
     HK4's order of (shard, bord, dead) over [n * cap_b].  Returns (hit
     bool, brow int64) per probe slot: the live build slot with an equal
-    key, and its id (-1 without one)."""
+    key, and its id (-1 without one).  Member mode (``member``, K25's
+    semi / anti join, counted as ``shard_member``): ``hit`` alone."""
     n = int(n_shards)
     npb, nbb = int(pk.shape[0]), int(bord.shape[0])
     if n < 1 or npb % n or nbb % n or npb == 0 or nbb == 0:
@@ -2984,22 +3035,23 @@ def shard_probe(pk: torch.Tensor, pid: torch.Tensor, bord: torch.Tensor,
                      (bid, nbb, "bid"), (perm, nbb, "perm")):
         _need(t, I64, ln, dev, f"shard_probe {w}")
     if not _on_card(pk, "shard_probe"):
-        return shard_probe_plain(pk, pid, bord, bid, perm, n)
+        return shard_probe_plain(pk, pid, bord, bid, perm, n, member)
     from . import _ext
     hit = torch.empty(npb, dtype=torch.bool, device=dev)
-    brow = torch.empty(npb, dtype=I64, device=dev)
+    brow = None if member else torch.empty(npb, dtype=I64, device=dev)
     _ext.check(_ext.lib("shard_join").hk12_shard_probe(
         pk.data_ptr(), pid.data_ptr(), npb // n, bord.data_ptr(),
         bid.data_ptr(), perm.data_ptr(), nbb // n, n, int(pk.dtype == F64),
-        hit.data_ptr(), brow.data_ptr(), _stream()), "shard_probe")
-    _count(LAUNCHES, "shard_probe")
-    return hit, brow
+        hit.data_ptr(), _ptr(brow), _stream()), "shard_probe")
+    _count(LAUNCHES, "shard_member" if member else "shard_probe")
+    return hit if member else (hit, brow)
 
 
-def shard_probe_plain(pk, pid, bord, bid, perm, n_shards: int):
+def shard_probe_plain(pk, pid, bord, bid, perm, n_shards: int,
+                      member: bool = False):
     """Plain torch version of HK12: ``torch.searchsorted`` per shard (one
     batched call over the [n, cap_b] sorted runs)."""
-    _count(PLAIN_CALLS, "shard_probe")
+    _count(PLAIN_CALLS, "shard_member" if member else "shard_probe")
     n = int(n_shards)
     cap_p, cap_b = int(pk.shape[0]) // n, int(bord.shape[0]) // n
     run = perm.reshape(n, cap_b)
@@ -3012,8 +3064,50 @@ def shard_probe_plain(pk, pid, bord, bid, perm, n_shards: int):
         & (sk.gather(1, loc) == pv) & (bid[j] >= 0)
     if pk.dtype == F64:
         ok &= ~torch.isnan(pk).reshape(n, cap_p)
+    if member:
+        return ok.reshape(-1)
     brow = torch.where(ok, bid[j], torch.full_like(j, -1))
     return ok.reshape(-1), brow.reshape(-1)
+
+
+def shard_count(lk: torch.Tensor, lvalid: torch.Tensor, rsorted: torch.Tensor,
+                n_shards: int):
+    """HK12's count mode (K26's broadcast join counts): per probe row of
+    ``lk`` / ``lvalid`` (int64 / bool [n * rows], shard s owns rows
+    [s * rows, (s + 1) * rows)) the number of build keys equal to its key
+    in the replicated run ``rsorted`` (int64, ascending), 0 for an invalid
+    row; and each shard's sum of them as the int64 partial table [n, 1, 1]
+    HK11 merges."""
+    n = int(n_shards)
+    nl = int(lk.shape[0])
+    dev = lk.device
+    if n < 1 or nl == 0 or nl % n:
+        raise ValueError(f"shard_count: {nl} probe rows over {n} shards")
+    lk, lvalid, rsorted = (t.contiguous() for t in (lk, lvalid, rsorted))
+    _need(lk, I64, nl, dev, "shard_count keys")
+    _need(lvalid, torch.bool, nl, dev, "shard_count valid")
+    _need(rsorted, I64, int(rsorted.shape[0]), dev, "shard_count build")
+    if not _on_card(lk, "shard_count"):
+        return shard_count_plain(lk, lvalid, rsorted, n)
+    from . import _ext
+    counts = torch.empty(nl, dtype=I64, device=dev)
+    partial = torch.empty((n, 1, 1), dtype=I64, device=dev)
+    _ext.check(_ext.lib("shard_join").hk12_shard_count(
+        lk.data_ptr(), lvalid.data_ptr(), nl // n, n, rsorted.data_ptr(),
+        int(rsorted.shape[0]), counts.data_ptr(), partial.data_ptr(),
+        _stream()), "shard_count")
+    _count(LAUNCHES, "shard_count")
+    return counts, partial
+
+
+def shard_count_plain(lk, lvalid, rsorted, n_shards: int):
+    """Plain torch version of HK12's count mode: two searchsorted bounds."""
+    _count(PLAIN_CALLS, "shard_count")
+    lo = torch.searchsorted(rsorted, lk)
+    hi = torch.searchsorted(rsorted, lk, right=True)
+    counts = torch.where(lvalid, hi - lo, torch.zeros_like(lo))
+    return counts, counts.reshape(int(n_shards), 1, -1).sum(
+        dim=2, keepdim=True)
 
 
 def shard_lane(n_shards: int, cap: int) -> torch.Tensor:
@@ -3027,6 +3121,192 @@ def shard_lane(n_shards: int, cap: int) -> torch.Tensor:
             t = _ARANGE[key] = torch.arange(
                 n_shards, dtype=I64, device=dev).repeat_interleave(cap)
     return t
+
+
+# =========================================================================
+# HK13 shard_exchange, HK14 shard_rank (the mesh tier, K18 shuffle, K25
+# sort / top-k, K26)
+# =========================================================================
+
+#: golden-ratio multiplier of the shuffle's destination hash
+#: (two's-complement int64 of 0x9E3779B97F4A7C15)
+HASH_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+#: the most shards one exchange takes (csrc/shard_exchange.cu kMaxShards)
+MAX_EXCHANGE_SHARDS = 1024
+
+
+def hash_dest(keys: torch.Tensor, n_shards: int, n_rows: int) -> torch.Tensor:
+    """Destination shard of every padded row (HK13's, as torch ops):
+    ``((key * HASH_GOLDEN) >> 33) & (n - 1)`` with int64 wrap-around for
+    rows below ``n_rows``, ``row % n`` for a padding row."""
+    h = keys * HASH_GOLDEN
+    d = (h >> 33) & (n_shards - 1)
+    g = torch.arange(int(keys.shape[0]), dtype=I64, device=keys.device)
+    return torch.where(g < n_rows, d, g & (n_shards - 1))
+
+
+class _CExchange(ctypes.Structure):
+    _fields_ = [("vals", ctypes.c_void_p * _MAX_LANES),
+                ("outs", ctypes.c_void_p * _MAX_LANES),
+                ("fill", ctypes.c_int64 * _MAX_LANES),
+                ("width", ctypes.c_int * _MAX_LANES),
+                ("n", ctypes.c_int)]
+
+
+def _le_int(one: torch.Tensor) -> int:
+    """One element's bytes as a little-endian int64 (a lane's fill)."""
+    b = bytes(one.view(torch.uint8).tolist())
+    return int.from_bytes(b, "little", signed=True)
+
+
+def _exchange_checks(keys, n_rows: int, lanes, cap: int, n: int):
+    nb = int(keys.shape[0])
+    if n < 2 or n > MAX_EXCHANGE_SHARDS or n & (n - 1) or nb % n \
+            or nb == 0 or cap < 1 or not lanes:
+        raise ValueError(f"shard_exchange: {nb} rows, {n} shards, cap {cap},"
+                         f" {len(lanes)} lanes")
+    dev = keys.device
+    keys = keys.contiguous()
+    _need(keys, I64, nb, dev, "shard_exchange keys")
+    out = []
+    for v, fill in lanes:
+        v = v.contiguous()
+        _need(v, v.dtype, nb, dev, "shard_exchange lane")
+        if v.element_size() not in (1, 2, 4, 8):
+            raise ValueError(f"shard_exchange: lane dtype {v.dtype}")
+        out.append((v, fill))
+    return keys, out
+
+
+def _overflow(n: int, cap: int):
+    return RuntimeError(f"shard_exchange: a (source, destination) pair of "
+                        f"{n} shards holds more rows than its capacity "
+                        f"{cap}")
+
+
+def shard_exchange(keys: torch.Tensor, n_rows: int, lanes, cap: int,
+                   n_shards: int) -> List[torch.Tensor]:
+    """HK13: the all-to-all of ``lanes`` ([(tensor [nb], fill)]) over
+    ``n_shards`` virtual shards by the hash of ``keys`` (int64 [nb]):
+    source shard s owns rows [s * nb / n, (s + 1) * nb / n), row g goes to
+    shard :func:`hash_dest` at its stable rank among the rows of s with
+    that destination.  Returns per lane the received [n * n * cap] lane,
+    flat [destination][source][cap], every unreached slot at the fill.
+    Raises when a (source, destination) pair holds more than ``cap``
+    rows (the host bounds ``cap`` exactly: no row is dropped)."""
+    n, cap = int(n_shards), int(cap)
+    keys, lanes = _exchange_checks(keys, n_rows, lanes, cap, n)
+    if not _on_card(keys, "shard_exchange"):
+        return shard_exchange_plain(keys, n_rows, lanes, cap, n)
+    from . import _ext
+    lib = _ext.lib("shard_exchange")
+    dev = keys.device
+    nb = int(keys.shape[0])
+    scratch = torch.empty(lib.hk13_scratch_words(nb, n), dtype=I64,
+                          device=dev)
+    _ext.check(lib.hk13_exchange_plan(keys.data_ptr(), nb, int(n_rows), n,
+                                      cap, scratch.data_ptr(), _stream()),
+               "shard_exchange")
+    outs = []
+    for c0 in range(0, len(lanes), _MAX_LANES):
+        cl = _CExchange()
+        chunk = lanes[c0:c0 + _MAX_LANES]
+        cl.n = len(chunk)
+        for j, (v, fill) in enumerate(chunk):
+            o = torch.empty(n * n * cap, dtype=v.dtype, device=dev)
+            cl.vals[j] = v.data_ptr()
+            cl.outs[j] = o.data_ptr()
+            cl.fill[j] = _le_int(torch.full((1,), fill, dtype=v.dtype))
+            cl.width[j] = v.element_size()
+            outs.append(o)
+        _ext.check(lib.hk13_exchange_lanes(scratch.data_ptr(), nb, n, cap,
+                                           ctypes.byref(cl), _stream()),
+                   "shard_exchange lanes")
+    _count(LAUNCHES, "shard_exchange")
+    if int(scratch[-1]):  # the plan's error word (a status read)
+        raise _overflow(n, cap)
+    return outs
+
+
+def shard_exchange_plain(keys, n_rows: int, lanes, cap: int,
+                         n_shards: int) -> List[torch.Tensor]:
+    """Plain torch version of HK13: per source shard a stable argsort of
+    the destinations, each row's rank by a searchsorted, and an index_put
+    into [n, n, cap]."""
+    _count(PLAIN_CALLS, "shard_exchange")
+    n, nb = int(n_shards), int(keys.shape[0])
+    m = nb // n
+    dev = keys.device
+    dest = hash_dest(keys, n, n_rows).reshape(n, m)
+    src, slot = [], []
+    for s in range(n):
+        order = torch.argsort(dest[s], stable=True)
+        ds = dest[s][order]
+        rank = torch.arange(m, dtype=I64, device=dev) \
+            - torch.searchsorted(ds, ds)
+        if m and int(rank.max()) >= cap:
+            raise _overflow(n, cap)
+        src.append(order + s * m)
+        slot.append((ds * n + s) * cap + rank)
+    src, slot = torch.cat(src), torch.cat(slot)
+    outs = []
+    for v, fill in lanes:
+        o = torch.full((n * n * cap,), fill, dtype=v.dtype, device=dev)
+        o[slot] = v[src]
+        outs.append(o)
+    return outs
+
+
+def shard_rank(ord_lane: torch.Tensor, ids: torch.Tensor, stride: int,
+               run: int, n_shards: int, k_out: int) -> torch.Tensor:
+    """HK14: the merged order of ``n_shards`` sorted runs.  Element (s, r)
+    of run s (r < ``run``) is row ``ids[s * stride + r]``, its key
+    ``ord_lane[row]`` (HK4's uint64 order lane, ascending; a run's equal
+    keys in row order); its global rank is r plus, over the other runs,
+    the count of keys <= its own in a lower run and < its own in a higher
+    one.  Returns int64 [k_out]: the row ids of ranks 0 .. k_out - 1."""
+    n, stride, run, k_out = int(n_shards), int(stride), int(run), int(k_out)
+    dev = ids.device
+    if n < 1 or run < 1 or stride < run or not 1 <= k_out <= n * run \
+            or int(ids.shape[0]) < (n - 1) * stride + run:
+        raise ValueError(f"shard_rank: {n} runs of {run} (stride {stride}),"
+                         f" k_out {k_out}, {int(ids.shape[0])} ids")
+    ord_lane, ids = ord_lane.contiguous(), ids.contiguous()
+    _need(ord_lane, I64, int(ord_lane.shape[0]), dev, "shard_rank keys")
+    _need(ids, I64, int(ids.shape[0]), dev, "shard_rank ids")
+    if not _on_card(ids, "shard_rank"):
+        return shard_rank_plain(ord_lane, ids, stride, run, n, k_out)
+    from . import _ext
+    sk = torch.empty(n * run, dtype=I64, device=dev)
+    out = torch.empty(k_out, dtype=I64, device=dev)
+    _ext.check(_ext.lib("shard_rank").hk14_shard_rank(
+        ord_lane.data_ptr(), ids.data_ptr(), stride, run, n, k_out,
+        sk.data_ptr(), out.data_ptr(), _stream()), "shard_rank")
+    _count(LAUNCHES, "shard_rank")
+    return out
+
+
+def shard_rank_plain(ord_lane, ids, stride: int, run: int, n_shards: int,
+                     k_out: int) -> torch.Tensor:
+    """Plain torch version of HK14: the reference's searchsorted counts
+    (side right for the lower runs, left for the higher), then
+    out[rank] = row."""
+    _count(PLAIN_CALLS, "shard_rank")
+    n = int(n_shards)
+    rows = torch.stack([ids[s * stride:s * stride + run] for s in range(n)])
+    sk = ord_lane[rows] ^ I64_MIN  # uint64 order as signed
+    rank = torch.arange(run, dtype=I64, device=ids.device).repeat(n, 1)
+    sidx = torch.arange(n, device=ids.device)[:, None]
+    for t in range(n):
+        right = torch.searchsorted(sk[t].contiguous(), sk, right=True)
+        left = torch.searchsorted(sk[t].contiguous(), sk)
+        rank += torch.where(sidx > t, right,
+                            torch.where(sidx < t, left,
+                                        torch.zeros_like(left)))
+    out = torch.empty(k_out, dtype=I64, device=ids.device)
+    keep = rank < k_out
+    out[rank[keep]] = rows[keep]
+    return out
 
 
 def sort_permutation(key_cols: List[Tuple[np.ndarray, np.ndarray]],

@@ -19,11 +19,17 @@ states is HK11 (:func:`kernels.shard_merge`).
   (:func:`kernels.shard_probe`) probes each shard's block, and the host
   re-assembles the results in probe order — byte-identical to the
   unsharded join.
-- ``semi_join_match_sharded``, ``sort_permutation_sharded``,
-  ``top_k_sharded`` keep the reference's gates, which return None (run
-  the single-device kernel) for the calls the reference runs
-  single-device.  Past them they raise NotImplementedError: ROADMAP
-  queue 1, item 10.
+- ``semi_join_match_sharded`` (K25 member) — the same partition blocks
+  and build sort, HK12's member mode probes them, and the host applies
+  the semi / anti / NOT IN ladder over the re-assembled bits.
+- ``sort_permutation_sharded`` / ``top_k_sharded`` (K25 sort, top-k) —
+  single-key orders over the total-order score: HK4 sorts each shard's
+  rows (the shard id as the leading lane; per shard only its top kb for
+  a top-k), HK14 (:func:`kernels.shard_rank`) merges the runs into the
+  exact global order, ties to the lower row index.
+
+Each keeps the reference's gates, which return None (run the
+single-device kernel) for the calls the reference runs single-device.
 
 ``STATS`` is written only through this module's locked accessors.
 """
@@ -40,10 +46,6 @@ from ..obs import context as _obs
 from ..parallel import dist
 from . import kernels, progcache
 from .batching import split_exact
-
-#: the refusal of a mesh route still to port (formatted with its name)
-MESH_TODO = ("the {} is not ported to the mesh tier yet: ROADMAP queue 1, "
-             "item 10")
 
 # ---- observable state ------------------------------------------------------
 
@@ -260,6 +262,13 @@ def _local_unique_join(n: int, pk: torch.Tensor, pid: torch.Tensor,
     slots at the sentinel, dead) — stable, so the slot breaks ties as
     the reference's arange third key does — and HK12 probes each shard's
     sorted run.  Returns (hit, brow) per probe slot."""
+    bord, perm = _build_order(n, bk, bid)
+    return kernels.shard_probe(pk, pid, bord, bid, perm, n)
+
+
+def _build_order(n: int, bk: torch.Tensor, bid: torch.Tensor):
+    """The build blocks' uint64 order lane (dead slots at the sentinel)
+    and HK4's order of (shard, key, dead) over them."""
     blive = bid >= 0
     sentinel = float("inf") if bk.dtype == kernels.F64 else kernels.I64_MAX
     bord = kernels._u64_lane(
@@ -267,7 +276,7 @@ def _local_unique_join(n: int, pk: torch.Tensor, pid: torch.Tensor,
     nbb = int(bk.shape[0])
     perm = kernels.lex_order([kernels.shard_lane(n, nbb // n), bord,
                               (~blive).to(kernels.I64)], nbb)
-    return kernels.shard_probe(pk, pid, bord, bid, perm, n)
+    return bord, perm
 
 
 def unique_join_match_sharded(mesh, lkey, n_left: int, rkey, n_right: int,
@@ -322,16 +331,26 @@ def unique_join_match_sharded(mesh, lkey, n_left: int, rkey, n_right: int,
     return li, cand[li]
 
 
-# ---- partitioned semi / anti join (gates only) ----------------------------
+# ---- partitioned semi / anti join ------------------------------------------
+
+def _local_member(n: int, pk: torch.Tensor, pid: torch.Tensor,
+                  bk: torch.Tensor, bid: torch.Tensor) -> torch.Tensor:
+    """Every shard's membership bit over its partition blocks: the build
+    sort of :func:`_local_unique_join` (HK4), then HK12's member mode."""
+    bord, perm = _build_order(n, bk, bid)
+    return kernels.shard_probe(pk, pid, bord, bid, perm, n, member=True)
+
 
 def semi_join_match_sharded(mesh, lkey, n_left: int, rkey, n_right: int,
                             anti: bool = False, null_aware: bool = False,
                             lvalid: np.ndarray = None,
                             rvalid: np.ndarray = None):
-    """The reference's partitioned semi / anti membership.  Its answers
-    without a device round (an empty build side, NOT IN over a NULL build
-    key) and its None gates are kept; the partitioned membership kernel
-    is not ported (raises NotImplementedError, item 10)."""
+    """Partitioned semi / anti membership over the mesh: both sides
+    hash-partition, each shard answers membership for its partition
+    (HK4 build sort + HK12's member mode), and the host applies the exact
+    semi / anti / NOT IN keep ladder over the re-assembled member bits.
+    Returns the surviving probe indices in probe order, or None when
+    sharding does not apply."""
     n = dist.mesh_shards(mesh)
     sides = _join_sides(lkey, n_left, rkey, n_right, lvalid, rvalid) \
         if n >= 2 else None
@@ -343,14 +362,34 @@ def semi_join_match_sharded(mesh, lkey, n_left: int, rkey, n_right: int,
         return np.nonzero(keep)[0].astype(np.int64)
     if anti and null_aware and bool((rv & rn).any()):
         return np.empty(0, dtype=np.int64)
+    fail.inject("shardExchangeStall")
     pp = _Partitioned(lk, lv & ~ln, n)
     pb = _Partitioned(rk, rv & ~rn, n)
     if pp.skewed(kernels.bucket(max(n_left, 1))) \
             or pb.skewed(kernels.bucket(max(n_right, 1))):
         record_skew_retry()
         return None
-    raise NotImplementedError(MESH_TODO.format(
-        "partitioned semi / anti join (K25 member)"))
+    key = ("semi_sharded", _shards_tag(mesh), pp.cap, pb.cap, str(lk.dtype))
+    fn = progcache.get(key, lambda: kernels.counted_launch(
+        lambda *a: _local_member(n, *a)))
+    pk_h, pi_h = pp.scatter(lk, 0), pp.scatter_ids()
+    bk_h, bi_h = pb.scatter(rk, 0), pb.scatter_ids()
+    record_exchange(pp.nbytes + pb.nbytes)
+    note_round(max(pp.cap, pb.cap))
+    pkb, pib = kernels.h2d(pk_h.reshape(-1)), kernels.h2d(pi_h.reshape(-1))
+    bkb, bib = kernels.h2d(bk_h.reshape(-1)), kernels.h2d(bi_h.reshape(-1))
+    mem_flat = kernels.d2h(fn(pkb, pib, bkb, bib))
+    flat_ids = pi_h.reshape(-1)
+    sel = flat_ids >= 0
+    member = np.zeros(n_left, dtype=bool)
+    member[flat_ids[sel]] = mem_flat[sel]
+    if anti:
+        keep = lv & ~member
+        if null_aware:
+            keep &= ~ln
+    else:
+        keep = member
+    return np.nonzero(keep)[0].astype(np.int64)
 
 
 # ---- sharded partial->final scalar aggregation ----------------------------
@@ -383,7 +422,7 @@ def fused_scalar_aggregate_sharded(mesh, dev_cols, agg_specs, prog, lane_of,
     return kernels._scalar_contract(kernels.d2h(out), plan)
 
 
-# ---- sharded sort / top-k (gates only) -------------------------------------
+# ---- sharded sort / top-k --------------------------------------------------
 
 def _primary_score(key, desc: bool, n_rows: int):
     """The reference's kernels._primary_score: one sort key as a
@@ -411,36 +450,88 @@ def _primary_score(key, desc: bool, n_rows: int):
     return None
 
 
+def _score_order(key_cols, descs, n_rows: int, nb: int):
+    """The uint64 order lane (ascending = the ORDER BY's order) of the
+    padded score on the device, or None where the score mapping is
+    unsafe; padding takes the worst sentinel, after every real row."""
+    score = _primary_score(key_cols[0], descs[0], n_rows)
+    if score is None:
+        return None
+    score = np.asarray(score[:n_rows])
+    pad = np.iinfo(np.int64).min if score.dtype == np.int64 else -np.inf
+    sp = kernels.h2d(kernels.pad1(score, nb, pad))
+    # the negated score (~s, -s) as HK4's order lane
+    return kernels._u64_lane(sp, True)
+
+
+def _sorted_runs(n: int, ordl: torch.Tensor) -> torch.Tensor:
+    """HK4's order of every shard's rows by (shard, score order, row)."""
+    nb = int(ordl.shape[0])
+    return kernels.lex_order([kernels.shard_lane(n, nb // n), ordl], nb)
+
+
+def _sort_merge(n: int, ordl: torch.Tensor) -> torch.Tensor:
+    """K25 sort on the card: the per-shard sorted runs (HK4), merged by
+    their exact global ranks (HK14) into the permutation."""
+    nb = int(ordl.shape[0])
+    m = nb // n
+    return kernels.shard_rank(ordl, _sorted_runs(n, ordl), m, m, n, nb)
+
+
+def _topk_merge(n: int, kb: int, ordl: torch.Tensor) -> torch.Tensor:
+    """K25 top-k on the card: each shard's top kb (HK4's top-k mode over
+    its row range; lowest row among ties), then HK14 over the n * kb
+    shard-major candidates: the first kb rows of the merged order."""
+    m = int(ordl.shape[0]) // n
+    ids = torch.cat([kernels.lex_order([ordl[s * m:(s + 1) * m]], m, kb)
+                     + s * m for s in range(n)])
+    return kernels.shard_rank(ordl, ids, kb, kb, n, kb)
+
+
 def sort_permutation_sharded(mesh, key_cols, descs, n_rows: int):
-    """The reference's sharded ORDER BY permutation (single-key orders).
-    Returns None where the reference does (no mesh, several keys, a row
-    bucket that does not shard, an unsafe score); past those gates the
-    per-shard sort and rank merge are not ported (item 10)."""
+    """Sharded ORDER BY permutation (single-key orders): per-shard sort
+    and an exact rank merge on the device.  Returns None where the
+    reference does (no mesh, several keys, a row bucket that does not
+    shard, an unsafe score): the caller runs the single-device kernel."""
     n = dist.mesh_shards(mesh)
     if n < 2 or len(key_cols) != 1:
         return None
     nb = kernels.bucket(max(n_rows, 1))
     if not dist.shardable(nb, mesh):
         return None
-    if _primary_score(key_cols[0], descs[0], n_rows) is None:
+    ordl = _score_order(key_cols, descs, n_rows, nb)
+    if ordl is None:
         return None
-    raise NotImplementedError(MESH_TODO.format(
-        "sharded ORDER BY (K25 sort)"))
+    key = ("sort_sharded", nb, _shards_tag(mesh),
+           str(key_cols[0][0].dtype))
+    fn = progcache.get(key, lambda: kernels.counted_launch(
+        lambda o: _sort_merge(n, o)))
+    note_round(nb // n)
+    return kernels.d2h(fn(ordl))[:n_rows]
 
 
 def top_k_sharded(mesh, key_cols, descs, n_rows: int, k: int):
-    """The reference's sharded top-k (single key).  Returns None where the
-    reference does (no mesh, several keys, k <= 0 or above a shard's rows,
-    a row bucket that does not shard, an unsafe score); past those gates
-    the per-shard top-k and its merge are not ported (item 10)."""
+    """Sharded top-k row selection (single key, score-mapped): the k row
+    indices in the requested order, or None where the reference returns
+    None (no mesh, several keys, k <= 0 or above a shard's rows, a row
+    bucket that does not shard, an unsafe score)."""
     n = dist.mesh_shards(mesh)
     if n < 2 or len(key_cols) != 1 or k <= 0:
         return None
     nb = kernels.bucket(max(n_rows, 1))
     if not dist.shardable(nb, mesh):
         return None
-    if k > nb // n:
+    m = nb // n
+    if k > m:
+        return None  # a shard cannot bound the candidate set
+    ordl = _score_order(key_cols, descs, n_rows, nb)
+    if ordl is None:
         return None
-    if _primary_score(key_cols[0], descs[0], n_rows) is None:
-        return None
-    raise NotImplementedError(MESH_TODO.format("sharded top-k (K25 top-k)"))
+    kb = min(kernels.bucket(max(k, 1)), m)
+    key = ("topk_sharded", nb, kb, _shards_tag(mesh),
+           str(key_cols[0][0].dtype))
+    fn = progcache.get(key, lambda: kernels.counted_launch(
+        lambda o: _topk_merge(n, kb, o)))
+    note_round(m)
+    ids = kernels.d2h(fn(ordl))[:k]
+    return ids[ids < n_rows]

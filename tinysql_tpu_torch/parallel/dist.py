@@ -22,14 +22,22 @@ power of two raises ``ValueError``.
 The policy functions keep the reference's semantics: ``session_mesh`` /
 ``sized_mesh`` gate on ``tidb_mesh_parallel`` and cache ``Mesh``
 objects, ``shard_bucket`` is the planner's estRows -> shard-count
-launder, ``shardable`` the per-dispatch row-bucket gate.  The host
-shuffle helpers (``hash_dest_np``, ``shuffle_cap``) are copied for the
-shuffle join that is still to port (ROADMAP item 10).
+launder, ``shardable`` the per-dispatch row-bucket gate.
+
+The exchange and collective primitives (the reference's K26) run over
+the hand kernels: ``hash_dest`` / ``exchange_lanes`` are HK13's
+all-to-all (``kernels.shard_exchange``), ``local_unique_join`` every
+shard's sort and probe of its received partition (HK4 + HK12, as K25's
+unique join), ``sharded_group_sum`` HK2 per shard and HK11's psum,
+``broadcast_join_counts`` HK12's count mode and HK11's psum, and
+``distributed_query_step`` both as one step.  ``hash_dest_np`` and
+``shuffle_cap`` are the host twins the shuffle join bounds its send
+buckets with.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -153,10 +161,10 @@ def shardable(nb: int, mesh) -> bool:
     return nb % n == 0 and nb >= 16 * n
 
 
-# ---- hash-partitioned (shuffle) join: host helpers --------------------------
+# ---- hash-partitioned (shuffle) join ---------------------------------------
 
 # golden-ratio multiplier (two's-complement int64 of 0x9E3779B97F4A7C15)
-HASH_GOLDEN = np.int64(0x9E3779B97F4A7C15 - (1 << 64))
+HASH_GOLDEN = np.int64(kernels.HASH_GOLDEN)
 
 
 def hash_dest_np(keys: np.ndarray, n_shards: int,
@@ -182,6 +190,89 @@ def shuffle_cap(keys_padded: np.ndarray, n_shards: int, n_rows: int) -> int:
         c = np.bincount(dest[i * per:(i + 1) * per], minlength=n_shards)
         mx = max(mx, int(c.max()))
     return kernels.bucket(mx)
+
+
+def hash_dest(keys: torch.Tensor, n_shards: int,
+              n_rows: int) -> torch.Tensor:
+    """Destination shard of every padded row on the device: the twin of
+    :func:`hash_dest_np`, and the destinations HK13 scatters by."""
+    return kernels.hash_dest(keys, n_shards, n_rows)
+
+
+def exchange_lanes(keys: torch.Tensor, n_rows: int, lanes, cap: int,
+                   n_shards: int) -> List[torch.Tensor]:
+    """Every shard's send buckets of ``lanes`` ([(tensor [nb], fill)]) by
+    the hash of ``keys``, exchanged all-to-all (HK13): per lane the
+    received [n * n * cap] lane, flat [destination][source][cap] — shard
+    d's received lanes are its [n * cap] slice, as the reference's tiled
+    all_to_all lays them out."""
+    return kernels.shard_exchange(keys, n_rows, lanes, cap, n_shards)
+
+
+def local_unique_join(bk: torch.Tensor, blive: torch.Tensor,
+                      pk: torch.Tensor, n_shards: int):
+    """Every shard's unique join of its received partition (flat lanes of
+    n * per-shard slots): the build slots sort by (key, liveness) per
+    shard (HK4, stable) and each probe slot searches its shard's run
+    (HK12).  Returns (hit, brow): hit = a LIVE build slot of the shard
+    holds the key; brow = that slot's index in the flat build lanes (-1
+    without one)."""
+    from ..ops import shardops
+    nbb = int(bk.shape[0])
+    bid = torch.where(blive, torch.arange(nbb, dtype=torch.int64,
+                                          device=bk.device),
+                      torch.full_like(bk, -1))
+    pid = torch.zeros_like(pk)
+    return shardops._local_unique_join(n_shards, pk, pid, bk, bid)
+
+
+def sharded_group_sum(mesh, bucket_ids: torch.Tensor, vals: torch.Tensor,
+                      valid: torch.Tensor, n_buckets: int):
+    """Per-shard bucket sums and counts merged over the mesh (the
+    reference's make_sharded_group_sum): inputs [n_shards, rows] (bucket
+    ids of any integer type, float64 values, bool validity); HK2 over
+    each shard's rows into ``n_buckets`` segments and HK11's psum.
+    Returns (sums float64 [n_buckets], counts int64 [n_buckets])."""
+    n = mesh_shards(mesh)
+    gid = bucket_ids.reshape(-1).to(torch.int64)
+    v = vals.reshape(-1).contiguous()
+    ok = valid.reshape(-1).contiguous()
+    table = kernels.sharded_segment_reduce(gid, ok, int(n_buckets),
+                                           [(v, None, "sum")], n)
+    cnt = table[3]
+    sums = torch.where(cnt > 0, table[2].view(torch.float64),
+                       torch.zeros_like(v[:1]))
+    return sums, cnt
+
+
+def broadcast_join_counts(mesh, lkeys: torch.Tensor, lvalid: torch.Tensor,
+                          rkeys_sorted: torch.Tensor):
+    """Probe keys sharded over the mesh, the sorted build keys replicated
+    (the reference's make_broadcast_join_counts): each shard counts its
+    rows' matches (HK12's count mode) and HK11's psum totals them.
+    Returns (counts int64 [n_shards, rows], total int64 scalar)."""
+    n = mesh_shards(mesh)
+    counts, partial = kernels.shard_count(
+        lkeys.reshape(-1), lvalid.reshape(-1), rkeys_sorted, n)
+    rows = int(lkeys.reshape(-1).shape[0]) // n
+    total = kernels.shard_merge(partial, [kernels.MERGE_OPS["sum_i"]], rows,
+                                n * rows)
+    return counts.reshape(n, rows), total.reshape(())
+
+
+def distributed_query_step(mesh, n_buckets: int = 64):
+    """One distributed 'query step' (the reference's
+    distributed_query_step): the sharded group sum and the broadcast join
+    counts, as a function of (bucket_ids, vals, valid, lkeys, lvalid,
+    rkeys_sorted) returning (sums, counts per bucket, match counts per
+    probe row, total matches)."""
+    def step(bucket_ids, vals, valid, lkeys, lvalid, rkeys_sorted):
+        sums, cnts = sharded_group_sum(mesh, bucket_ids, vals, valid,
+                                       n_buckets)
+        counts, total = broadcast_join_counts(mesh, lkeys, lvalid,
+                                              rkeys_sorted)
+        return sums, cnts, counts, total
+    return kernels.counted_launch(step)
 
 
 def shard_rows(arr: np.ndarray, n_shards: int, fill=0) -> np.ndarray:
