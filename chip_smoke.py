@@ -28,7 +28,13 @@ result line):
    byte against its plain version (float % within 1 ulp, the largest
    distance printed); HK8 (csr_expand) runs Q13's join (150,000
    customers LEFT JOIN 1.5M orders), HK9 (run_bounds) its two GROUP BYs,
-   HK6's composite mode a two-key probe of 2^21 rows; K12's batched
+   HK6's composite mode a two-key probe of 2^21 rows; HK4 in each
+   regime of the sort core (csrc/lex_sort.cuh: ties in 0..3 at 2^23,
+   all keys equal at 2^20, n = 1,025 and 2^20 + 3, a float64 key with
+   NaN, +-inf, -0.0 and +0.0 at 2^22 both ways, 10 lanes at 2^20, K21
+   mesh's five lanes at 2^21; [sort] lines) and HK2's sort stage at
+   Q3's shape beside torch.argsort(stable=True) of the same clamped
+   ids (a partial call); K12's batched
    entry points (a stacked round's one launch for B members) byte for
    byte against B solo launches and their plain versions: HK7b
    (expr_eval_batched) and HK1b (masked_reduce_batched) at Q6's SF=1
@@ -531,6 +537,19 @@ def phase_kernels(K, dev):
                                np.zeros(n - 6_000_000, bool)]))
     q3 = [(rnd_f(n), t(np.zeros(n, bool)), "sum")]
     err = hk2_case(gid3, valid3, ns3, q3, "segment_reduce Q3")
+    # the sort stage alone: the sort core over HK2's clamped ids (HK4's
+    # wrapper), beside one PyTorch call that sorts the same ids (a partial
+    # call: the stage, not HK2's function)
+    keys3 = torch.where((gid3 < 0) | (gid3 >= ns3),
+                        torch.full_like(gid3, ns3), gid3)
+    if not torch.equal(K.lex_order([keys3], n),
+                       torch.argsort(keys3, stable=True)):
+        raise Mismatch("segment_reduce Q3 sort stage: differs from argsort")
+    sort_stage = {
+        "sort_stage_ms": cuda_ms(lambda: K.lex_order([keys3], n), reps=5),
+        "sort_stage_bound_ms": 16 * n / MEM_BPS * 1e3,
+        "sort_stage_partial_argsort_ms": cuda_ms(
+            lambda: torch.argsort(keys3, stable=True), reps=5)}
     g_all = torch.where(valid3, gid3, torch.full_like(gid3, ns3))
     x3 = q3[0][0]
     # skew: one group holds 90% of the rows (a low-cardinality key through
@@ -555,7 +574,8 @@ def phase_kernels(K, dev):
         "skew90_ms": cuda_ms(lambda: K.segment_reduce(
             gid_sk, valid_sk, ns3, q3)),
         "skew90_plain_ms": cuda_ms(lambda: K.segment_reduce_plain(
-            gid_sk, valid_sk, ns3, q3))}
+            gid_sk, valid_sk, ns3, q3)),
+        **sort_stage}
     # present-segment compaction of the Q3 table (~1.43M of 2^21 present)
     tab3 = K.segment_reduce(gid3, valid3, ns3, q3)
     np3, _ = K.present_compact(tab3, ns3)
@@ -731,6 +751,7 @@ def phase_kernels(K, dev):
         lambda: K.lex_order_plain(lanes_p3, np3)[:16], reps=3, warm=1)
     rec["lex_order"]["pipe_q3_bound_ms"] = \
         (4 * 8 * np3 + 8 * 16) / MEM_BPS * 1e3
+    rec["lex_order"]["sort_cases"] = sort_core_cases(K, dev, hk4_case)
 
     # -- HK5 csr_reduce: the pipeline's GROUP BY over the group index ----
     def hk5_case(order, ends, valid, lanes, n_rows, ng, what):
@@ -1636,6 +1657,62 @@ def phase_k12(K, dev, t, rng, q6x) -> dict:
             valid3, q3, (2 + 2 * len(q3)) * ns3, gid=True) / MEM_BPS * 1e3,
         "sort_regime_shape": "B=4 members, n=2^23, 2^21 segments, 1 "
                              "float64 SUM lane"})
+    return out
+
+
+def sort_core_cases(K, dev, hk4_case) -> dict:
+    """HK4 in the sort core's regimes (csrc/lex_sort.cuh) at the main
+    path's sizes: heavy ties across tiles, all keys equal, sizes just past
+    a tile and past the radix crossover, float specials both ways, more
+    than eight lanes, K21 mesh's five lanes.  Each case is byte-equal to
+    the plain version and to a second launch, and is timed beside its
+    bound (the lanes read once, the permutation written once)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 9)
+    i64 = torch.int64
+
+    def t(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype).to(dev)
+
+    def one_key(v, n, desc=False):
+        return K.sort_lanes([(v, t(np.zeros(n, bool)))], [desc],
+                            t(np.ones(n, bool)))
+    cases = {}
+    n23, n20, n21, n22 = 1 << 23, 1 << 20, 1 << 21, 1 << 22
+    cases["ties 0..3, n=2^23"] = (
+        one_key(t(rng.integers(0, 4, n23), i64), n23), n23)
+    cases["all keys equal, n=2^20"] = (
+        one_key(t(np.full(n20, 42), i64), n20), n20)
+    for nn in (1025, n20 + 3):
+        cases[f"random 64-bit, n={nn}"] = (
+            [t(rng.integers(-(1 << 63), (1 << 63) - 1, nn, endpoint=True),
+               i64)], nn)
+    f = t(np.round(rng.uniform(-1e6, 1e6, n22), 2))
+    at = t(rng.integers(0, n22, 4096), i64)
+    f[at] = t(rng.choice([np.nan, np.inf, -np.inf, -0.0, 0.0], 4096))
+    for desc in (False, True):
+        cases[f"f64 NaN/inf/-0.0, n=2^22, {'desc' if desc else 'asc'}"] = (
+            one_key(f, n22, desc), n22)
+    five = [(t(rng.integers(0, 3, n20), i64), t(rng.random(n20) < 0.1))
+            for _ in range(5)]
+    cases["10 lanes, n=2^20"] = (
+        K.sort_lanes(five, [False, True, False, True, False],
+                     t(np.ones(n20, bool))), n20)
+    valid = t(rng.random(n21) < 0.7)
+    q3 = K.sort_lanes(
+        [(t(np.round(rng.uniform(1e3, 5e5, n21), 2)), t(np.zeros(n21, bool))),
+         (t(rng.integers(0, 2406, n21), i64), t(np.zeros(n21, bool)))],
+        [True, False], valid)
+    cases["K21 mesh: shard + Q3's two keys, 5 lanes, n=2^21"] = (
+        [K.shard_lane(MESH_SHARDS, n21 // MESH_SHARDS)] + q3, n21)
+    out = {}
+    for what, (lanes, nn) in cases.items():
+        hk4_case(lanes, nn, None, f"lex_order {what}")
+        r = {"ms": cuda_ms(lambda: K.lex_order(lanes, nn), reps=5, warm=1),
+             "bound_ms": (8 * len(lanes) * nn + 8 * nn) / MEM_BPS * 1e3}
+        print(f"[sort] lex_order {what}: {r}", flush=True)
+        out[what] = r
     return out
 
 

@@ -725,3 +725,115 @@ def test_csr_expand_shard_mode_matches_plain(dev):
         assert torch.equal(a[0], b[0])
         for (x, xm), (y, ym) in zip(a[1] + a[2], b[1] + b[2]):
             assert torch.equal(x, y) and torch.equal(xm, ym)
+
+
+# ---- the sort core's regimes (csrc/lex_sort.cuh) --------------------------
+# Each case: (lanes, n, k) built on the device.  Above 2^16 rows the sort
+# is the radix regime, which skips the digits equal in every row, so the
+# cases cover digits that are all trivial, a trivial lane before one that
+# is not, ties that cross the radix tiles (4,096 rows), sizes just past a
+# tile and at the merge passes' limit, float and int64 extremes, more than
+# eight lanes, top-k on both sides of the rounds' cut (k <= T / 4) and of
+# the tile size.
+
+def _sort_case(name, rng, dev):
+    i64 = torch.int64
+    ones = _t(np.ones(1 << 17, bool), dev)
+
+    def key_lanes(v, n, desc=False, nulls=None):
+        m = _t(np.zeros(n, bool), dev) if nulls is None else nulls
+        return K.sort_lanes([(v, m)], [desc], ones[:n])
+    if name == "ties_across_tiles":
+        n = 17 * 4096 + 5
+        return key_lanes(_t(rng.integers(0, 4, n), dev, i64), n), n, None
+    if name == "all_equal":
+        n = 1 << 17
+        return key_lanes(_t(np.full(n, 9), dev, i64), n), n, None
+    if name in ("n_1025", "n_2e16", "n_2e16_plus_3"):
+        n = {"n_1025": 1025, "n_2e16": 1 << 16}.get(name, (1 << 16) + 3)
+        v = _t(rng.integers(K.I64_MIN, K.I64_MAX, n, endpoint=True), dev,
+               i64)
+        return [v], n, None
+    if name.startswith("float_specials"):
+        n = 1 << 17
+        f = _t(rng.integers(-3, 4, n).astype(np.float64), dev)
+        f[:6] = _t([np.nan, -0.0, 0.0, np.inf, -np.inf, np.nan], dev)
+        f[rng.integers(0, n, 64)] = float("nan")
+        return key_lanes(f, n, name.endswith("desc"),
+                         _t(rng.random(n) < 0.1, dev)), n, None
+    if name == "int64_extremes":
+        n = 70000
+        v = _t(rng.integers(-2, 3, n), dev, i64)
+        v[:6] = _t([K.I64_MAX, K.I64_MIN, K.I64_MAX, K.I64_MIN, -1, 0], dev,
+                  i64)
+        return key_lanes(v, n, False, _t(rng.random(n) < 0.2, dev)), n, \
+            None
+    if name == "trivial_then_not":
+        n = 70000
+        return [_t(rng.integers(0, 9, n), dev, i64),
+                _t(np.full(n, -5), dev, i64)], n, None
+    if name == "ten_lanes":
+        n = 70000
+        keys = [(_t(rng.integers(0, 3, n), dev, i64),
+                 _t(rng.random(n) < 0.1, dev)) for _ in range(5)]
+        return K.sort_lanes(keys, [False, True, False, True, False],
+                            ones[:n]), n, None
+    if name == "mesh_five_lanes":
+        n = 1 << 17
+        valid = _t(rng.random(n) < 0.3, dev)
+        keys = [(_t(np.round(rng.uniform(1e3, 5e5, n), 2), dev),
+                 _t(np.zeros(n, bool), dev)),
+                (_t(rng.integers(0, 2406, n), dev, i64),
+                 _t(np.zeros(n, bool), dev))]
+        lanes = K.sort_lanes(keys, [True, False], valid)
+        return [K.shard_lane(8, n // 8)] + lanes, n, None
+    if name.startswith("topk_"):
+        n, k = 80000, int(name.split("_")[1])
+        v = _t(rng.integers(0, 50, n), dev, i64)
+        return key_lanes(v, n, True), n, k
+    raise KeyError(name)
+
+
+SORT_CASES = ("ties_across_tiles", "all_equal", "n_1025", "n_2e16",
+              "n_2e16_plus_3",
+              "float_specials_asc", "float_specials_desc", "int64_extremes",
+              "trivial_then_not", "ten_lanes", "mesh_five_lanes",
+              "topk_1", "topk_256", "topk_257", "topk_1023", "topk_1024",
+              "topk_5000")
+
+
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_lex_order_regimes_match_plain(dev, case):
+    """HK4 in every regime of the sort core: equal, byte for byte, to its
+    plain version and to a second launch."""
+    rng = np.random.default_rng(SORT_CASES.index(case))
+    lanes, n, k = _sort_case(case, rng, dev)
+    a = K.lex_order(lanes, n, k)
+    assert torch.equal(a, K.lex_order(lanes, n, k))
+    want = K.lex_order_plain(lanes, n)
+    assert torch.equal(a, want[:a.shape[0]])
+    assert a.shape[0] == (n if k is None else min(k, n))
+
+
+@pytest.mark.parametrize("ns", [1 << 12, 1 << 21])
+def test_segment_reduce_sort_regime_ids(dev, ns):
+    """HK2's sort regime over ids whose upper digits are all trivial
+    (every id below 2^12) and over ids of three digits, a skewed group
+    included, solo and batched: equal to the plain versions."""
+    rng = np.random.default_rng(ns)
+    n = (1 << 17) + 5
+    gid = np.where(rng.random(n) < 0.3, 5, rng.integers(-1, ns + 1, n))
+    gid = _t(gid, dev, torch.int64)
+    valid = _t(rng.random((3, n)) < 0.8, dev)
+    v = _t(rng.normal(size=(3, n)), dev)
+    lanes = [(v, None, "sum"), (None, None, "count")]
+    t = K.segment_reduce_batched(gid, valid, ns, lanes)
+    p = K.segment_reduce_batched_plain(gid, valid, ns, lanes)
+    for b in range(3):
+        solo = K.segment_reduce(gid, valid[b], ns, K._member_lanes(lanes, b))
+        assert torch.equal(t[b], solo)
+        assert torch.equal(t[b, :2], p[b, :2])
+        assert torch.equal(t[b, 3:], p[b, 3:])
+        torch.testing.assert_close(t[b, 2].view(torch.float64),
+                                   p[b, 2].view(torch.float64), rtol=1e-9,
+                                   atol=1e-12)

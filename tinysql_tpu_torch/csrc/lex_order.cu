@@ -10,32 +10,31 @@
 // is the last lane, which gives lexsort's stability and lax.top_k's
 // lowest-index tie-break.
 //
-// Bound: for the shapes of the main path (six rows for Q1's ORDER BY, some
-// ten thousand for Q3's top 10) launch latency; at large n the merge
-// passes are bound by the bytes they move: each pass reads and writes
-// every lane once, plus a binary search per element.
+// Bound: bytes.  Each key lane read once and the permutation written
+// once: one key at 2^23 rows is 64 MB + 64 MB, ~0.04 ms on an H100 at
+// 3.35 TB/s; for the main path's small shapes (Q1's 16-row ORDER BY,
+// the top 10 of some ten thousand rows) launch latency.
 //
-// Design: bitonic sort of shared-memory tiles, then merge passes that
-// place each element by its rank (own index + binary search in the other
-// run).  A top-k keeps the best k of each tile and re-sorts the survivors
-// until one tile holds them all.
+// Design (lex_sort.cuh): one tile sorts in shared memory in one launch; a
+// top-k of at most a quarter tile keeps the best k of each tile in
+// rounds; up to 2^16 rows (a crossover measured on the card) sorted tiles
+// and merge passes; every other sort is a stable LSD radix sort over
+// 8-bit digits that skips the digits equal in every row (found by one
+// histogram pass), so it moves each element once per digit that orders
+// something, in one sweep per digit with a decoupled look-back.
 #include "lex_sort.cuh"
 
+TS_API int64_t hk4_scratch_bytes(int m, int64_t n, int64_t k) {
+  return lex_sort_scratch_bytes(m, n, k);
+}
+
 // lanes: m device pointers (uint64 order-normalised lanes of n rows);
-// bufA/bufB: scratch, each m*n uint64 then n int64 positions;
+// scratch: hk4_scratch_bytes(m, n, k) bytes;
 // out_pos: int64[min(k, n)] (k < 0: n) row indices in ascending order.
 TS_API int hk4_lex_order(const SortIn* in, int m, int64_t n, int64_t k,
-                         uint64_t* bufA, uint64_t* bufB, int64_t* out_pos,
-                         cudaStream_t st) {
+                         void* scratch, int64_t* out_pos, cudaStream_t st) {
   if (m < 1 || m > kMaxSortLanes) return -1;
-  SortOut a, b;
-  for (int l = 0; l < kMaxSortLanes; ++l) {
-    a.lanes[l] = l < m ? bufA + (size_t)l * n : nullptr;
-    b.lanes[l] = l < m ? bufB + (size_t)l * n : nullptr;
-  }
-  a.pos = (int64_t*)(bufA + (size_t)m * n);
-  b.pos = (int64_t*)(bufB + (size_t)m * n);
-  int rc = lex_sort_host(*in, m, n, k, a, b, out_pos, st);
+  int rc = lex_sort_host(*in, m, n, k, scratch, out_pos, st);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -76,7 +76,8 @@ _SIGNATURES = {
                                    _vp, _vp, _vp]),
     },
     "lex_order": {
-        "hk4_lex_order": (_int, [_vp, _int, _i64, _i64, _vp, _vp, _vp, _vp]),
+        "hk4_scratch_bytes": (_i64, [_int, _i64, _i64]),
+        "hk4_lex_order": (_int, [_vp, _int, _i64, _i64, _vp, _vp, _vp]),
     },
     "csr_reduce": {
         "hk5_scratch_bytes": (_i64, [_i64, _int]),

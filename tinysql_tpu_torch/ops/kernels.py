@@ -1224,13 +1224,12 @@ def lex_order(lanes: Sequence[torch.Tensor], n: int,
         for j, t in enumerate(grp):
             cin.lanes[j] = t.data_ptr()
         cin.pos = None
-        buf_a = torch.empty((m + 1) * n, dtype=I64, device=dev)
-        buf_b = torch.empty((m + 1) * n, dtype=I64, device=dev)
+        scratch = torch.empty(max(lib.hk4_scratch_bytes(m, n, kk), 8),
+                              dtype=torch.uint8, device=dev)
         out = torch.empty(n if kk < 0 else kk, dtype=I64, device=dev)
         _ext.check(lib.hk4_lex_order(ctypes.byref(cin), m, n, kk,
-                                     buf_a.data_ptr(), buf_b.data_ptr(),
-                                     out.data_ptr(), _stream()),
-                   "lex_order")
+                                     scratch.data_ptr(), out.data_ptr(),
+                                     _stream()), "lex_order")
         _count(LAUNCHES, "lex_order")
         perm = out if perm is None else perm[out]
     return perm
