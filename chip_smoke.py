@@ -26,7 +26,11 @@ result line):
    (tinysql_tpu_torch/bench/exprcases.py: every SQL function, K14's code
    compares, K15's layouts, programs split past its limits), byte for
    byte against its plain version (float % within 1 ulp, the largest
-   distance printed); HK8 (csr_expand) runs Q13's join (150,000
+   distance printed), then its tiles at their edges over 2^20 + 5
+   NULL-heavy rows with n_rows < n (the program at its limits: 16 live
+   registers and 64 instructions; nested sums split into launches of 16
+   registers; a bool lane; HK7b at B = 1, 3 and 16 against solo
+   launches; [expr] lines); HK8 (csr_expand) runs Q13's join (150,000
    customers LEFT JOIN 1.5M orders), HK9 (run_bounds) its two GROUP BYs,
    HK6's composite mode a two-key probe of 2^21 rows; HK4 in each
    regime of the sort core (csrc/lex_sort.cuh: ties in 0..3 at 2^23,
@@ -70,10 +74,12 @@ result line):
    row-at-a-time joins take minutes on them at SF=1 —, each wrapper's
    launch counter (one
    count per launching wrapper call) must rise on the queries that use
-   it, and no plain version may run.  One more warm run of each query
-   under torch.profiler counts the CUDA kernels and copies it launches
-   (a warm Q6, which runs the per-operator executors on both tiers, may
-   launch at most six kernels);
+   it, and no plain version may run.  Two more warm runs of each query
+   under torch.profiler (trace_tpch.device_trace: a pause at both ends
+   of the trace; whole when every record came twice) count the CUDA
+   kernels and copies a run launches and its device time, and say
+   whether the trace was whole (a warm Q6, which runs the per-operator
+   executors on both tiers, may launch at most six kernels);
    then the mesh phase: with TINYSQL_MESH_SHARDS=8 set in this process
    for the phase only, over phase 3's tables under tidb_mesh_parallel =
    1 (8 virtual shards on the card), on both tiers Q1, Q3, Q6, Q18, NOT
@@ -97,7 +103,9 @@ result line):
    against its plain version, byte for byte, on the tensors those runs
    handed it, timed beside its bound ([mesh-kernel] lines; partial
    calls printed as partial, torch.sort(stable=True) of the score lane
-   as K25 sort's library call);
+   as K25 sort's library call), and HK14 at the edge shapes of
+   tinysql_tpu_torch/bench/rankcases.py (ties, all keys equal, 1 to 3
+   runs, ragged tiles, k_out < n * run, stride > run);
    then the serve phase: the port's MySQL wire server (Server(storage,
    port=0), on the card) over phase 3's tables answers a Q6 substitution
    stream (8 connections, TPC-H Clause 2.4.6.3) and a Q1 stream (4,
@@ -352,25 +360,14 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
 
 def device_ms(fn, reps: int = 10) -> float | None:
     """Device-only time of one call of fn: the self device time of every
-    kernel, copy and memset it enqueues, summed over a torch.profiler trace
-    of reps calls.  Unlike cuda_ms it leaves out the host work between the
-    launches.  A trace that comes back without device events is taken
-    again, up to three times in all; None when none had any."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from tinysql_tpu_torch.bench.trace_tpch import device_us
+    kernel, copy and memset it enqueues, from a whole torch.profiler trace
+    of reps calls (trace_tpch.device_trace).  Unlike cuda_ms it leaves
+    out the host work between the launches.  None when no trace of three
+    was whole."""
+    from tinysql_tpu_torch.bench.trace_tpch import device_trace
     fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(device_us(e) for e in prof.key_averages())
-        if us > 0:
-            return us / reps / 1e3
-    return None
+    evts, _wall, whole = device_trace(fn, reps, tries=3)
+    return sum(us for _k, us, _c in evts) / 1e3 if whole else None
 
 
 def timed(fn) -> dict:
@@ -568,6 +565,8 @@ def phase_kernels(K, dev):
         "ops": 2 * int(valid3.sum()),
         "shape": "n=2^23, 2^21 segments, 1 float64 SUM lane (Q3)",
         "q1_ms": q1_ms,
+        "q1_bound_ms": reduce_bytes(valid1, q1, (2 + 2 * len(q1)) * 16,
+                                    gid=True) / MEM_BPS * 1e3,
         "sum_lane_only_scatter_reduce_ms": cuda_ms(lambda: torch.zeros(
             ns3 + 1, dtype=torch.float64, device=dev).scatter_reduce_(
                 0, g_all, x3, "sum")),
@@ -751,6 +750,9 @@ def phase_kernels(K, dev):
         lambda: K.lex_order_plain(lanes_p3, np3)[:16], reps=3, warm=1)
     rec["lex_order"]["pipe_q3_bound_ms"] = \
         (4 * 8 * np3 + 8 * 16) / MEM_BPS * 1e3
+    # a partial call: the top 16 of one of its lanes (no tie rule)
+    rec["lex_order"]["pipe_q3_partial_topk_ms"] = cuda_ms(
+        lambda: torch.topk(lanes_p3[1], 16, largest=False))
     rec["lex_order"]["sort_cases"] = sort_core_cases(K, dev, hk4_case)
 
     # -- HK5 csr_reduce: the pipeline's GROUP BY over the group index ----
@@ -1452,6 +1454,7 @@ def phase_hk7(K, dev, t, rng) -> dict:
     prog.store(prog.to_real(prog.load(3, "i")))
     hk7_case(K, prog, lcols, K._params_dev(pt.arrays()), nbat,
              "expr_eval K15 layout")
+    edges = hk7_edge_cases(K, t, rng)
     p3, c3, pr3, nb3, live3 = q3[2]
     q6x = {"cols": cols, "prog": q6, "params": pt6.arrays(), "n": n,
            "live": live}
@@ -1479,7 +1482,84 @@ def phase_hk7(K, dev, t, rng) -> dict:
         "q3_lineitem_mask_ms": cuda_ms(lambda: K.expr_eval(
             p3, c3, pr3, nb3, n_rows=live3)),
         "q3_lineitem_mask_bound_ms": expr_bytes(p3, c3, live3) / MEM_BPS
-        * 1e3}, q6x
+        * 1e3,
+        "edge_cases": edges}, q6x
+
+
+def hk7_edge_cases(K, t, rng) -> dict:
+    """HK7's tiles at their edges, n = 2^20 + 5 rows (not a multiple of a
+    tile) with n_rows = n - 1029 (the guard rows) and an incoming mask,
+    over NULL-heavy columns (90% NULL): the program at the kernel's
+    limits (16 live registers and 64 instructions in one launch), nested
+    sums that compile_program splits into several launches of 16
+    registers, a bool lane read as the mask and as K15's live lane, and
+    HK7b at B = 1, 3 and 16 against B solo launches.  Each byte for byte
+    against its plain version and a second launch, timed beside its
+    bound ([expr] lines)."""
+    import numpy as np
+    from tinysql_tpu_torch.bench import exprcases as EC
+    from tinysql_tpu_torch.ops import exprjit as X
+    n = (1 << 20) + 5
+    n_rows = n - 1029
+    vals, _ = EC.columns(SEED, n)
+    cols = [(t(v), t(rng.random(n) < 0.9)) for v in vals]
+    keep = t(rng.random(n) < 0.7)
+    kw = {"n_rows": n_rows, "mask_in": keep}
+    cases = {}
+    for name in ("regs16", "nest20", "nest30_real"):
+        spec = EC.LIMIT_CASES.get(name) or EC.SPLIT_CASES[name]
+        e = EC.build(spec)
+        pt = X.ParamTable()
+        conds = [] if name in EC.LIMIT_CASES else [e]
+        prog = X.compile_program(conds, [e, ("null", e)], pt)
+        segs = [(sg.n_regs, int(sg.code.shape[0])) for sg in prog.segments()]
+        if name in EC.LIMIT_CASES and segs != [(X.MAX_REGS, X.MAX_PROG)]:
+            raise Mismatch(f"expr_eval {name}: segments {segs}, want one "
+                           "of 16 registers and 64 instructions")
+        cases[name] = (prog, cols, pt, segs)
+    live = t(rng.random(n) < 0.6)
+    ids = t(rng.integers(0, 7 * 14 + 1, n).astype(np.int64))
+    pt = X.ParamTable()
+    prog = X.ExprProgram()
+    prog.cond(prog.load(0, "b"))
+    prog.store(prog.key_decode(prog.load(1, "i"), prog.load(0, "b"), 14, 6,
+                               -3, pt))
+    cases["bool lane"] = (prog, [(live, t(rng.random(n) < 0.5)), (ids, None)],
+                          pt, [(sg.n_regs, int(sg.code.shape[0]))
+                               for sg in prog.segments()])
+    out = {}
+    for name, (prog, pc, pt, segs) in cases.items():
+        pr = K._params_dev(pt.arrays())
+        hk7_case(K, prog, pc, pr, n, f"expr_eval edge {name}", **kw)
+        r = {**timed(lambda: K.expr_eval(prog, pc, pr, n, **kw)),
+             "bound_ms": expr_bytes(prog, pc, n_rows) / MEM_BPS * 1e3,
+             "segments": segs}
+        print(f"[expr] expr_eval edge {name}: {r}", flush=True)
+        out[name] = r
+    prog, pc, pt, _segs = cases["regs16"]
+    pi, pf = pt.arrays()
+    for nmem in (1, 3, 16):
+        prs = K._params_dev(EC.stacked_params(pi, pf, nmem))
+        what = f"expr_eval_batched edge regs16 B={nmem}"
+        got = K.expr_eval_batched(prog, pc, prs, n, **kw)
+        same_expr(got, K.expr_eval_batched(prog, pc, prs, n, **kw),
+                  f"{what} (two runs)")
+        same_expr(got, K.expr_eval_batched_plain(prog, pc, prs, n, **kw),
+                  f"{what} vs plain")
+        for b in range(nmem):
+            same_expr(_member_expr(got, b),
+                      K.expr_eval(prog, pc, (prs[0][b], prs[1][b]), n, **kw),
+                      f"{what} member {b} vs solo")
+        r = {**timed(lambda: K.expr_eval_batched(prog, pc, prs, n, **kw)),
+             "solo_ms": cuda_ms(lambda: [K.expr_eval(
+                 prog, pc, (prs[0][b], prs[1][b]), n, **kw)
+                 for b in range(nmem)], reps=5),
+             "bound_ms": expr_bytes_batched(prog, pc, n_rows, nmem,
+                                            len(pi) + len(pf))
+             / MEM_BPS * 1e3}
+        print(f"[expr] {what}: {r}", flush=True)
+        out[f"batched B={nmem}"] = r
+    return out
 
 
 # -- K12: the batched entry points of a stacked round (HK7b, HK1b, HK2b) ----
@@ -1773,32 +1853,23 @@ def _sync(torch) -> None:
         torch.cuda.synchronize()
 
 
-def warm_profile(sess, sql: str, torch) -> dict:
-    """One more warm run under torch.profiler: the CUDA kernels and the
-    copies / memsets it launched and their device time.  A trace that
-    comes back without device events is taken again, up to three times
-    in all (None when none had any)."""
-    from torch.profiler import ProfilerActivity, profile
-    from tinysql_tpu_torch.bench.trace_tpch import device_us
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            sess.query(sql)
-            torch.cuda.synchronize()
-        kern = copies = 0
-        us = 0.0
-        for e in prof.key_averages():
-            if "CUDA" not in str(getattr(e, "device_type", "")):
-                continue
-            us += device_us(e)
-            if e.key.startswith(("Memcpy", "Memset")):
-                copies += e.count
-            else:
-                kern += e.count
-        if kern + copies:
-            return {"kernels": kern, "copies": copies,
-                    "device_ms": us / 1e3}
-    return {"kernels": None, "copies": None, "device_ms": None}
+def warm_profile(sess, sql: str) -> dict:
+    """Two more warm runs under torch.profiler (trace_tpch.device_trace):
+    the CUDA kernels and the copies / memsets one run launched, their
+    device time, and whether the trace was whole (every record came
+    twice; one that is not lost records and reads low); None each when
+    the trace held no device record."""
+    from tinysql_tpu_torch.bench.trace_tpch import device_trace
+    evts, _wall, whole = device_trace(lambda: sess.query(sql))
+    if not evts:
+        return {"kernels": None, "copies": None, "device_ms": None,
+                "whole": False}
+    copies = sum(c for k, _us, c in evts
+                 if k.startswith(("Memcpy", "Memset")))
+    return {"kernels": sum(c for _k, _us, c in evts) - copies,
+            "copies": copies,
+            "device_ms": sum(us for _k, us, _c in evts) / 1e3,
+            "whole": whole}
 
 
 def run_tier(K, sess, tier: str, queries: dict, torch) -> tuple:
@@ -1837,7 +1908,7 @@ def run_tier(K, sess, tier: str, queries: dict, torch) -> tuple:
             if tpch.canon_rows(again) != tpch.canon_rows(rows[q]):
                 raise Mismatch(f"{tier} {q}: warm run rows differ from "
                                f"the first")
-        prof = warm_profile(sess, sql, torch)
+        prof = warm_profile(sess, sql)
         after = K.kernel_counts()["launches"]
         used = {k: after[k] - before[k] for k in after if after[k] > before[k]}
         for k in USES[tier][q]:
@@ -1846,12 +1917,13 @@ def run_tier(K, sess, tier: str, queries: dict, torch) -> tuple:
         print(f"[main] {tier} {q}: {len(rows[q])} rows, first run "
               f"{first_s:.4f} s, warm best of {reps} {min(warm):.4f} s, "
               f"one warm run: {prof['kernels']} CUDA kernels + "
-              f"{prof['copies']} copies, device {prof['device_ms']} ms; "
+              f"{prof['copies']} copies, device {prof['device_ms']} ms "
+              f"(trace whole: {prof['whole']}); "
               f"node kinds {sorted(kinds)}, {d2h} D2H, launches {used}",
               flush=True)
         # Q6 runs the per-operator executors on both tiers (no join, no
-        # grouped aggregate); torch.profiler sometimes returns no device
-        # event for it, so the bound is held wherever a trace has them
+        # grouped aggregate); the bound is held wherever a trace has
+        # device records
         if q == "Q6" and prof["kernels"] is not None \
                 and prof["kernels"] > Q6_PER_OP_MAX_KERNELS:
             raise Mismatch(f"{tier} Q6: {prof} in one warm run, want at "
@@ -2101,6 +2173,43 @@ def _bounded(r: dict) -> dict:
                                  r["ops"] / OPS_PS) * 1e3}
 
 
+def rank_ops(n: int, run: int) -> int:
+    """HK14's compares: one an element in each of its ceil(log2 n)
+    merge rounds."""
+    return n * run * (n - 1).bit_length()
+
+
+def rank_edge_cases(K) -> dict:
+    """HK14 at the edge shapes of tinysql_tpu_torch/bench/rankcases.py
+    (keys tied in 0..3, all equal, n = 1, 2 and 3 runs, a run length that
+    is not a multiple of the tile, k_out < n * run, stride > run, the
+    top-k's layout, 2^18 keys across the sign bit): each byte for byte
+    against its plain version and a second launch, timed beside its
+    bound."""
+    import torch
+    from tinysql_tpu_torch.bench import rankcases as RC
+    dev = K.device()
+    out = {}
+    for name in RC.CASES:
+        keys, ids, stride, run, n, k_out = RC.case(name, SEED)
+        keys = torch.as_tensor(keys).to(dev)
+        ids = torch.as_tensor(ids).to(dev)
+        what = f"shard_rank edge {name}"
+        k1 = K.shard_rank(keys, ids, stride, run, n, k_out)
+        same_bytes(k1, K.shard_rank(keys, ids, stride, run, n, k_out), what)
+        same_bytes(k1, K.shard_rank_plain(keys, ids, stride, run, n, k_out),
+                   f"{what} vs plain")
+        r = {**timed(lambda: K.shard_rank(keys, ids, stride, run, n,
+                                          k_out)),
+             # n = 1 copies the first k_out ids and reads no key
+             "bytes": 16 * k_out if n == 1 else n * run * 16 + k_out * 8,
+             "ops": rank_ops(n, run),
+             "shape": f"{n} runs of {run}, stride {stride}, {k_out} out"}
+        print(f"[mesh-kernel] {what}: {_bounded(r)}", flush=True)
+        out[name] = {k: r[k] for k in ("ms", "device_ms")}
+    return out
+
+
 def mesh_kernel_checks(K, cap: dict) -> dict:
     """The mesh kernels on the tensors the mesh run handed them (captured
     at their calls, per query): each byte for byte against its plain
@@ -2219,7 +2328,6 @@ def mesh_kernel_checks(K, cap: dict) -> dict:
             same_bytes(k1, K.shard_rank_plain(ordl, ids, stride, run, n,
                                               k_out), f"{what} vs plain")
             total = n * run
-            steps = max(1, (run - 1).bit_length())
             r = {"max_abs_err": 0.0,
                  **timed(lambda: K.shard_rank(ordl, ids, stride, run, n,
                                               k_out)),
@@ -2227,7 +2335,7 @@ def mesh_kernel_checks(K, cap: dict) -> dict:
                      ordl, ids, stride, run, n, k_out), reps=3, warm=1),
                  "library_ms": None,
                  "bytes": total * 16 + k_out * 8,
-                 "ops": total * (n - 1) * steps,
+                 "ops": rank_ops(n, run),
                  "shape": f"{n} runs of {run}, {k_out} out ({label})"}
             if k_out == total:  # K25 sort: the whole route and one sort
                 r["route_ms"] = cuda_ms(lambda: K.shard_rank(
@@ -2240,6 +2348,7 @@ def mesh_kernel_checks(K, cap: dict) -> dict:
                     ordl ^ K.I64_MIN, k_out, largest=False))
             print(f"[mesh-kernel] {what}: {_bounded(r)}", flush=True)
             _keep_largest(best, "shard_rank", total, r)
+    best["shard_rank"][1]["edge_cases"] = rank_edge_cases(K)
     for label, (a, kw) in cap["expands"].items():
         what = f"csr_expand_shard {label}"
         k1 = K.csr_expand(*a, **kw)
@@ -2359,7 +2468,7 @@ def mesh_query(K, sess, tier: str, q: str, sql: str, off: tuple, state,
         warm = _warm_runs(sess, sql, reps, torch, first=rows)
     except Mismatch as e:
         raise Mismatch(f"mesh {tier} {q}: {e}") from None
-    prof = warm_profile(sess, sql, torch)
+    prof = warm_profile(sess, sql)
     rows_off, wall_off, prof_off = off
     same_rel(rows, rows_off, f"mesh {tier} {q} vs mesh-off")
     check_rows(rows, f"mesh {tier} {q}", empty_ok=q in EMPTY_OK)
@@ -2532,7 +2641,7 @@ def phase_mesh(K, storage, kinfo, device=None) -> None:
                 reps = MESH_WARM if q in ("Q1", "Q3", "Q6") \
                     else MESH_WARM_NEW
                 off[q] = (rows, _warm_runs(sess, sql, reps, torch),
-                          warm_profile(sess, sql, torch))
+                          warm_profile(sess, sql))
             sess.execute("set tidb_mesh_parallel = 1")
             K.reset_kernel_counts()
             shardops.reset_stats()

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tinysql_tpu_torch.bench import rankcases as RC
 from tinysql_tpu_torch.ops import kernels as K
 
 pytestmark = pytest.mark.cuda
@@ -837,3 +838,83 @@ def test_segment_reduce_sort_regime_ids(dev, ns):
         torch.testing.assert_close(t[b, 2].view(torch.float64),
                                    p[b, 2].view(torch.float64), rtol=1e-9,
                                    atol=1e-12)
+
+
+@pytest.mark.parametrize("case", sorted(RC.CASES))
+def test_shard_rank_merge_rounds_edge_shapes(dev, case):
+    """HK14's merge-path rounds at the edge shapes
+    (tinysql_tpu_torch/bench/rankcases.py: keys tied in 0..3, all equal,
+    n = 1, 2, 3 runs, a run length that is not a multiple of the tile,
+    k_out below n * run, stride > run, the top-k's layout): equal, byte
+    for byte, to its plain version and to a second launch."""
+    keys, ids, stride, run, n, k_out = RC.case(case, 3)
+    keys, ids = _t(keys, dev), _t(ids, dev)
+    a = K.shard_rank(keys, ids, stride, run, n, k_out)
+    assert torch.equal(a, K.shard_rank(keys, ids, stride, run, n, k_out))
+    assert torch.equal(a, K.shard_rank_plain(keys, ids, stride, run, n,
+                                             k_out))
+
+
+def _null_heavy_columns(n, dev, seed):
+    from tinysql_tpu_torch.bench import exprcases as EC
+    rng = np.random.default_rng(seed)
+    vals, _nulls = EC.columns(seed, n)
+    return [(_t(v, dev), _t(rng.random(n) < 0.9, dev)) for v in vals]
+
+
+@pytest.mark.parametrize("n", [3 * 1024 + 5, 1 << 16])
+def test_expr_eval_tiles_at_the_edges(dev, n):
+    """HK7's tiles: the programs at its limits (16 live registers and 64
+    instructions in one launch; nested sums split into several launches),
+    NULL-heavy columns, a bool lane read as a mask and as K15's live
+    lane, n not a multiple of the tile with n_rows < n (the guard rows)
+    and an incoming mask: byte for byte against the plain interpreter and
+    a second launch; HK7b at B = 1, 3 and 16 against solo launches."""
+    from tinysql_tpu_torch.bench import exprcases as EC
+    from tinysql_tpu_torch.ops import exprjit as X
+    rng = np.random.default_rng(n)
+    cols = _null_heavy_columns(n, dev, 5)
+    keep = _t(rng.random(n) < 0.7, dev)
+    specs = list(EC.LIMIT_CASES.items()) + list(EC.SPLIT_CASES.items()) + \
+        [(name, ss[0]) for name, ss in EC.CASES.items()]
+    for name, spec in specs:
+        e = EC.build(spec)
+        pt = X.ParamTable()
+        conds = [] if name in EC.LIMIT_CASES else [e]
+        prog = X.compile_program(conds, [e, ("null", e)], pt)
+        if name in EC.LIMIT_CASES:
+            assert [(s.n_regs, s.code.shape[0]) for s in prog.segments()] \
+                == [(X.MAX_REGS, X.MAX_PROG)], name
+        pr = K._params_dev(pt.arrays())
+        for kw in ({}, {"n_rows": n - 1029, "mask_in": keep}):
+            a = K.expr_eval(prog, cols, pr, n, **kw)
+            _same_expr(a, K.expr_eval(prog, cols, pr, n, **kw), name)
+            _same_expr(a, K.expr_eval_plain(prog, cols, pr, n, **kw),
+                       f"{name} {spec}", 1 if name == "%" else 0)
+        if name not in EC.LIMIT_CASES and name not in EC.SPLIT_CASES:
+            continue
+        pi, pf = pt.arrays()
+        for nmem in (1, 3, 16):
+            prs = K._params_dev(EC.stacked_params(pi, pf, nmem))
+            got = K.expr_eval_batched(prog, cols, prs, n, n_rows=n - 3)
+            for b in range(nmem):
+                solo = K.expr_eval(prog, cols, (prs[0][b], prs[1][b]), n,
+                                   n_rows=n - 3)
+                mb = None if got[0] is None else got[0][b]
+                ob = [(None if v is None else v[b], m[b])
+                      for v, m in got[1]]
+                _same_expr((mb, ob), solo, f"{name} B={nmem} member {b}")
+    live = _t(rng.random(n) < 0.6, dev)
+    ids = _t(rng.integers(0, 7 * 14 + 1, n), dev, torch.int64)
+    bcols = [(live, _t(rng.random(n) < 0.5, dev)), (ids, None)]
+    pt = X.ParamTable()
+    prog = X.ExprProgram()
+    prog.cond(prog.load(0, "b"))
+    prog.store(prog.key_decode(prog.load(1, "i"), prog.load(0, "b"), 14, 6,
+                               -3, pt))
+    pr = K._params_dev(pt.arrays())
+    for kw in ({}, {"n_rows": n - 1029, "mask_in": keep}):
+        a = K.expr_eval(prog, bcols, pr, n, **kw)
+        _same_expr(a, K.expr_eval(prog, bcols, pr, n, **kw), "bool lane")
+        _same_expr(a, K.expr_eval_plain(prog, bcols, pr, n, **kw),
+                   "bool lane")

@@ -278,3 +278,111 @@ def test_constants_ride_the_param_table():
     assert [s.code.tolist() for s in ga.segments()] == \
         [s.code.tolist() for s in gb.segments()]
     assert pa.f64 == [1.5] * 2 and pb.f64 == [-7.25] * 2
+
+
+#: the words of an instruction that name a register (csrc/expr_eval.cu's
+#: run_ins): dst 1, a 2, b 3, c 4 of {op, dst, a, b, c, flags, p0, p1}
+_REG_WORDS = {port_jit.OP_LD: (1,), port_jit.OP_LDC: (1,),
+              port_jit.OP_ST: (2,), port_jit.OP_MASK: (2,),
+              port_jit.OP_MOV: (1, 2), port_jit.OP_CVT: (1, 2),
+              port_jit.OP_NEG: (1, 2), port_jit.OP_ABS: (1, 2),
+              port_jit.OP_CMP: (1, 2, 3), port_jit.OP_NOT: (1, 2),
+              port_jit.OP_ISNULL: (1, 2), port_jit.OP_ISTRUE: (1, 2),
+              port_jit.OP_ISFALSE: (1, 2), port_jit.OP_IF: (1, 2, 3, 4),
+              port_jit.OP_IFNULL: (1, 2, 3),
+              port_jit.OP_CASE_INIT: (1, 4),
+              port_jit.OP_CASE_ARM: (1, 2, 3, 4),
+              port_jit.OP_CASE_ELSE: (1, 2, 4), port_jit.OP_IN_INIT: (1,),
+              port_jit.OP_IN_ITEM: (1, 2, 3), port_jit.OP_IN_END: (1, 2),
+              port_jit.OP_CAST_INT: (1, 2), port_jit.OP_CODECMP: (1, 2),
+              port_jit.OP_KEYDEC: (1, 2, 3), port_jit.OP_AVG: (1, 2, 3)}
+for _op in (port_jit.OP_ADD, port_jit.OP_SUB, port_jit.OP_MUL,
+            port_jit.OP_FDIV, port_jit.OP_DIV, port_jit.OP_MOD,
+            port_jit.OP_AND, port_jit.OP_OR, port_jit.OP_XOR):
+    _REG_WORDS[_op] = (1, 2, 3)
+
+
+def _corpus_programs():
+    """name -> (program, its input columns): every program this file
+    compiles (each battery tree as condition and outputs, the split and
+    limit programs, K14's compares, K15's layouts)."""
+    out = {}
+    for name, specs in CASES.items():
+        for j, spec in enumerate(specs):
+            out[f"{name}#{j}"] = [spec]
+    for name, spec in list(exprcases.SPLIT_CASES.items()) + \
+            list(exprcases.LIMIT_CASES.items()):
+        out[name] = [spec]
+    for op in exprcases.CODE_CMP_OPS:
+        out[f"code {op}"] = ("code", op)
+    for real in (False, True):
+        out[f"layout real={real}"] = ("layout", real)
+    return out
+
+
+_CORPUS = _corpus_programs()
+
+
+def _corpus_program(name):
+    item = _CORPUS[name]
+    pt = port_jit.ParamTable()
+    vals, nulls = _columns(3)
+    cols = [(torch.as_tensor(v), torch.as_tensor(m))
+            for v, m in zip(vals, nulls)]
+    if isinstance(item, list):
+        e = _build(port_expr, port_types, item[0])
+        conds = [] if name in exprcases.LIMIT_CASES else [e]
+        return port_jit.compile_program(conds, [e, ("null", e)], pt), cols, pt
+    prog = port_jit.ExprProgram()
+    if item[0] == "code":
+        r = prog.code_cmp(0, item[1], exprcases.CODE_LO, exprcases.CODE_HI,
+                          exprcases.CODE_CARD, pt)
+        prog.cond(r)
+        prog.store(r)
+        return prog, cols, pt
+    live = torch.as_tensor(vals[0] > 0)
+    cols = [(cols[0][0], None), (live, None), cols[3 if item[1] else 1],
+            (cols[1][0], None)]
+    prog.store(prog.key_decode(prog.load(0, "i"), prog.load(1, "b"), 14, 6,
+                               -3, pt))
+    prog.store(prog.avg(prog.load(2, "f" if item[1] else "i"),
+                        prog.load(3, "i")))
+    return prog, cols, pt
+
+
+@pytest.mark.parametrize("name", sorted(_CORPUS))
+def test_hk7_register_count_covers_the_program(name, monkeypatch):
+    """The register count HK7's wrappers pass with each launch (it sizes
+    the kernel's shared register file) is above every register the
+    launch's instruction words name and at most MAX_REGS, for the solo
+    and the batched entry point."""
+    prog, cols, pt = _corpus_program(name)
+    seen = []
+
+    class _Lib:
+        def hk7_expr_eval(self, code, n_ins, n_regs, *rest):
+            seen.append((n_ins, n_regs))
+            return 0
+
+        def hk7b_expr_eval(self, code, n_ins, n_regs, *rest):
+            seen.append((n_ins, n_regs))
+            return 0
+
+    from tinysql_tpu_torch.ops import _ext as port_ext
+    counts = dict(port_kernels.LAUNCHES)
+    monkeypatch.setattr(port_ext, "lib", lambda _name: _Lib())
+    monkeypatch.setattr(port_kernels, "_on_card", lambda t, _name: True)
+    monkeypatch.setattr(port_kernels, "_stream", lambda: 0)
+    pi, pf = pt.arrays()
+    with port_kernels.use_device("cpu"):
+        port_kernels.expr_eval(prog, cols, port_kernels._params_dev(
+            (pi, pf)), N)
+        port_kernels.expr_eval_batched(prog, cols, port_kernels._params_dev(
+            exprcases.stacked_params(pi, pf, 2)), N)
+    port_kernels.LAUNCHES.update(counts)
+    segs = prog.segments()
+    assert [ni for ni, _ in seen] == [s.code.shape[0] for s in segs] * 2
+    for (_ni, n_regs), seg in zip(seen, segs * 2):
+        top = max([int(w[f]) for w in seg.code for f in _REG_WORDS[w[0]]],
+                  default=-1)
+        assert top < n_regs <= port_jit.MAX_REGS, (name, top, n_regs)

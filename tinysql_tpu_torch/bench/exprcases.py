@@ -112,6 +112,20 @@ CASES = {
     "cast_real": [("cast_real", C(0)), ("cast_real", C(4))],
 }
 
+
+def nested_sum(depth: int, slots=(0, 1)):
+    """c0 + (c1 + (c0 + ...)): ``depth`` + 1 additions, right-nested, so
+    every left operand stays live while the right one is computed (one
+    register more per level)."""
+    t = ("+", C(slots[0]), C(slots[1]))
+    for k in range(depth):
+        t = ("+", C(slots[k % 2]), t)
+    return t
+
+
+#: HK7's limits in one launch: 16 live registers and 64 instructions
+LIMIT_CASES = {"regs16": nested_sum(14)}
+
 #: programs past HK7's limits (exprjit.MAX_PROG instructions): the
 #: compiler splits each into several launches
 SPLIT_CASES = {
@@ -126,6 +140,10 @@ SPLIT_CASES = {
     "case20_real": ("case",) + sum(((("<", C(2), K("real", 4.0 * k - 40)),
                                      C(2 + k % 2) if k % 3 else C(k % 2))
                                     for k in range(20)), ()),
+    # 16 live registers in every launch but the last; nest30 has more
+    # live values across a cut than registers
+    "nest20": nested_sum(20),
+    "nest30_real": nested_sum(30, (2, 3)),
 }
 
 #: K14: each dictionary-code compare, over slot 0 read as codes in

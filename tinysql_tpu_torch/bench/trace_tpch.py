@@ -15,11 +15,11 @@ with 8 virtual shards — TINYSQL_MESH_SHARDS set for that run only, the
 tiers "pipeline_mesh" and "per_op_mesh" —, then the trio): the first
 run's wall, the best of
 three warm walls,
-and one more warm run under torch.profiler (CPU + CUDA activities; taken
-again, up to three times, when its trace holds no device event) giving
-the device time summed over its kernels (one stream, so kernels do not
-overlap), the device idle share of the wall, the number of CUDA kernels
-and of copies it launched, the kernels by device time,
+and two more warm runs under torch.profiler (device_trace) giving
+a run's device time summed over its kernels (one stream, so kernels do
+not overlap), the device idle share of its wall, whether the trace was
+whole, the number of CUDA kernels and of copies it launched, the
+kernels by device time,
 and the per-operator walls and device counters the session records
 (obs/context.py).  Prints one JSON object per (tier, query) and, with
 --out, writes them all to that file.  The tiers share the replica's
@@ -43,6 +43,12 @@ BLOCK_ROWS = 1 << 20
 BLOCK_QUERIES = ("Q1", "Q3", "Q6", "NOT_IN")
 #: the mesh run's virtual shards (TINYSQL_MESH_SHARDS)
 MESH_SHARDS = 8
+#: seconds a trace idles after it starts and before it stops: on the
+#: H100 a trace that launched work at once lost, more often the older
+#: the process, the device records of its first launches; with this
+#: pause none did over 150 s (bench/trace_window.py), though query
+#: traces late in a long process still lose some (device_trace)
+TRACE_PAUSE_S = 0.1
 
 
 def _card() -> str:
@@ -65,8 +71,45 @@ def device_us(evt) -> float:
     return 0.0
 
 
-def trace_query(sess, sql: str, torch) -> dict:
+def device_trace(fn, reps: int = 2, tries: int = 1):
+    """fn run ``reps`` times under torch.profiler (CPU + CUDA activities):
+    ``(records, wall_s, whole)``.  ``records`` lists (name, device us,
+    count) per call of every kernel, copy and memset, ``wall_s`` is one
+    call's mean wall (each call ends with a device sync).  The trace
+    idles TRACE_PAUSE_S after it starts and before it stops, and is
+    whole when every name's count is a multiple of ``reps`` (each call
+    enqueues the same work); one that is not, or holds no device record,
+    is taken again, up to ``tries`` times in all.  ``records`` is empty
+    when no trace held a device record.  A trace that is not whole lost
+    records (the pause does not keep them all late in a long process:
+    PERF.md), so its sums read low."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
+    got = ([], 0.0, False)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAUSE_S)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+            wall_s = (time.perf_counter() - t0) / reps
+            time.sleep(TRACE_PAUSE_S)
+        evts = [(e.key, device_us(e), e.count) for e in prof.key_averages()
+                if "CUDA" in str(getattr(e, "device_type", ""))
+                and e.count]
+        whole = bool(evts) and all(c % reps == 0 for _k, _us, c in evts)
+        if evts:
+            got = ([(k, us / reps, c // reps if c % reps == 0 else c / reps)
+                    for k, us, c in evts], wall_s, whole)
+        if whole:
+            break
+    return got
+
+
+def trace_query(sess, sql: str, torch) -> dict:
     t0 = time.perf_counter()
     sess.query(sql)
     torch.cuda.synchronize()
@@ -77,24 +120,13 @@ def trace_query(sess, sql: str, torch) -> dict:
         sess.query(sql)
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
-    for _ in range(3):  # a trace without device events is taken again
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            sess.query(sql)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-        evts = [e for e in prof.key_averages()
-                if "CUDA" in str(getattr(e, "device_type", ""))]
-        if evts:
-            break
+    evts, wall_s, whole = device_trace(lambda: sess.query(sql))
     stats = sess.last_query_stats.summary()
-    n_copies = sum(e.count for e in evts
-                   if e.key.startswith(("Memcpy", "Memset")))
-    n_kernels = sum(e.count for e in evts) - n_copies
-    kernels = [(e.key, device_us(e), e.count)
-               for e in prof.key_averages() if device_us(e) > 0]
-    kernels.sort(key=lambda k: -k[1])
+    n_copies = sum(c for k, _us, c in evts
+                   if k.startswith(("Memcpy", "Memset")))
+    n_kernels = sum(c for _k, _us, c in evts) - n_copies
+    kernels = sorted(((k, us, c) for k, us, c in evts if us > 0),
+                     key=lambda k: -k[1])
     device_s = sum(k[1] for k in kernels) / 1e6
     return {
         "first_run_s": first_s, "warm_best_s": min(warm),
@@ -102,6 +134,7 @@ def trace_query(sess, sql: str, torch) -> dict:
         "device_s": device_s if kernels else None,
         "device_idle_share": (max(0.0, 1.0 - device_s / wall_s)
                               if kernels else None),
+        "trace_whole": whole,
         "cuda_kernels": n_kernels if evts else None,
         "copies": n_copies if evts else None,
         "top_kernels": [{"name": n[:80], "device_ms": us / 1e3, "calls": c}

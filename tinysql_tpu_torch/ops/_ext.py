@@ -89,11 +89,11 @@ _SIGNATURES = {
                                    _vp, _i64, _int, _vp, _vp, _vp]),
     },
     "expr_eval": {
-        "hk7_expr_eval": (_int, [_vp, _int, _vp, _vp, _vp, _vp, _vp, _vp,
-                                 _i64, _i64, _vp]),
-        "hk7b_expr_eval": (_int, [_vp, _int, _vp, _vp, _vp, _vp, _i64, _vp,
-                                  _i64, _vp, _i64, _vp, _i64, _i64, _i64,
-                                  _vp]),
+        "hk7_expr_eval": (_int, [_vp, _int, _int, _vp, _vp, _vp, _vp, _vp,
+                                 _vp, _i64, _i64, _vp]),
+        "hk7b_expr_eval": (_int, [_vp, _int, _int, _vp, _vp, _vp, _vp, _i64,
+                                  _vp, _i64, _vp, _i64, _vp, _i64, _i64,
+                                  _i64, _vp]),
     },
     "csr_expand": {
         "hk8_scratch_words": (_i64, [_i64, _i64]),
@@ -128,7 +128,7 @@ _SIGNATURES = {
     },
     "shard_rank": {
         "hk14_shard_rank": (_int, [_vp, _vp, _i64, _i64, _int, _i64, _vp,
-                                   _vp, _vp]),
+                                   _vp, _vp, _vp]),
     },
 }
 

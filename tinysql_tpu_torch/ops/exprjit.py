@@ -693,14 +693,18 @@ class _Seg:
     """One launch: ``plain`` instructions with physical registers,
     ``code`` their int32 words, and the lanes behind its LD / ST lane
     indexes: ("in", program input) | ("tmp", temp lane) and ("out",
-    program output) | ("tmp", temp lane)."""
-    __slots__ = ("plain", "code", "in_refs", "out_refs")
+    program output) | ("tmp", temp lane).  ``n_regs``: the registers it
+    uses (1 + its highest physical register), which size HK7's shared
+    register file."""
+    __slots__ = ("plain", "code", "in_refs", "out_refs", "n_regs")
 
     def __init__(self, plain, code, in_refs, out_refs):
         self.plain = plain
         self.code = code
         self.in_refs = in_refs
         self.out_refs = out_refs
+        self.n_regs = 1 + max([r for _k, d, u, *_ in plain for r in d + u],
+                              default=-1)
 
 
 def _lower(prog: ExprProgram) -> list:
@@ -760,6 +764,8 @@ def _plan(prog, s, e, first, last):
     for i, (_k, defs, uses, _m) in enumerate(ins):
         for v in uses + defs:
             end[v] = i
+    if len(live_in) > MAX_REGS:
+        return None
     free = list(range(MAX_REGS - 1, -1, -1))
     phys = {}
     for v in live_in:

@@ -1976,7 +1976,7 @@ def expr_eval(prog, cols, params, n: int, n_rows: Optional[int] = None,
             co.nulls[j] = _ptr(m)
             co.guard[j] = int(src == "out")
         _ext.check(lib.hk7_expr_eval(
-            code.data_ptr() + 4 * off, int(seg.code.shape[0]),
+            code.data_ptr() + 4 * off, int(seg.code.shape[0]), seg.n_regs,
             ctypes.byref(ci), ctypes.byref(co), _ptr(pi), _ptr(pf),
             _ptr(m_in), _ptr(mask), n_rows, n, _stream()), "expr_eval")
         if mask is not None:
@@ -2057,7 +2057,7 @@ def expr_eval_batched(prog, cols, params, n: int,
             co.nulls[j] = _ptr(m)
             co.guard[j] = int(src == "out")
         _ext.check(lib.hk7b_expr_eval(
-            code.data_ptr() + 4 * off, int(seg.code.shape[0]),
+            code.data_ptr() + 4 * off, int(seg.code.shape[0]), seg.n_regs,
             ctypes.byref(ci), ctypes.byref(cs), ctypes.byref(co), _ptr(pi),
             int(pi.shape[1]), _ptr(pf), int(pf.shape[1]), _ptr(m_in),
             mstride, _ptr(mask), nmem, n_rows, n, _stream()),
@@ -3256,6 +3256,10 @@ def shard_exchange_plain(keys, n_rows: int, lanes, cap: int,
     return outs
 
 
+#: csrc/shard_rank.cu's kSmall: n * run elements merged by one block
+RANK_SMALL = 1024
+
+
 def shard_rank(ord_lane: torch.Tensor, ids: torch.Tensor, stride: int,
                run: int, n_shards: int, k_out: int) -> torch.Tensor:
     """HK14: the merged order of ``n_shards`` sorted runs.  Element (s, r)
@@ -3276,11 +3280,15 @@ def shard_rank(ord_lane: torch.Tensor, ids: torch.Tensor, stride: int,
     if not _on_card(ids, "shard_rank"):
         return shard_rank_plain(ord_lane, ids, stride, run, n, k_out)
     from . import _ext
-    sk = torch.empty(n * run, dtype=I64, device=dev)
+    # (key, id) pairs of the rounds between the first and the last (two
+    # rounds from 3 runs up, three from 5); one block merges up to
+    # RANK_SMALL elements in shared memory
+    kv = [torch.empty(2 * n * run, dtype=I64, device=dev)
+          if n > lo and n * run > RANK_SMALL else None for lo in (2, 4)]
     out = torch.empty(k_out, dtype=I64, device=dev)
     _ext.check(_ext.lib("shard_rank").hk14_shard_rank(
         ord_lane.data_ptr(), ids.data_ptr(), stride, run, n, k_out,
-        sk.data_ptr(), out.data_ptr(), _stream()), "shard_rank")
+        _ptr(kv[0]), _ptr(kv[1]), out.data_ptr(), _stream()), "shard_rank")
     _count(LAUNCHES, "shard_rank")
     return out
 
