@@ -45,7 +45,15 @@ result line):
    program for B = 2, 3 (the B = 4 launch with an inert padding row), 8
    and 16, HK2b (segment_reduce_batched) at Q1's 16 segments and at a
    2^21-segment sort regime for B = 4, each beside the time of B solo
-   calls and a bound that counts the shared columns once; HK10
+   calls and a bound that counts the shared columns once, and at Q1's
+   lanes for B = 1, 3, 16 and 17 over 2^20 + 5 rows; the few-segment
+   regime shared by HK2, HK2b and HK5 (csrc/few_reduce.cuh) also at
+   TPC-H Q1's 4 groups at their SF=1 frequencies (HK2 over 2^23 rows,
+   HK5 over lineitem's ~6M through a group index), at ns = 1, 64 and 65
+   (the sort regime) over a row count that is not a multiple of the
+   tile, for HK5 at 64 and 65 groups and with an index whose order
+   leaves rows out, beside index_add_ of the SUM lanes over the ids (a
+   partial call); HK10
    (semi_pick, K8's ladder and compaction over HK3's membership) in the
    semi, anti and NOT IN modes at NOT IN's SF=1 shape (1.5M orders
    probing ~3M lineitem keys), with an empty build side, one NULL build
@@ -450,6 +458,111 @@ def lane_float_rows(lanes, head: int, ops=("sum",)):
 
 # ---- phase 2 -------------------------------------------------------------
 
+#: TPC-H Q1's groups (l_returnflag, l_linestatus) at SF=1, as the
+#: query's answer counts them: A|F, N|F, N|O, R|F
+Q1_GROUPS = (1_478_493, 38_854, 2_920_374, 1_478_870)
+
+
+def partial_sum_lanes(gid, valid, lanes):
+    """One PyTorch call beside a few-segment reduction: index_add_ of the
+    stacked float SUM lanes over the live rows' group ids (a partial
+    call: the sums only, not the table).  valid [n] or [B, n] with the
+    lanes' values [B, n]: member b's ids offset by b * ns."""
+    import torch
+    sums = [v for v, _m, op in lanes if op == "sum"]
+    vals = torch.stack(sums, dim=-1)  # [n, k] or [B, n, k]
+    ns = int(gid.max()) + 1
+    if valid.dim() == 2:
+        ids = (gid[None, :] + ns * torch.arange(
+            valid.shape[0], device=gid.device)[:, None])[valid]
+    else:
+        ids = gid[valid]
+    live = vals[valid]
+    rows = ns * (valid.shape[0] if valid.dim() == 2 else 1)
+
+    def call():
+        return torch.zeros((rows, vals.shape[-1]), dtype=vals.dtype,
+                           device=vals.device).index_add_(0, ids, live)
+    return call
+
+
+def few_segment_cases(K, t, rng, hk2_case, gid1, valid1, q1) -> dict:
+    """HK2's few-segment regime (csrc/few_reduce.cuh) beyond the uniform
+    Q1 case: the device time at Q1's shape, TPC-H Q1's 4 groups at their
+    SF=1 frequencies, ns = 1 and both sides of kSmallSeg (64: the last
+    few-segment width, 65: the sort regime) over a row count that is not
+    a multiple of the 4,096-row tile, each held to the plain version and
+    to a second launch, beside the partial index_add_ call."""
+    import numpy as np
+    import torch
+    n = int(valid1.shape[0])
+    p = np.array(Q1_GROUPS) / sum(Q1_GROUPS)
+    gid4 = t(rng.choice(4, n, p=p).astype(np.int64))
+    hk2_case(gid4, valid1, 16, q1, "segment_reduce Q1 4 groups")
+    out = {"q1_device_ms": device_ms(lambda: K.segment_reduce(
+               gid1, valid1, 16, q1)),
+           "q1_partial_index_add_ms": cuda_ms(partial_sum_lanes(
+               gid1, valid1, q1)),
+           "q1_4groups_ms": cuda_ms(lambda: K.segment_reduce(
+               gid4, valid1, 16, q1)),
+           "q1_4groups_device_ms": device_ms(lambda: K.segment_reduce(
+               gid4, valid1, 16, q1)),
+           "q1_4groups_partial_index_add_ms": cuda_ms(partial_sum_lanes(
+               gid4, valid1, q1))}
+    m = 3 * 4096 * 64 + 5  # ~786K rows, not a multiple of the tile
+    lm = [(None if v is None else v[:m], x[:m], op) for v, x, op in q1]
+    for ns in (1, 64, 65):
+        gid = t(rng.integers(0, ns, m), torch.int64)
+        hk2_case(gid, valid1[:m], ns, lm, f"segment_reduce n={m} ns={ns}")
+        out[f"ns{ns}_n{m}_ms"] = cuda_ms(lambda: K.segment_reduce(
+            gid, valid1[:m], ns, lm))
+    return out
+
+
+def few_group_cases(K, t, rng, hk5_case, hk5_bytes, index_of, rows,
+                    valid, q1l) -> dict:
+    """HK5's few-group route (a row -> group map, then the few-segment
+    body in row order): TPC-H Q1's 4 groups over lineitem's rows, ng on
+    both sides of kSmallSeg, and a 4-group index whose order leaves a
+    tenth of the rows out (they belong to no group), each held to the
+    plain version and to a second launch."""
+    import numpy as np
+    nb = int(valid.shape[0])
+    p = np.array(Q1_GROUPS) / sum(Q1_GROUPS)
+    key = rng.choice(4, rows, p=p)
+    order4, ends4, ng4 = index_of(key, nb)
+    hk5_case(order4, ends4, valid, q1l, rows, ng4, "csr_reduce Q1 4 groups")
+    gid4 = t(K.pad1(key.astype(np.int64), nb, fill=4))
+    out = {"q1_4groups_ms": cuda_ms(lambda: K.csr_reduce(
+               order4, ends4, valid, q1l, rows, ng4)),
+           "q1_4groups_device_ms": device_ms(lambda: K.csr_reduce(
+               order4, ends4, valid, q1l, rows, ng4)),
+           "q1_4groups_bound_ms": hk5_bytes(q1l, rows, ng4,
+                                            int(ends4.shape[0]))
+           / MEM_BPS * 1e3,
+           "q1_4groups_partial_index_add_ms": cuda_ms(partial_sum_lanes(
+               gid4[:rows], valid[:rows],
+               [(v[:rows], m, op) for v, m, op in q1l if op == "sum"]))}
+    m = 3 * 4096 * 64 + 5
+    lm = [(None if v is None else v[:m], x[:m], op) for v, x, op in q1l]
+    for ng in (64, 65):
+        order, ends, got = index_of(rng.integers(0, ng, m), m)
+        hk5_case(order, ends, valid[:m], lm, m, got, f"csr_reduce ng={got}")
+        out[f"ng{got}_n{m}_ms"] = cuda_ms(lambda: K.csr_reduce(
+            order, ends, valid[:m], lm, m, got))
+    keep = np.sort(rng.choice(m, m - m // 10, replace=False))
+    kk = rng.integers(0, 4, m)
+    order = np.argsort(kk, kind="stable")
+    order = order[np.isin(order, keep)]
+    sk = kk[order]
+    ends = np.nonzero(np.r_[sk[1:] != sk[:-1], True])[0]
+    hk5_case(t(K.pad1(order.astype(np.int64), m)),
+             t(K.pad1(ends.astype(np.int64), 16, fill=len(order) - 1)),
+             valid[:m], lm, m, len(ends), "csr_reduce rows left out")
+    return out
+
+
+
 def phase_kernels(K, dev):
     import numpy as np
     import torch
@@ -526,6 +639,7 @@ def phase_kernels(K, dev):
             q1.append((rnd_f(n), t(np.zeros(n, bool)), "sum"))
     hk2_case(gid1, valid1, 16, q1, "segment_reduce Q1")
     q1_ms = cuda_ms(lambda: K.segment_reduce(gid1, valid1, 16, q1))
+    few2 = few_segment_cases(K, t, rng, hk2_case, gid1, valid1, q1)
     ns3 = 1 << 21
     gid3 = t(np.concatenate([np.repeat(np.arange(1_500_000), 4),
                              np.zeros(n - 6_000_000, np.int64)]),
@@ -567,6 +681,7 @@ def phase_kernels(K, dev):
         "q1_ms": q1_ms,
         "q1_bound_ms": reduce_bytes(valid1, q1, (2 + 2 * len(q1)) * 16,
                                     gid=True) / MEM_BPS * 1e3,
+        **few2,
         "sum_lane_only_scatter_reduce_ms": cuda_ms(lambda: torch.zeros(
             ns3 + 1, dtype=torch.float64, device=dev).scatter_reduce_(
                 0, g_all, x3, "sum")),
@@ -812,6 +927,8 @@ def phase_kernels(K, dev):
         else:
             q1l.append((rnd_f(n), t(np.zeros(n, bool)), "sum"))
     hk5_case(order1, ends1, valid1q, q1l, rows3, ng1, "csr_reduce Q1")
+    few5 = few_group_cases(K, t, rng, hk5_case, hk5_bytes, index_of, rows3,
+                           valid1q, q1l)
     # skew: one group holds 90% of the rows
     keysk = np.where(rng.random(rows3) < 0.9, 0,
                      rng.integers(0, 1 << 21, rows3))
@@ -860,6 +977,7 @@ def phase_kernels(K, dev):
             order1, ends1, valid1q, q1l, rows3, ng1)),
         "q1_bound_ms": hk5_bytes(q1l, rows3, ng1, int(ends1.shape[0]))
         / MEM_BPS * 1e3,
+        **few5,
         "skew90_ms": cuda_ms(lambda: K.csr_reduce(
             ordersk, endssk, valid5, q3l, rows3, ngsk)),
         "skew90_plain_ms": cuda_ms(lambda: K.csr_reduce_plain(
@@ -1679,7 +1797,8 @@ def phase_k12(K, dev, t, rng, q6x) -> dict:
         same_bytes(k1, K.segment_reduce_batched(gid, valid, ns, lanes),
                    what)
         p = K.segment_reduce_batched_plain(
-            gid, valid, ns, K._norm_lanes(lanes, n, dev, what, nmem))
+            gid, valid, ns, K._norm_lanes(lanes, int(valid.shape[1]), dev,
+                                          what, nmem))
         err = 0.0
         for i in range(nmem):
             same_bytes(k1[i], K.segment_reduce(gid, valid[i], ns,
@@ -1713,8 +1832,11 @@ def phase_k12(K, dev, t, rng, q6x) -> dict:
                  "SUM + 3 count lanes (Q1)",
         "solo_x4_ms": cuda_ms(lambda: [K.segment_reduce(
             gid1, valid1[i], 16, K._member_lanes(q1, i))
-            for i in range(nmem)], reps=5)}
+            for i in range(nmem)], reps=5),
+        "partial_index_add_ms": cuda_ms(partial_sum_lanes(gid1, valid1,
+                                                          q1), reps=5)}
     del q1, valid1
+
     # Q3's lineitem grouped by order: 1.5M groups of 4 rows at SF=1
     live3 = min(6_000_000, 3 * n // 4)
     ns3 = K.bucket(live3 // 4)
@@ -1737,6 +1859,25 @@ def phase_k12(K, dev, t, rng, q6x) -> dict:
             valid3, q3, (2 + 2 * len(q3)) * ns3, gid=True) / MEM_BPS * 1e3,
         "sort_regime_shape": "B=4 members, n=2^23, 2^21 segments, 1 "
                              "float64 SUM lane"})
+    del q3, valid3
+    torch.cuda.empty_cache()
+    # the members run inside a tile's block, kFMem (16) valid masks at a
+    # time: B = 1, 3, 16 and 17 over a row count that is not a multiple of
+    # the tile, each member byte-equal to its solo launch
+    m = (1 << 20) + 5
+    gidm = gid1[:m].contiguous()
+    for members in (1, 3, 16, 17):
+        validm = t(rng.random((members, m)) < 0.98)
+        lm = [(None if j in (5, 7, 9) else
+               t(np.round(rng.uniform(900.0, 105000.0, (members, m)), 2)),
+               t(np.zeros(m, bool)), "count" if j in (5, 7, 9) else "sum")
+              for j in range(10)]
+        hk2b_case(gidm, validm, 16, lm,
+                  f"segment_reduce_batched Q1 B={members} n={m}")
+        out["segment_reduce_batched"][f"b{members}_n{m}_ms"] = cuda_ms(
+            lambda: K.segment_reduce_batched(gidm, validm, 16, lm), reps=5)
+        del validm, lm
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2116,6 +2257,31 @@ def phase_main_path(K, kinfo, device=None):
 
 
 # ---- the mesh phase -------------------------------------------------------
+
+def count_regimes(K) -> dict:
+    """HK2's and HK2b's card launches split by regime (the few-segment
+    regime up to kSmallSeg segments, the sort regime past it), counted
+    from here on: each wrapper is wrapped by a counter (a launch per 16
+    lanes, as LAUNCHES counts them)."""
+    import re
+    import threading
+    src = open(os.path.join(ROOT, "tinysql_tpu_torch", "csrc",
+                            "few_reduce.cuh")).read()
+    small = int(re.search(r"constexpr int kSmallSeg = (\d+);", src).group(1))
+    tally = {name: {"few": 0, "sort": 0}
+             for name in ("segment_reduce", "segment_reduce_batched")}
+    mu = threading.Lock()
+    for name in tally:
+        def counted(gid, valid, ns, lanes, *a, _fn=getattr(K, name),
+                    _name=name, **kw):
+            if valid.device.type == "cuda":
+                with mu:
+                    tally[_name]["few" if ns <= small else "sort"] += \
+                        max(1, -(-len(lanes) // K._MAX_LANES))
+            return _fn(gid, valid, ns, lanes, *a, **kw)
+        setattr(K, name, counted)
+    return tally
+
 
 def kernel_entry(name: str, r: dict) -> dict:
     """The kernels JSON line's entry for one kernel record (launches 0:
@@ -3005,6 +3171,7 @@ def main() -> int:
               f"{r['bound_ms']:.5f} ms (bytes)", flush=True)
     kinfo = {name: kernel_entry(name, r) for name, r in rec.items()}
     # phase 3
+    regimes = count_regimes(K)
     storage = phase_main_path(K, kinfo)
     # the mesh phase, over phase 3's storage
     with K.use_device(dev):
@@ -3012,6 +3179,10 @@ def main() -> int:
 
     # the serve phase: the wire server over phase 3's storage
     phase_serve(K, storage, kinfo)
+    for name, split in regimes.items():
+        print(f"[regimes] {name}: {split['few']} few-segment, "
+              f"{split['sort']} sort-regime launches (kernels line: "
+              f"{kinfo[name]['launches']})", flush=True)
     for k, info in kinfo.items():
         if info["launches"] <= 0:
             raise Mismatch(f"kernel {k} never launched on its path")

@@ -84,6 +84,65 @@ def test_segment_reduce_long_runs_match_plain(dev):
     assert torch.equal(a, K.segment_reduce(gid, valid, ns, lanes))
 
 
+def _same_table(a, b, float_sums, float_minmax=()):
+    """Integers, counts and first rows exactly; float sums to 1e-9
+    relative; float MIN/MAX as floats (the plain HK2 ties -0.0 with
+    +0.0, the kernels order them)."""
+    for r in range(a.shape[0]):
+        x, y = a[r].view(torch.float64), b[r].view(torch.float64)
+        if r in float_sums:
+            torch.testing.assert_close(x, y, rtol=1e-9, atol=1e-12,
+                                       equal_nan=True)
+        elif r in float_minmax:
+            assert bool(((x == y) | (torch.isnan(x) & torch.isnan(y)))
+                        .all()), r
+        else:
+            assert torch.equal(a[r], b[r]), r
+
+
+def test_few_segment_regime_matches_plain(dev):
+    """The few-segment body HK2, HK2b and HK5 share (csrc/few_reduce.cuh):
+    ns on both sides of kSmallSeg (64) over a row count that is not a
+    multiple of the 4,096-row tile, HK2b members past the 16 a block
+    keeps equal to solo launches, and an HK5 index whose order leaves
+    rows out (they belong to no group)."""
+    rng = np.random.default_rng(11)
+    n = 3 * 4096 + 5
+    valid = _t(rng.random(n) < 0.9, dev)
+    v = _t(rng.normal(size=n), dev)
+    v[:4] = torch.tensor([0.0, -0.0, float("nan"), float("inf")])
+    iv = _t(rng.integers(-9, 9, n), dev, torch.int64)
+    m = _t(rng.random(n) < 0.2, dev)
+    lanes = [(v, m, "sum"), (v, None, "min"), (v, m, "max"), (iv, m, "sum"),
+             (iv, None, "max"), (None, m, "count"), (None, None, "count")]
+    for ns in (1, 64, 65):
+        gid = _t(rng.integers(-1, ns + 1, n), dev, torch.int64)
+        a = K.segment_reduce(gid, valid, ns, lanes)
+        _same_table(a, K.segment_reduce_plain(gid, valid, ns, lanes), {2},
+                    {4, 6})
+        assert torch.equal(a, K.segment_reduce(gid, valid, ns, lanes))
+    nmem = 17
+    gid = _t(rng.integers(0, 6, n), dev, torch.int64)
+    vb = _t(rng.random((nmem, n)) < 0.9, dev)
+    bl = [(_t(rng.normal(size=(nmem, n)), dev), m, "sum"), (v, None, "sum"),
+          (None, m, "count")]
+    t = K.segment_reduce_batched(gid, vb, 16, bl)
+    for b in range(nmem):
+        assert torch.equal(t[b], K.segment_reduce(gid, vb[b], 16,
+                                                  K._member_lanes(bl, b)))
+    keys = rng.integers(0, 4, n)
+    order = np.argsort(keys, kind="stable")
+    order = order[rng.random(n)[order] < 0.9]
+    sk = keys[order]
+    ends = np.nonzero(np.r_[sk[1:] != sk[:-1], True])[0]
+    o = _t(K.pad1(order.astype(np.int64), n), dev)
+    e = _t(K.pad1(ends.astype(np.int64), 16, fill=len(order) - 1), dev)
+    a = K.csr_reduce(o, e, valid, lanes, n, len(ends))
+    _same_table(a, K.csr_reduce_plain(o, e, valid, lanes, n, len(ends)),
+                {2})
+    assert torch.equal(a, K.csr_reduce(o, e, valid, lanes, n, len(ends)))
+
+
 def test_equi_join_and_lex_order_match_plain(dev):
     rng = np.random.default_rng(1)
     n = 5000

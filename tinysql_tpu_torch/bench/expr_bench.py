@@ -257,11 +257,11 @@ def bench_dir(root: str) -> str:
     return d
 
 
-def ptxas(root: str, emit) -> None:
+def ptxas(root: str, emit, sources=("expr_eval", "shard_rank")) -> None:
     """Registers, stack frame and spill bytes per kernel (ptxas -v), and
-    the LDL / STL instructions of its SASS."""
+    the LDL / STL instructions of its SASS, for each of ``sources``."""
     d = bench_dir(root)
-    for source in ("expr_eval", "shard_rank"):
+    for source in sources:
         lib = os.path.join(d, f"ptxas_{source}.so")
         cmd = nvcc_cmd(root, source, ["-Xptxas", "-v", "-o", lib])
         got = subprocess.run(cmd, capture_output=True, text=True)

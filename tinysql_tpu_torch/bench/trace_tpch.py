@@ -15,7 +15,8 @@ with 8 virtual shards — TINYSQL_MESH_SHARDS set for that run only, the
 tiers "pipeline_mesh" and "per_op_mesh" —, then the trio): the first
 run's wall, the best of
 three warm walls,
-and two more warm runs under torch.profiler (device_trace) giving
+and two more warm runs under torch.profiler (device_trace, taken up to
+three times until whole) giving
 a run's device time summed over its kernels (one stream, so kernels do
 not overlap), the device idle share of its wall, whether the trace was
 whole, the number of CUDA kernels and of copies it launched, the
@@ -120,7 +121,7 @@ def trace_query(sess, sql: str, torch) -> dict:
         sess.query(sql)
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
-    evts, wall_s, whole = device_trace(lambda: sess.query(sql))
+    evts, wall_s, whole = device_trace(lambda: sess.query(sql), tries=3)
     stats = sess.last_query_stats.summary()
     n_copies = sum(c for k, _us, c in evts
                    if k.startswith(("Memcpy", "Memset")))

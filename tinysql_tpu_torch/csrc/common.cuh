@@ -214,6 +214,8 @@ __global__ void fill_i64(int64_t* p, int64_t n, int64_t v) {
   for (; i < n; i += stride) p[i] = v;
 }
 
+inline int64_t align16(int64_t b) { return (b + 15) & ~(int64_t)15; }
+
 inline unsigned grid_for(int64_t n, int threads, int64_t cap = 65535) {
   int64_t g = (n + threads - 1) / threads;
   if (g < 1) g = 1;

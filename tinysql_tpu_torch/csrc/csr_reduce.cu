@@ -23,16 +23,31 @@
 // positions below n_rows), each lane's values and NULL mask once over them,
 // ends once over the ng real groups; the table is written once.
 //
-// Design.  One thread per group walks its run in sorted order; rows ascend
-// within a group (the index comes from a stable sort), so the first valid
-// row met is the group's first.  A group of more than kLongRun rows (TPC-H
-// Q1: six groups of about a million rows) goes to run_reduce.cuh's
-// long-run queue: kChunk-row chunks, a block each, folded in chunk order,
-// with presence and first row as a pseudo-lane.  Float sums therefore
-// have a fixed order and the result is bit-identical from run to run;
-// the reference instead folded a running prefix sum's rounding into each
-// group, within its 1e-6 relative bound.  Float min/max compare order
-// keys (-0.0 < +0.0), as HK2 does.
+// Design, in two routes chosen on the host by the group count:
+// - ng <= kSmallSeg (TPC-H Q1: 4 live groups, each a quarter of lineitem
+//   spread over it): reduce in row order, not through the sorted order.
+//   One pass reads `order` once over the live positions, with `ends` in
+//   shared memory, and writes each named row's group as a byte into a
+//   row -> group map in the scratch (rows no live position names, and
+//   rows at or past n_rows, keep "no group"); then few_reduce.cuh, the
+//   body of HK2's few-segment regime, reduces the rows in row order over
+//   that map: every lane read coalesced and once, each group summing its
+//   own rows.  The live positions must name distinct rows, as a group
+//   index (a stable argsort of the rows) does.
+// - more groups: one thread per group walks its run in sorted order;
+//   rows ascend within a group (the index comes from a stable sort), so
+//   the first valid row met is the group's first.  A group of more than
+//   kLongRun rows (a skewed key) goes to run_reduce.cuh's long-run queue:
+//   kChunk-row chunks, a block each, folded in chunk order, with presence
+//   and first row as a pseudo-lane.
+// Float sums therefore have a fixed order and the result is bit-identical
+// from run to run; the reference instead folded a running prefix sum's
+// rounding into each group, within its 1e-6 relative bound.  Float
+// min/max compare order keys (-0.0 < +0.0), as HK2 does.
+//
+// Bound of the few-group route's extra traffic: the map's byte a row,
+// written once and read once.
+#include "few_reduce.cuh"
 #include "run_reduce.cuh"
 
 namespace {
@@ -87,10 +102,40 @@ __global__ void cr_groups(const int64_t* __restrict__ order,
   }
 }
 
+// The few-group route's row -> group map: map[order[q]] = the group of
+// sorted position q (the first g < ng with ends[g] >= q) for the live
+// positions q < n_rows whose row lies in [0, n_rows); every other byte
+// keeps kNone from the memset before.
+__global__ void cr_map(const int64_t* __restrict__ order,
+                       const int64_t* __restrict__ ends, int64_t n_rows,
+                       int ng, uint8_t* __restrict__ map) {
+  __shared__ int64_t s_ends[kSmallSeg];
+  for (int g = threadIdx.x; g < ng; g += blockDim.x) s_ends[g] = ends[g];
+  __syncthreads();
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       q < n_rows; q += stride) {
+    int lo = 0, hi = ng;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_ends[mid] >= q) hi = mid;
+      else lo = mid + 1;
+    }
+    if (lo == ng) continue;
+    const int64_t r = order[q];
+    if (r >= 0 && r < n_rows) map[r] = (uint8_t)lo;
+  }
+}
+
 }  // namespace
 
+// the larger of the two routes' scratch: the long-run queue, or the map
+// (16-byte aligned) and the tile partials at kSmallSeg groups
 TS_API int64_t hk5_scratch_bytes(int64_t n_rows, int nlanes) {
-  return long_queue_bytes(n_rows, nlanes + 1);
+  const int64_t few =
+      align16(n_rows) + few_part_bytes(1, n_rows, kSmallSeg, nlanes);
+  const int64_t runs = long_queue_bytes(n_rows, nlanes + 1);
+  return few > runs ? few : runs;
 }
 
 TS_API int hk5_csr_reduce(const int64_t* order, const int64_t* ends,
@@ -100,6 +145,18 @@ TS_API int hk5_csr_reduce(const int64_t* order, const int64_t* ends,
   if (lanes->n < 0 || lanes->n >= kMaxLanes || ngb < 1 || ng < 0 ||
       ng > ngb || n_rows < 0)
     return -1;
+  if (ng > 0 && ng <= kSmallSeg) {
+    uint8_t* map = (uint8_t*)scratch;
+    if (n_rows > 0) {
+      cudaMemsetAsync(map, (int)kNone, n_rows, st);
+      LAUNCH(cr_map, grid_for(n_rows, 256, 4096), 256, 0, st, order, ends,
+             n_rows, (int)ng, map);
+    }
+    const LaneStrides none = {};
+    return few_reduce(MapKeys{map}, valid, 0, 1, n_rows, (int)ng, ngb,
+                      *lanes, none, (FewPart*)(map + align16(n_rows)), out,
+                      n_rows, st);
+  }
   const LongQueue q = long_queue_at(scratch, n_rows);
   LAUNCH(run_init, grid_for((2 + 2 * lanes->n) * ngb, 256, 1 << 16), 256, 0,
          st, *lanes, ngb, n_rows, out, q.runs);

@@ -232,7 +232,6 @@ constexpr unsigned kAggregate = 1, kPrefix = 2;
 __host__ __device__ inline int64_t radix_tiles(int64_t n) {
   return (n + kRTile - 1) / kRTile;
 }
-inline int64_t align16(int64_t b) { return (b + 15) & ~(int64_t)15; }
 
 // byte offsets of the words after the 4n buffer words; returns their size
 inline int64_t radix_words_layout(int m, int64_t n, int64_t off[7]) {

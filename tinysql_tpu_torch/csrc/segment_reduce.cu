@@ -22,12 +22,12 @@
 // 2^21 segments: ~0.6 GB at 2^23 rows).
 //
 // Design, in two regimes chosen by the segment count:
-// - ns <= 64 (TPC-H Q1: 6 groups): every block privatises its partials in
-//   shared memory.  Float sums accumulate in a per-(segment, thread) slot,
-//   so each slot sums its rows in row order and the slots fold in thread
-//   order; integer counts and order-mapped min/max use shared-memory
-//   integer atomics, whose result does not depend on their order.  A
-//   second pass folds the block partials in block order.
+// - ns <= kSmallSeg (TPC-H Q1: 4 live groups of 16): few_reduce.cuh, shared
+//   with HK5's few groups.  One pass in row order over tiles of a
+//   constant size: each tile's group ids and valid mask are read once,
+//   then lane by lane its values and NULL mask, into per-thread slots in
+//   shared memory (one writer each, no atomics), folded by fixed trees in
+//   the tile, then the tiles in tile order.
 // - more segments (Q3: ~1.5M orders at SF=1): a stable sort of the row ids
 //   by group id (lex_sort.cuh: above 2^16 rows a radix sort that skips
 //   the digits equal in every row, so ids below ns take only the digits
@@ -52,147 +52,24 @@
 // HK2b, the batched entry point (K12, tinysql_tpu/ops/kernels.py:1197-1266
 // stacked_variant over this program): B members of a stacked round share
 // the group ids and each brings its own valid mask and lanes
-// (LaneStrides); one call writes B tables.  In both regimes the member is
-// a grid axis of the same kernels, and a solo launch is HK2b at B = 1 with
-// zero strides.  In the sort regime the row ids are sorted by group id
-// once (the ids are shared); each member then keeps its live rows of that
-// order by a stable compaction (a scan per member) and reduces the runs
-// of what it kept.  Same block partition, same runs, same merge order:
-// every member's table is bit-identical to a solo launch's.
+// (LaneStrides); one call writes B tables, and a solo launch is HK2b at
+// B = 1 with zero strides.  In the few-segment regime the members run in
+// turn inside each tile's block, over its group ids loaded once and each
+// lane the members share loaded once; member b's arithmetic is a solo
+// launch's.  In the sort regime the member is a grid axis, and the row
+// ids are sorted by group id once (the ids are shared); each member then
+// keeps its live rows of that order by a stable compaction (a scan per
+// member) and reduces the runs of what it kept.  Same block partition,
+// same runs, same merge order: every member's table is bit-identical to
+// a solo launch's.
 // Bound: bytes, gid once over the rows valid in any member, then per
 // member its mask over every row, its lanes over its valid rows and its
 // table written once.
+#include "few_reduce.cuh"
 #include "lex_sort.cuh"
 #include "run_reduce.cuh"
 
 namespace {
-
-constexpr int kSmallSeg = 64;
-constexpr int kSThreads = 64;
-constexpr int kSMaxBlocks = 256;
-
-struct Part {
-  int64_t v;
-  int64_t cnt;
-  int64_t nan;
-};
-
-// member b = blockIdx.z: valid + b * vstride, its lanes by S, its
-// partials at part + b * (L.n + 1) * gridDim.x * ns
-__global__ void sr_small_partial(const int64_t* __restrict__ gid,
-                                 const uint8_t* __restrict__ valid_all,
-                                 int64_t n, int64_t vstride, int ns, Lanes L,
-                                 LaneStrides S, Part* __restrict__ part_all) {
-  __shared__ int64_t s_acc[kSmallSeg * kSThreads];  // [segment][thread]
-  __shared__ int64_t s_cnt[kSmallSeg];
-  __shared__ int64_t s_mm[kSmallSeg];
-  __shared__ int s_nan[kSmallSeg];
-  const int lane = blockIdx.y;  // == L.n: presence / first row
-  const int64_t b = blockIdx.z;
-  const uint8_t* __restrict__ valid = valid_all + b * vstride;
-  Part* __restrict__ part =
-      part_all + b * (L.n + 1) * (int64_t)gridDim.x * ns;
-  const int t = threadIdx.x;
-  const bool pres = lane == L.n;
-  const int kind = pres ? KIND_I64 : L.kind[lane];
-  const int op = pres ? OP_MIN : L.op[lane];
-  for (int g = t; g < ns; g += blockDim.x) {
-    s_cnt[g] = 0;
-    s_nan[g] = 0;
-    s_mm[g] = mm_key_identity(op == OP_MAX ? OP_MAX : OP_MIN);
-  }
-  for (int g = 0; g < ns; ++g) s_acc[g * kSThreads + t] = 0;
-  __syncthreads();
-  const uint8_t* nl = pres ? nullptr : member_nulls(L, S, lane, b);
-  const void* xv = pres ? nullptr : member_vals(L, S, lane, b);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + t; i < n; i += stride) {
-    if (!valid[i]) continue;
-    const int64_t g = gid[i];
-    if (g < 0 || g >= ns) continue;
-    if (pres) {
-      atomic_add_i64(&s_cnt[g], 1);
-      atomic_min_i64(&s_mm[g], i);
-      continue;
-    }
-    if (nl && nl[i]) continue;
-    atomic_add_i64(&s_cnt[g], 1);
-    if (op == OP_COUNT) continue;
-    int64_t* slot = &s_acc[g * kSThreads + t];
-    if (kind == KIND_I64) {
-      int64_t x = ((const int64_t*)xv)[i];
-      if (op == OP_SUM) *slot = wrap_add(*slot, x);
-      else if (op == OP_MIN) atomic_min_i64(&s_mm[g], x);
-      else atomic_max_i64(&s_mm[g], x);
-    } else {
-      double x = ((const double*)xv)[i];
-      if (op == OP_SUM) *slot = f64_to_bits(bits_to_f64(*slot) + x);
-      else if (is_nan_f64(x)) atomicOr(&s_nan[g], 1);
-      else if (op == OP_MIN) atomic_min_i64(&s_mm[g], f64_order_key(x));
-      else atomic_max_i64(&s_mm[g], f64_order_key(x));
-    }
-  }
-  __syncthreads();
-  for (int g = t; g < ns; g += blockDim.x) {
-    Part r;
-    r.cnt = s_cnt[g];
-    r.nan = s_nan[g];
-    if (op == OP_SUM) {
-      const int64_t* a = &s_acc[g * kSThreads];
-      if (kind == KIND_I64) {
-        int64_t v = 0;
-        for (int k = 0; k < kSThreads; ++k) v = wrap_add(v, a[k]);
-        r.v = v;
-      } else {
-        double v = 0.0;
-        for (int k = 0; k < kSThreads; ++k) v += bits_to_f64(a[k]);
-        r.v = f64_to_bits(v);
-      }
-    } else {
-      r.v = s_mm[g];
-    }
-    part[((int64_t)lane * gridDim.x + blockIdx.x) * ns + g] = r;
-  }
-}
-
-// member b = blockIdx.y: its partials, its table at out + b * rows * ns
-__global__ void sr_small_merge(Lanes L, const Part* __restrict__ part_all,
-                               int nblk, int ns, int64_t n,
-                               int64_t* __restrict__ out_all) {
-  const int lane = blockIdx.x;
-  const int64_t b = blockIdx.y;
-  const int g = threadIdx.x;
-  if (g >= ns) return;
-  const Part* __restrict__ part = part_all + b * (L.n + 1) * nblk * ns;
-  int64_t* __restrict__ out = out_all + b * (2 + 2 * L.n) * ns;
-  const bool pres = lane == L.n;
-  const int kind = pres ? KIND_I64 : L.kind[lane];
-  const int op = pres ? OP_MIN : L.op[lane];
-  int64_t cnt = 0, nan = 0;
-  int64_t v = op == OP_SUM ? 0 : mm_key_identity(op == OP_MAX ? OP_MAX : OP_MIN);
-  double fv = 0.0;
-  for (int b = 0; b < nblk; ++b) {
-    const Part p = part[((int64_t)lane * nblk + b) * ns + g];
-    cnt += p.cnt;
-    nan |= p.nan;
-    if (op == OP_SUM) {
-      if (kind == KIND_I64) v = wrap_add(v, p.v);
-      else fv += bits_to_f64(p.v);
-    } else if (op == OP_MIN) {
-      v = p.v < v ? p.v : v;
-    } else if (op == OP_MAX) {
-      v = p.v > v ? p.v : v;
-    }
-  }
-  if (pres) {
-    out[g] = cnt;
-    out[ns + g] = cnt ? v : n;
-    return;
-  }
-  if (op == OP_SUM && kind == KIND_F64) v = f64_to_bits(fv);
-  out[(int64_t)(2 + 2 * lane) * ns + g] = finish_value(kind, op, v, cnt, nan);
-  out[(int64_t)(3 + 2 * lane) * ns + g] = cnt;
-}
 
 // ---- many segments: stable sort by group, then a thread or block per run -
 
@@ -265,13 +142,6 @@ struct SortedRows {
   const int64_t* spos;
   __device__ int64_t operator()(int64_t q) const { return spos[q]; }
 };
-
-int64_t small_blocks(int64_t n) {
-  int64_t b = (n + kSThreads * 16 - 1) / (kSThreads * 16);
-  if (b < 1) b = 1;
-  if (b > kSMaxBlocks) b = kSMaxBlocks;
-  return b;
-}
 
 // ---- the sort regime: one sort by group id, a compaction per member ----
 
@@ -430,23 +300,6 @@ __global__ void present_gather(const int64_t* __restrict__ table, int rows,
   }
 }
 
-// the shared-memory regime for nmem members (member b's mask at
-// valid + b * vstride, its table at out + b * (2 + 2 * L.n) * ns)
-int launch_small(const int64_t* gid, const uint8_t* valid, int64_t nmem,
-                 int64_t n, int64_t vstride, int64_t ns, const Lanes* lanes,
-                 const LaneStrides* S, void* scratch, int64_t* out,
-                 cudaStream_t st) {
-  const int nblk = (int)small_blocks(n);
-  Part* part = (Part*)scratch;
-  dim3 g1((unsigned)nblk, (unsigned)(lanes->n + 1), (unsigned)nmem);
-  LAUNCH(sr_small_partial, g1, kSThreads, 0, st, gid, valid, n, vstride,
-         (int)ns, *lanes, *S, part);
-  dim3 g2((unsigned)(lanes->n + 1), (unsigned)nmem);
-  LAUNCH(sr_small_merge, g2, kSmallSeg, 0, st, *lanes, (const Part*)part,
-         nblk, (int)ns, n, out);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // bytes of the sort regime's Members region (nmem members' kept
@@ -457,14 +310,14 @@ static int64_t members_bytes(int64_t nmem, int64_t n, int nlanes) {
                          long_queue_bytes(n, nlanes)));
 }
 
-// nmem members: per member the shared-memory regime's block partials, or
+// nmem members: per member the few-segment regime's tile partials, or
 // the sort regime's keys and sorted order, once, then per member its kept
 // positions, count, block totals and long-run queue with its chunk
 // partials, then the sort's own scratch
 TS_API int64_t hk2b_scratch_bytes(int64_t nmem, int64_t n, int64_t ns,
                                   int nlanes) {
   if (ns <= kSmallSeg)
-    return nmem * (int64_t)sizeof(Part) * (nlanes + 1) * small_blocks(n) * ns;
+    return few_part_bytes(nmem, n, ns, nlanes);
   return 8 * n + 8 * n + members_bytes(nmem, n, nlanes) +
          lex_sort_scratch_bytes(1, n, -1);
 }
@@ -484,8 +337,8 @@ TS_API int hk2b_segment_reduce(const int64_t* gid, const uint8_t* valid,
       nmem > 65535)
     return -1;
   if (ns <= kSmallSeg)
-    return launch_small(gid, valid, nmem, n, n, ns, lanes, strides, scratch,
-                        out, st);
+    return few_reduce(GidKeys{gid, ns}, valid, n, nmem, n, (int)ns, ns,
+                      *lanes, *strides, (FewPart*)scratch, out, n, st);
   uint64_t* keys = (uint64_t*)scratch;
   int64_t* spos = (int64_t*)(keys + n);
   Members M;

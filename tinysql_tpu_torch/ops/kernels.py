@@ -1296,7 +1296,9 @@ def csr_reduce(order: torch.Tensor, ends: torch.Tensor,
     index).  ``order`` int64[nb] maps sorted positions to rows (positions
     at or past ``n_rows`` are padding); ``ends`` int64[ngb] holds each
     group's last sorted position (groups at or past ``ng`` are padding);
-    ``valid`` and the lanes are in row space.  Returns HK2's table layout,
+    ``valid`` and the lanes are in row space; the live positions name
+    distinct rows below ``n_rows`` (a group index is a permutation of its
+    rows).  Returns HK2's table layout,
     int64[(2 + 2 * len(lanes)), ngb]: presence, first valid row (sentinel
     ``n_rows`` when none), then per lane its values (float64 bit-cast;
     identity when empty) and live counts."""
