@@ -59,6 +59,21 @@ result line):
    probing ~3M lineitem keys), with an empty build side, one NULL build
    key and NULL probe keys, byte for byte against its plain version,
    beside torch.nonzero over the same keep mask (a partial call);
+   HK1 as one launch also at n = 0, 1 and one past a block's range, and
+   at Q6's shape bit-equal to the numpy model of its order
+   (tinysql_tpu_torch/bench/hk1model.py), beside a masked torch.sum (a
+   partial call); HK1b at B = 1, 3, 8 and 17 over 2^20 + 5 rows, each
+   member byte-equal to its solo call; HK3's packed unique probe
+   (equi_join_unique_packed: [count, li_0, ri_0, ...], no host pull)
+   against the plain pairs, the device header's table kind on both sides
+   of dense_ok (n_live 30,000 and 2^21), each case's pairs, membership
+   and multiplicity mode against the plain versions, beside
+   torch.searchsorted of the probe keys (a partial call); then a
+   [pulls] line: the host syncs of one unique_join_match (inner and
+   outer), join_match and semi_join_match call at Q3 join 1's shape
+   (torch.cuda.set_sync_debug_mode, the uploads' own syncs left out)
+   against the counted pulls (d2h_transfers), which must be equal and
+   at most 2, 1, 2 and 2;
 3. the main path: new_session() on cuda, tpch.load at SF=1 (seed 7), then
    TPC-H Q1, Q3, Q6, Q13 and the workload trio Q5, Q10, Q18 through SQL
    with tidb_use_tpu=1, on each device tier in turn: the pipeline tier
@@ -255,10 +270,11 @@ ONE_D2H = ("Q13",)
 #: columns instead of the CPU tier's (whose row-at-a-time joins take
 #: minutes on them at SF=1)
 NUMPY_ROWS = {"Q13": "q13_rows", "Q5": "q5_rows"}
-#: warm repeats per query; the workload trio takes one on the
-#: per-operator tier (Q5's host joins take seconds a run at SF=1)
+#: warm repeats per query; the workload trio takes one on both tiers
+#: (Q5's host joins take seconds a run at SF=1, and the script must stay
+#: well inside its time limit)
 WARM = 3
-TRIO_PER_OP_WARM = 1
+TRIO_WARM = 1
 #: queries whose answer may hold no row (Q22: this generator leaves ~7 of
 #: 150,000 customers without an order)
 EMPTY_OK = ("Q22",)
@@ -563,6 +579,97 @@ def few_group_cases(K, t, rng, hk5_case, hk5_bytes, index_of, rows,
 
 
 
+def _host_lanes(lanes):
+    return [(None if v is None else v.cpu().numpy(),
+             None if m is None else m.cpu().numpy(), op)
+            for v, m, op in lanes]
+
+
+def hk1_one_launch_cases(K, t, valid, q6, hk1_case) -> dict:
+    """HK1 as one launch: n = 0, 1 and one past a block's range
+    (4,097 rows) against the plain version and a second launch; at Q6's
+    shape bit-equal to the numpy model of its order (bench/hk1model.py);
+    beside it a masked torch.sum of the lane (a partial call: the sum
+    only, no counts or first row)."""
+    import numpy as np
+    import torch
+    from tinysql_tpu_torch.bench import hk1model as M
+    rng = np.random.default_rng(SEED + 12)
+    for nn in (0, 1, 4097):
+        lanes = [(t(np.round(rng.uniform(900.0, 105000.0, nn), 2)),
+                  t(rng.random(nn) < 0.2), "sum"),
+                 (t(rng.integers(-9, 9, nn), torch.int64), None, "max"),
+                 (None, None, "count")]
+        hk1_case(nn, lanes, t(rng.random(nn) < 0.6), f"masked_reduce n={nn}")
+    got = K.masked_reduce(valid, q6).cpu().numpy()
+    want = M.masked_reduce(valid.cpu().numpy(), _host_lanes(q6))
+    if got.tobytes() != want.tobytes():
+        raise Mismatch("masked_reduce Q6: not the model's order of work")
+    x = q6[0][0]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return {"model_bit_equal": True,
+            "partial_masked_sum_ms": cuda_ms(
+                lambda: torch.where(valid, x, zero).sum())}
+
+
+def hk3_unique_cases(K, t, join1, hk3_case) -> dict:
+    """HK3's unique probe without host pulls: the packed buffer
+    against the plain pairs and a second launch at Q3 join 1; the
+    header's table kind on both sides of dense_ok (live keys spanning
+    card = max(2^22, 4 * n_live), dense, or one more, hash) at n_live =
+    30,000 and 2^21, each case's pairs, membership and multiplicity mode
+    against the plain versions; beside them torch.searchsorted of the
+    probe keys into the sorted live build keys (a partial call: the probe
+    only, the build sorted for it) and equi_join_unique, which adds the
+    count's pull to the packed call."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 13)
+    lk, z_l, lv, rk, z_r, rv = join1
+    a = K.equi_join_unique_packed(*join1)
+    n = int(a[0])  # words past 1 + 2 * n are not written
+    same_bytes(a[:1 + 2 * n], K.equi_join_unique_packed(*join1)[:1 + 2 * n],
+               "equi_join packed")
+    li, ri = K.equi_join_unique_plain(*join1)
+    if n != li.numel() or not torch.equal(a[1:1 + 2 * n:2], li) \
+            or not torch.equal(a[2:2 + 2 * n:2], ri):
+        raise Mismatch("equi_join packed: pairs differ from the plain ones")
+    kinds = {}
+    for n_live in (30_000, 1 << 21):
+        for above in (0, 1):
+            card = max(1 << 22, 4 * n_live) + above
+            bk = rng.choice(card, n_live, replace=False).astype(np.int64)
+            bk[:2] = [0, card - 1]
+            pk = rng.integers(-5, card + 5, 1 << 20).astype(np.int64)
+            pk[:n_live // 2] = rng.choice(bk, n_live // 2)
+            args = (t(pk), t(np.zeros(1 << 20, bool)),
+                    t(rng.random(1 << 20) < 0.9), t(bk),
+                    t(np.zeros(n_live, bool)), t(np.ones(n_live, bool)))
+            hdr = K.equi_join_header(*args[3:])[:5].tolist()
+            if hdr[3] != int(K.dense_ok(card, n_live)) or \
+                    hdr[3] != 1 - above or hdr[:3] != [n_live, 0, card - 1]:
+                raise Mismatch(f"equi_join header {hdr} at card {card}, "
+                               f"n_live {n_live}")
+            what = f"equi_join n_live={n_live} card={card}"
+            for outer in (False, True):
+                hk3_case(*args, outer, what)
+                hk3_case(*args, outer, what + " mult", mult=True)
+            if not torch.equal(K.unique_match(*args),
+                               K._unique_probe_plain(*args)[0]):
+                raise Mismatch(what + ": membership differs")
+            kinds[f"n_live{n_live}_card{card}"] = "dense" if hdr[3] \
+                else "hash"
+    live = rv & ~z_r
+    sk = torch.sort(rk[live]).values
+    return {"table_kinds": kinds,
+            "device_ms_unique_with_count_pull": device_ms(
+                lambda: K.equi_join_unique(*join1)),
+            "unique_with_count_pull_ms": cuda_ms(
+                lambda: K.equi_join_unique(*join1)),
+            "partial_searchsorted_ms": cuda_ms(
+                lambda: torch.searchsorted(sk, lk))}
+
+
 def phase_kernels(K, dev):
     import numpy as np
     import torch
@@ -612,6 +719,8 @@ def phase_kernels(K, dev):
     hk1_case(ne, lanes_e, t(np.zeros(ne, bool)), "masked_reduce empty")
     hk1_case(16, [(vi[:16], None, "sum")], t(np.ones(16, bool)),
              "masked_reduce n=16")
+    rec["masked_reduce"].update(hk1_one_launch_cases(K, t, valid, q6,
+                                                     hk1_case))
 
     # -- HK2 segment_reduce: Q1 (6 groups, 10 lanes), Q3 (2^21 segs) ----
     def hk2_case(gid, valid, ns, lanes, what):
@@ -738,14 +847,17 @@ def phase_kernels(K, dev):
     rv = t(rng.random(nr) < 0.91)
     z_l, z_r = t(np.zeros(nl, bool)), t(np.zeros(nr, bool))
     n_out = hk3_case(lk, z_l, lv, rk, z_r, rv, False, "equi_join Q3 join1")
+    # the packed call is what unique_join_match launches (no host pull)
     rec["equi_join"] = {
         "max_abs_err": 0.0,
-        **timed(lambda: K.equi_join_unique(lk, z_l, lv, rk, z_r, rv)),
+        **timed(lambda: K.equi_join_unique_packed(lk, z_l, lv, rk, z_r,
+                                                  rv)),
         "plain_ms": cuda_ms(lambda: K.equi_join_unique_plain(
             lk, z_l, lv, rk, z_r, rv)),
         "library_ms": None,
         "bytes": nl * 10 + nr * 10 + n_out * 16, "ops": nl + nr,
-        "shape": f"probe 2^20, build 2^15, {n_out} pairs (Q3 join 1)"}
+        "shape": f"probe 2^20, build 2^15, {n_out} pairs (Q3 join 1)",
+        **hk3_unique_cases(K, t, (lk, z_l, lv, rk, z_r, rv), hk3_case)}
     # join 2 shape: 2^18 probe against a 2^20 aggregate output
     lk2 = t(rng.integers(1, 1_500_001, 1 << 18), torch.int64)
     rk2 = t(np.arange(1 << 20) + 1, torch.int64)
@@ -1786,6 +1898,26 @@ def phase_k12(K, dev, t, rng, q6x) -> dict:
         del got, valid, rev, lanes, r1
     out["expr_eval_batched"].update(ee)
     out["masked_reduce_batched"].update(mr)
+    # HK1b as one launch: B = 1, 3, 8, 17 members over 2^20 + 5
+    # rows (member b's mask starts at any byte), each row byte-equal to a
+    # solo call and agreeing with the plain version, and a second launch
+    rb = np.random.default_rng(SEED + 14)
+    m = (1 << 20) + 5
+    for members in (1, 3, 8, 17):
+        vb = t(rb.random((members, m)) < 0.02)
+        lb = [(t(np.round(rb.uniform(900.0, 105000.0, (members, m)), 2)),
+               t(np.zeros(m, bool)), "sum")]
+        r1 = K.masked_reduce_batched(vb, lb)
+        what = f"masked_reduce_batched B={members} n={m}"
+        same_bytes(r1, K.masked_reduce_batched(vb, lb), what)
+        check_table(r1.T.contiguous(), K.masked_reduce_batched_plain(
+            vb, lb).T.contiguous(), {2}, what)
+        for i in range(members):
+            same_bytes(r1[i], K.masked_reduce(vb[i], K._member_lanes(lb, i)),
+                       f"{what} member {i} vs solo")
+        out["masked_reduce_batched"][f"b{members}_n{m}_ms"] = cuda_ms(
+            lambda: K.masked_reduce_batched(vb, lb), reps=5)
+        del vb, lb, r1
 
     # HK2b: Q1's shape (16 segments, 6 used, 10 lanes) and the sort regime
     def per_member_f(nmem):
@@ -1987,6 +2119,75 @@ def offpath(K, dev, t, rng) -> dict:
             for name, (fn, fp, b) in out.items()}
 
 
+def pull_counts(K) -> dict:
+    """Host syncs per call of the per-operator joins at Q3 join 1's shape
+    (orders probe customer: 2^20 probe rows, 2^15 build rows): every
+    synchronizing CUDA call, seen by torch.cuda.set_sync_debug_mode
+    ("warn"), less those inside the inputs' uploads (kernels.h2d),
+    against the counted pulls (STATS["d2h_transfers"]).
+    An uncounted sync fails the run, as does a count above the one the
+    call should make: unique_join_match 2 (inner, more pairs than
+    PRESENT_HEAD) or 1 (outer), join_match 2, semi_join_match 1 or 2."""
+    import warnings
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    nl, nr = 1 << 20, 1 << 15
+    lk = rng.integers(1, 150_001, nl).astype(np.int64)
+    lv = (np.arange(nl) < 1_500_000) & (rng.random(nl) < 0.486)
+    rk = (np.arange(1, nr + 1) * 5).astype(np.int64)
+    rv = rng.random(nr) < 0.91
+    zl, zr = np.zeros(nl, bool), np.zeros(nr, bool)
+    calls = {
+        "unique_join_match": (lambda: K.unique_join_match(
+            (lk, zl), nl, (rk, zr), nr, lvalid=lv, rvalid=rv), 2),
+        "unique_join_match_outer": (lambda: K.unique_join_match(
+            (lk, zl), nl, (rk, zr), nr, outer=True, lvalid=lv,
+            rvalid=rv), 1),
+        "join_match": (lambda: K.join_match(
+            (lk, zl), nl, (rk, zr), nr, lvalid=lv, rvalid=rv), 2),
+        "semi_join_match": (lambda: K.semi_join_match(
+            (lk, zl), nl, (rk, zr), nr, anti=True, null_aware=True,
+            lvalid=lv, rvalid=rv), 2),
+    }
+    up = {"syncs": 0}
+    h2d = K.h2d
+    out = {}
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+
+            def counted_h2d(a, _h2d=h2d):
+                before = len(seen)
+                r = _h2d(a)
+                up["syncs"] += len(seen) - before
+                return r
+            K.h2d = counted_h2d
+            for name, (fn, want) in calls.items():
+                for rep in range(2):  # the first run's may be one-off
+                    torch.cuda.synchronize()
+                    up["syncs"] = 0
+                    before = K.stats_snapshot()["d2h_transfers"]
+                    del seen[:]
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        res = fn()
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                syncs = sum("synchroniz" in str(w.message) for w in seen) \
+                    - up["syncs"]
+                d2h = K.stats_snapshot()["d2h_transfers"] - before
+                rows = len(res[0]) if isinstance(res, tuple) else len(res)
+                out[name] = {"syncs": syncs, "d2h": d2h, "rows": rows}
+                if syncs != d2h or d2h > want:
+                    raise Mismatch(f"{name}: {syncs} syncs, {d2h} counted "
+                                   f"pulls (at most {want})")
+    finally:
+        K.h2d = h2d
+    print(f"[pulls] {json.dumps(out)}", flush=True)
+    return out
+
+
 # ---- phase 3 -------------------------------------------------------------
 
 def _sync(torch) -> None:
@@ -2038,8 +2239,7 @@ def run_tier(K, sess, tier: str, queries: dict, torch) -> tuple:
         if tier == "pipeline" and q in ONE_D2H and d2h != 1:
             raise Mismatch(f"pipeline {q}: {d2h} device->host copies, "
                            f"want 1")
-        reps = TRIO_PER_OP_WARM if (tier == "per_op"
-                                    and q in tpch.WORKLOAD) else WARM
+        reps = TRIO_WARM if q in tpch.WORKLOAD else WARM
         warm = []
         for _ in range(reps):
             t1 = time.perf_counter()
@@ -3170,6 +3370,8 @@ def main() -> int:
               f"{r['device_ms']}, plain {r['plain_ms']:.4f}, bound "
               f"{r['bound_ms']:.5f} ms (bytes)", flush=True)
     kinfo = {name: kernel_entry(name, r) for name, r in rec.items()}
+    with K.use_device(dev):
+        pull_counts(K)
     # phase 3
     regimes = count_regimes(K)
     storage = phase_main_path(K, kinfo)

@@ -977,3 +977,139 @@ def test_expr_eval_tiles_at_the_edges(dev, n):
         _same_expr(a, K.expr_eval(prog, bcols, pr, n, **kw), "bool lane")
         _same_expr(a, K.expr_eval_plain(prog, bcols, pr, n, **kw),
                    "bool lane")
+
+
+# ---- HK1 as one launch, HK3's unique probe without host pulls ------------
+
+def _q6_lanes(rng, dev, n, nmem=None):
+    shp = n if nmem is None else (nmem, n)
+    return [(_t(np.round(rng.uniform(900.0, 105000.0, shp), 2), dev),
+             _t(np.zeros(n, bool), dev), "sum")]
+
+
+def _host_lanes(lanes):
+    return [(None if v is None else v.cpu().numpy(),
+             None if m is None else m.cpu().numpy(), op)
+            for v, m, op in lanes]
+
+
+@pytest.mark.parametrize("n", [0, 1, 16, 4097, 1 << 23])
+def test_masked_reduce_one_launch_matches_plain_and_model(dev, n):
+    """HK1 at Q6's shape (2^23 rows, 2% valid, one float64 SUM lane) and
+    at n = 0, 1, 16 and one past a block's range: equal to the plain
+    version (counts exactly, the sum within 1e-6 relative), bit-equal to
+    the numpy model of its order (bench/hk1model.py) and to a second
+    launch."""
+    from tinysql_tpu_torch.bench import hk1model as M
+    rng = np.random.default_rng(n)
+    valid = _t(rng.random(n) < (0.02 if n > 4097 else 0.6), dev)
+    lanes = _q6_lanes(rng, dev, n)
+    if n <= 4097:
+        iv = _t(rng.integers(-9, 9, n), dev, torch.int64)
+        lanes += [(iv, _t(rng.random(n) < 0.3, dev), "max"),
+                  (iv, None, "sum"), (None, None, "count")]
+    a = K.masked_reduce(valid, lanes)
+    assert torch.equal(a, K.masked_reduce(valid, lanes))
+    p = K.masked_reduce_plain(valid, lanes)
+    float_rows = (2,)
+    keep = [r for r in range(a.shape[0]) if r not in float_rows]
+    assert torch.equal(a[keep], p[keep])
+    torch.testing.assert_close(a[2:3].view(torch.float64),
+                               p[2:3].view(torch.float64), rtol=1e-6,
+                               atol=1e-9)
+    m = M.masked_reduce(valid.cpu().numpy(), _host_lanes(lanes))
+    assert a.cpu().numpy().tobytes() == m.tobytes()
+
+
+@pytest.mark.parametrize("nmem", [1, 3, 8, 17])
+def test_masked_reduce_batched_rows_equal_solo(dev, nmem):
+    """HK1b at Q6's shape cut to 2^20 + 5 rows: member b's row is
+    byte-equal to a solo HK1 call over member b (a member's mask starts at
+    any byte), and agrees with the batched plain version."""
+    rng = np.random.default_rng(100 + nmem)
+    n = (1 << 20) + 5
+    valid = _t(rng.random((nmem, n)) < 0.02, dev)
+    lanes = _q6_lanes(rng, dev, n, nmem)
+    a = K.masked_reduce_batched(valid, lanes)
+    p = K.masked_reduce_batched_plain(valid, lanes)
+    for b in range(nmem):
+        solo = K.masked_reduce(valid[b], K._member_lanes(lanes, b))
+        assert a[b].cpu().numpy().tobytes() == solo.cpu().numpy().tobytes()
+    assert torch.equal(a[:, [0, 1, 3]], p[:, [0, 1, 3]])
+    torch.testing.assert_close(a[:, 2].view(torch.float64),
+                               p[:, 2].view(torch.float64), rtol=1e-6,
+                               atol=1e-9)
+
+
+def _join_args(rng, dev, lk, rk, nullp=0.1, validp=0.9):
+    nl, nr = len(lk), len(rk)
+    return (_t(lk, dev, torch.int64), _t(rng.random(nl) < nullp, dev),
+            _t(rng.random(nl) < validp, dev), _t(rk, dev, torch.int64),
+            _t(rng.random(nr) < nullp, dev), _t(rng.random(nr) < validp, dev))
+
+
+def _check_unique(args, outer):
+    out = K.equi_join_unique_packed(*args, outer=outer)
+    li, ri = K.equi_join_unique_plain(*args, outer)
+    n = int(out[0])
+    assert n == li.numel()
+    assert torch.equal(out[1:1 + 2 * n:2], li)
+    assert torch.equal(out[2:2 + 2 * n:2], ri)
+    again = K.equi_join_unique_packed(*args, outer=outer)
+    assert torch.equal(again[:1 + 2 * n], out[:1 + 2 * n])
+    assert torch.equal(K.unique_match(*args),
+                       K._unique_probe_plain(*args)[0])
+    a = K.equi_join_mult(*args, outer=outer)
+    b = K.equi_join_mult_plain(*args, outer)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("n_live", [1000, 1 << 21])
+@pytest.mark.parametrize("above", [False, True])
+def test_equi_join_dense_hash_choice(dev, n_live, above):
+    """The header's table kind on both sides of dense_ok: the live keys
+    span card = max(2^22, 4 * n_live) (dense) or one more (hash); both
+    equal the plain versions, inner and outer."""
+    rng = np.random.default_rng(n_live + above)
+    card = max(1 << 22, 4 * n_live) + int(above)
+    rk = rng.choice(card, n_live, replace=False).astype(np.int64) - 77
+    rk[:2] = [-77, card - 78]  # kmin and kmax
+    lk = rng.integers(-100, card, max(1 << 16, n_live)).astype(np.int64)
+    lk[:n_live // 2] = rng.choice(rk, n_live // 2)
+    args = _join_args(rng, dev, lk, rk, nullp=0.0, validp=1.0)
+    hdr = K.equi_join_header(*args[3:])[:5].tolist()
+    assert hdr[:3] == [n_live, -77, card - 78]
+    assert hdr[3] == int(K.dense_ok(card, n_live)) == int(not above)
+    assert hdr[4] == (card if not above else
+                      1 << (2 * n_live - 1).bit_length())
+    for outer in (False, True):
+        _check_unique(args, outer)
+
+
+@pytest.mark.parametrize("case", ["top", "bottom", "both", "empty_build",
+                                  "empty_probe", "no_match", "one_tile",
+                                  "ragged"])
+def test_equi_join_edges_match_plain(dev, case):
+    """int64 extreme keys (R4 at both ends, a range past int64), an empty
+    build side, an empty probe side, no match, and probe sides of one
+    look-back tile and of a ragged last tile: the packed pairs, the
+    membership and the multiplicity mode equal the plain versions."""
+    rng = np.random.default_rng(7)
+    I64_MAX, I64_MIN = (1 << 63) - 1, -(1 << 63)
+    lo, hi, nl, nr = {"top": (I64_MAX - 5000, I64_MAX, 4096, 2048),
+                      "bottom": (I64_MIN, I64_MIN + 5000, 4096, 2048),
+                      "both": (I64_MIN, I64_MAX, 4096, 2048),
+                      "empty_build": (0, 100, 4096, 0),
+                      "empty_probe": (0, 100, 0, 64),
+                      "no_match": (0, 100, 3000, 64),
+                      "one_tile": (0, 500, 1024, 300),
+                      "ragged": (0, 500, 1024 * 37 + 5, 300)}[case]
+    lk = rng.integers(lo, hi, nl, endpoint=True).astype(np.int64)
+    rk = rng.integers(lo, hi, nr, endpoint=True).astype(np.int64)
+    if case in ("top", "bottom", "both"):
+        lk[:3] = [I64_MAX, I64_MIN, 0]
+        rk[:2] = [I64_MAX, I64_MIN]
+    if case == "no_match":
+        lk += 1000
+    for outer in (False, True):
+        _check_unique(_join_args(rng, dev, lk, rk), outer)

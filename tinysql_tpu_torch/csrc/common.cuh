@@ -100,6 +100,18 @@ __device__ __forceinline__ Lanes member_lanes(const Lanes& L,
   return m;
 }
 
+// A decoupled look-back's status word (HK3's pick, the radix passes of
+// lex_sort.cuh): one 64-bit load / store through L2, so a flag and its
+// count are seen together.
+__device__ __forceinline__ unsigned long long lb_load(
+    const unsigned long long* p) {
+  return *(const volatile unsigned long long*)p;
+}
+__device__ __forceinline__ void lb_store(unsigned long long* p,
+                                         unsigned long long v) {
+  *(volatile unsigned long long*)p = v;
+}
+
 // int64 sum with two's-complement wrap (no signed-overflow UB).
 __device__ __forceinline__ int64_t wrap_add(int64_t a, int64_t b) {
   return (int64_t)((unsigned long long)a + (unsigned long long)b);

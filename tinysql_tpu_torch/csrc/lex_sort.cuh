@@ -359,15 +359,6 @@ radix_hist(SortIn in, int m, int64_t n, RadixWords W) {
   radix_plan(m, n, W);
 }
 
-__device__ __forceinline__ unsigned long long lb_load(
-    const unsigned long long* p) {
-  return *(const volatile unsigned long long*)p;
-}
-__device__ __forceinline__ void lb_store(unsigned long long* p,
-                                         unsigned long long v) {
-  *(volatile unsigned long long*)p = v;
-}
-
 // One stable counting pass on digit d of lane `lane` (plan slot `slot`).
 __global__ void __launch_bounds__(kRThreads, kBlocksPerSM)
 radix_pass(const uint64_t* __restrict__ lane, int slot, int d, int64_t n,

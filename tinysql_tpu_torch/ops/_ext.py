@@ -47,8 +47,6 @@ _int = ctypes.c_int
 
 _SIGNATURES = {
     "masked_reduce": {
-        "hk1_blocks": (_i64, [_i64]),
-        "hk1_scratch_bytes": (_i64, [_i64, _int]),
         "hk1_masked_reduce": (_int, [_vp, _i64, _vp, _vp, _vp, _vp]),
         "hk1b_masked_reduce": (_int, [_vp, _i64, _i64, _vp, _vp, _vp, _vp,
                                       _vp]),
@@ -64,13 +62,12 @@ _SIGNATURES = {
                                        _vp, _vp, _vp]),
     },
     "equi_join": {
-        "hk3_build_stats": (_int, [_vp, _vp, _vp, _i64, _vp, _vp, _vp]),
+        "hk3_build_stats": (_int, [_vp, _vp, _vp, _i64, _vp, _vp]),
+        "hk3_unique_pick": (_int, [_vp, _vp, _vp, _i64, _vp, _vp, _vp, _i64,
+                                   _int, _vp, _vp, _i64, _vp, _vp]),
         "hk3_unique_match": (_int, [_vp, _vp, _vp, _i64, _vp, _vp, _vp,
-                                    _i64, _int, _i64, _i64, _vp, _i64, _vp,
-                                    _vp, _vp]),
-        "hk3_pick_count": (_int, [_vp, _i64, _vp, _vp, _vp]),
-        "hk3_pick": (_int, [_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp]),
-        "hk3_mult_count": (_int, [_vp, _vp, _vp, _i64, _vp, _vp, _i64, _int,
+                                    _i64, _vp, _vp, _i64, _vp, _vp]),
+        "hk3_mult_count": (_int, [_vp, _vp, _vp, _i64, _vp, _vp, _vp, _int,
                                   _vp, _vp, _vp, _vp, _vp, _vp]),
         "hk3_mult_expand": (_int, [_vp, _i64, _vp, _vp, _vp, _vp, _int, _i64,
                                    _vp, _vp, _vp]),

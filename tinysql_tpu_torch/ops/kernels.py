@@ -632,6 +632,45 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
 # HK1 masked_reduce
 # =========================================================================
 
+#: csrc/masked_reduce.cu's plan, mirrored so the wrapper sizes the
+#: scratch without a call into the library: tiles of kThreads * kWord
+#: rows, at most kMaxBlocks blocks, each (lane + 1, block) partial three
+#: int64, one uint32 ticket a member
+_HK1_TILE = 256 * 16
+_HK1_MAX_BLOCKS = 256
+
+
+def _hk1_blocks(n: int) -> int:
+    """HK1's block count: a function of n alone."""
+    tiles = -(-n // _HK1_TILE)
+    tpb = max(1, -(-tiles // _HK1_MAX_BLOCKS))
+    return max(1, -(-tiles // tpb))
+
+
+def _hk1_launch(lib, valid, nmem: int, n: int, chunk, batched: bool):
+    """One HK1 / HK1b launch over <= 16 lanes: returns int64 [nmem, 2 + 2
+    * len(chunk)], a view of the call's one buffer, which also holds the
+    partials and the tickets."""
+    from . import _ext
+    width = 2 + 2 * len(chunk)
+    n_out = nmem * width
+    n_part = 3 * nmem * (len(chunk) + 1) * _hk1_blocks(n)
+    buf = torch.empty(n_out + n_part + (nmem + 1) // 2, dtype=I64,
+                      device=valid.device)
+    cl = _c_lanes(chunk)
+    scratch = buf.data_ptr() + 8 * n_out
+    if batched:
+        rc = lib.hk1b_masked_reduce(
+            valid.data_ptr(), nmem, n, ctypes.byref(cl),
+            ctypes.byref(_c_strides(chunk, n)), scratch, buf.data_ptr(),
+            _stream())
+    else:
+        rc = lib.hk1_masked_reduce(valid.data_ptr(), n, ctypes.byref(cl),
+                                   scratch, buf.data_ptr(), _stream())
+    _ext.check(rc, "masked_reduce_batched" if batched else "masked_reduce")
+    return buf[:n_out].view(nmem, width)
+
+
 def masked_reduce(valid: torch.Tensor, lanes) -> torch.Tensor:
     """Global masked reduction.  Returns int64[2 + 2 * len(lanes)] on
     ``valid``'s device: [n_valid, first valid row (0 when none), then per
@@ -649,14 +688,8 @@ def masked_reduce(valid: torch.Tensor, lanes) -> torch.Tensor:
     lib = _ext.lib("masked_reduce")
     outs = []
     for c0 in range(0, max(len(lanes), 1), _MAX_LANES):
-        chunk = lanes[c0:c0 + _MAX_LANES]
-        out = torch.empty(2 + 2 * len(chunk), dtype=I64, device=dev)
-        scratch = torch.empty(lib.hk1_scratch_bytes(n, len(chunk)),
-                              dtype=torch.uint8, device=dev)
-        cl = _c_lanes(chunk)
-        _ext.check(lib.hk1_masked_reduce(
-            valid.data_ptr(), n, ctypes.byref(cl), scratch.data_ptr(),
-            out.data_ptr(), _stream()), "masked_reduce")
+        out = _hk1_launch(lib, valid, 1, n, lanes[c0:c0 + _MAX_LANES],
+                          False)[0]
         _count(LAUNCHES, "masked_reduce")
         outs.append(out if not outs else out[2:])
     return outs[0] if len(outs) == 1 else torch.cat(outs)
@@ -714,15 +747,8 @@ def masked_reduce_batched(valid: torch.Tensor, lanes) -> torch.Tensor:
     lib = _ext.lib("masked_reduce")
     outs = []
     for c0 in range(0, max(len(lanes), 1), _MAX_LANES):
-        chunk = lanes[c0:c0 + _MAX_LANES]
-        out = torch.empty((nmem, 2 + 2 * len(chunk)), dtype=I64, device=dev)
-        scratch = torch.empty(nmem * lib.hk1_scratch_bytes(n, len(chunk)),
-                              dtype=torch.uint8, device=dev)
-        cl, cs = _c_lanes(chunk), _c_strides(chunk, n)
-        _ext.check(lib.hk1b_masked_reduce(
-            valid.data_ptr(), nmem, n, ctypes.byref(cl), ctypes.byref(cs),
-            scratch.data_ptr(), out.data_ptr(), _stream()),
-            "masked_reduce_batched")
+        out = _hk1_launch(lib, valid, nmem, n, lanes[c0:c0 + _MAX_LANES],
+                          True)
         _count(LAUNCHES, "masked_reduce_batched")
         outs.append(out if not outs else out[:, 2:])
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
@@ -997,84 +1023,91 @@ def _join_checks(lk, ln, lv, rk, rn, rv):
     return nl, nr, dev
 
 
-def _build_stats(lib, rk, rn, rv, dev):
-    from . import _ext
-    n = int(rk.shape[0])
-    part = torch.empty(3 * 512, dtype=I64, device=dev)
-    out3 = torch.empty(3, dtype=I64, device=dev)
-    _ext.check(lib.hk3_build_stats(rk.data_ptr(), rn.data_ptr(),
-                                   rv.data_ptr(), n, part.data_ptr(),
-                                   out3.data_ptr(), _stream()),
-               "build_stats")
-    return [int(x) for x in out3.cpu().tolist()]
+#: csrc/equi_join.cu's workspace, mirrored so the wrapper sizes it
+#: without a call into the library: the header (kHdrWords = 8) and
+#: kStatBlocks = 1024 stats partials of three words, then the words the
+#: memset zeroes (the stats ticket, the pick's tile counter, one look-back
+#: word per tile of kPickTile = 256 * 4 probe rows)
+_HK3_ZERO_OFF = 8 + 3 * 1024
+_HK3_PICK_TILE = 256 * 4
 
 
-def _pick(lib, keep, match, cand, dev):
-    from . import _ext
-    n = int(keep.shape[0])
-    nb = max((n + 1023) // 1024, 1)
-    btot = torch.empty(nb + 1, dtype=I64, device=dev)
-    _ext.check(lib.hk3_pick_count(keep.data_ptr(), n, btot.data_ptr(),
-                                  btot[nb:].data_ptr(), _stream()),
-               "pick_count")
-    total = int(btot[nb].item())
-    li = torch.empty(total, dtype=I64, device=dev)
-    ri = torch.empty(total, dtype=I64, device=dev)
-    if total:
-        _ext.check(lib.hk3_pick(keep.data_ptr(), match.data_ptr(),
-                                cand.data_ptr(), n, btot.data_ptr(),
-                                li.data_ptr(), ri.data_ptr(), _stream()),
-                   "pick")
-    return li, ri
+def _hk3_buffers(nl: int, nr: int, dev, table: bool = True):
+    """One allocation for an HK3 call: the workspace (the header at word
+    0), then, 16-byte aligned, the key table sized from ``nr`` alone: the
+    larger of the dense table the rule can pick (int32 x max(2^22, 4 *
+    nr)) and the hash table (int64 x the power of two >= max(1024, 2 *
+    nr)); the kernels fill only the entries the header names.  Returns
+    (buffer, table address, table bytes)."""
+    if nr >= 1 << 31:
+        raise ValueError("equi_join: build side of 2^31 rows or more")
+    words = _HK3_ZERO_OFF + 2 + max(1, -(-nl // _HK3_PICK_TILE))
+    words += words & 1
+    tbytes = 0
+    if table:
+        cap = 1024
+        while cap < 2 * max(nr, 1):
+            cap <<= 1
+        tbytes = max(4 * max(1 << 22, 4 * nr), 8 * cap)
+    buf = torch.empty(words + tbytes // 8, dtype=I64, device=dev)
+    return buf, buf.data_ptr() + 8 * words, tbytes
+
+
+def _pull_scalar(t: torch.Tensor) -> int:
+    """A counted pull of one int64 (an output size)."""
+    return int(d2h(t.reshape(1))[0])
 
 
 def dense_ok(card: int, n_live: int) -> bool:
     """Dense key -> row table when the live key range is small enough
-    (the reference host twin's rule)."""
+    (the reference host twin's rule; the card applies it in ej_stats)."""
     return card <= max(1 << 22, 4 * n_live)
 
 
-def _unique_probe(lib, lk, ln, lv, rk, rn, rv, dev):
-    """HK3's unique probe on the card: (match, cand) per probe row."""
+def equi_join_unique_packed(lk, ln, lv, rk, rn, rv,
+                            outer: bool = False) -> torch.Tensor:
+    """Unique build side, packed: int64[1 + 2 * n_probe] = [count, li_0,
+    ri_0, li_1, ri_1, ...] with li ascending.  Inner: the matched probe
+    rows; outer: every valid probe row, ri = -1 where unmatched.  Among
+    equal live build keys the lowest row is the match.  Words past 1 + 2 *
+    count are not written.  No host pull: the count is the first word."""
+    nl, nr, dev = _join_checks(lk, ln, lv, rk, rn, rv)
+    if not _on_card(lk, "equi_join"):
+        return equi_join_unique_packed_plain(lk, ln, lv, rk, rn, rv, outer)
     from . import _ext
-    nl, nr = int(lk.shape[0]), int(rk.shape[0])
-    n_live, kmin, kmax = _build_stats(lib, rk, rn, rv, dev)
-    card = kmax - kmin + 1 if n_live else 1
-    dense = n_live > 0 and dense_ok(card, n_live)
-    if dense:
-        # dense_table.cuh's format, shared with HK6 and HK8
-        tsize = card
-        table = torch.empty(tsize, dtype=torch.int32, device=dev)
-    else:
-        tsize = 1024
-        while tsize < 2 * max(n_live, 1):
-            tsize <<= 1
-        table = torch.empty(tsize, dtype=I64, device=dev)
-    cand = torch.empty(nl, dtype=I64, device=dev)
-    match = torch.empty(nl, dtype=torch.bool, device=dev)
-    _ext.check(lib.hk3_unique_match(
+    buf, tbuf, tbytes = _hk3_buffers(nl, nr, dev)
+    out = torch.empty(1 + 2 * nl, dtype=I64, device=dev)
+    _ext.check(_ext.lib("equi_join").hk3_unique_pick(
         lk.data_ptr(), ln.data_ptr(), lv.data_ptr(), nl, rk.data_ptr(),
-        rn.data_ptr(), rv.data_ptr(), nr, int(dense),
-        kmin if dense else 0, kmax if dense else 0, table.data_ptr(), tsize,
-        cand.data_ptr(), match.data_ptr(), _stream()), "unique_match")
-    return match, cand
+        rn.data_ptr(), rv.data_ptr(), nr, int(outer), buf.data_ptr(), tbuf,
+        tbytes, out.data_ptr(), _stream()), "unique_pick")
+    _count(LAUNCHES, "equi_join")
+    return out
+
+
+def equi_join_unique_packed_plain(lk, ln, lv, rk, rn, rv, outer=False):
+    """Plain torch version of :func:`equi_join_unique_packed`."""
+    li, ri = equi_join_unique_plain(lk, ln, lv, rk, rn, rv, outer)
+    out = torch.empty(1 + 2 * int(lk.shape[0]), dtype=I64, device=lk.device)
+    n = int(li.shape[0])
+    out[0] = n
+    out[1:1 + 2 * n] = torch.stack([li, ri], dim=1).reshape(-1)
+    return out
 
 
 def equi_join_unique(lk, ln, lv, rk, rn, rv, outer: bool = False):
-    """Unique build side: (li, ri) int64 tensors, li ascending.  Inner:
-    the matched probe rows; outer: every valid probe row, ri = -1 where
-    unmatched.  Among equal live build keys the lowest row is the
-    match."""
-    _, _, dev = _join_checks(lk, ln, lv, rk, rn, rv)
+    """Unique build side: (li, ri) int64 tensors, li ascending (the
+    packed call's pairs after one counted pull of the count; on the card
+    strided views into its buffer).  Inner: the matched probe rows;
+    outer: every valid probe row, ri = -1 where unmatched.  Among equal
+    live build keys the lowest row is the match."""
+    _join_checks(lk, ln, lv, rk, rn, rv)
     if not _on_card(lk, "equi_join"):
         return equi_join_unique_plain(lk, ln, lv, rk, rn, rv, outer)
-    from . import _ext
-    lib = _ext.lib("equi_join")
-    match, cand = _unique_probe(lib, lk, ln, lv, rk, rn, rv, dev)
-    keep = lv if outer else match
-    li, ri = _pick(lib, keep.contiguous(), match, cand, dev)
-    _count(LAUNCHES, "equi_join")
-    return li, ri
+    out = equi_join_unique_packed(lk, ln, lv, rk, rn, rv, outer)
+    n = _pull_scalar(out[:1])
+    pairs = out[1:1 + 2 * n].view(n, 2)
+    return pairs[:, 0], pairs[:, 1]
 
 
 def _unique_probe_plain(lk, ln, lv, rk, rn, rv):
@@ -1108,28 +1141,44 @@ def equi_join_unique_plain(lk, ln, lv, rk, rn, rv, outer=False):
 
 def unique_match(lk, ln, lv, rk, rn, rv) -> torch.Tensor:
     """HK3's membership alone (K8's test): bool per probe row, true when
-    the live probe key equals some live build key."""
-    _, _, dev = _join_checks(lk, ln, lv, rk, rn, rv)
+    the live probe key equals some live build key.  No host pull."""
+    nl, nr, dev = _join_checks(lk, ln, lv, rk, rn, rv)
     if not _on_card(lk, "equi_join"):
         _count(PLAIN_CALLS, "equi_join")
         return _unique_probe_plain(lk, ln, lv, rk, rn, rv)[0]
     from . import _ext
-    match, _ = _unique_probe(_ext.lib("equi_join"), lk, ln, lv, rk, rn, rv,
-                             dev)
+    buf, tbuf, tbytes = _hk3_buffers(nl, nr, dev)
+    match = torch.empty(nl, dtype=torch.bool, device=dev)
+    _ext.check(_ext.lib("equi_join").hk3_unique_match(
+        lk.data_ptr(), ln.data_ptr(), lv.data_ptr(), nl, rk.data_ptr(),
+        rn.data_ptr(), rv.data_ptr(), nr, buf.data_ptr(), tbuf, tbytes,
+        match.data_ptr(), _stream()), "unique_match")
     _count(LAUNCHES, "equi_join")
     return match
 
 
-def equi_join_mult(lk, ln, lv, rk, rn, rv, outer: bool = False):
-    """Any build multiplicity: (li, ri) in probe-major order, build rows
-    of one probe row in ascending row order; outer joins emit each
-    unmatched valid probe row once with ri = -1."""
+def equi_join_header(rk, rn, rv) -> torch.Tensor:
+    """HK3's build header on the card (ej_stats), no host pull: an int64
+    tensor whose first words are [live rows, kmin, kmax, dense (1) or
+    hash (0), table size] (the rest is the kernel's workspace)."""
+    ws, _, _ = _hk3_buffers(0, int(rk.shape[0]), rk.device, table=False)
+    from . import _ext
+    _ext.check(_ext.lib("equi_join").hk3_build_stats(
+        rk.data_ptr(), rn.data_ptr(), rv.data_ptr(), int(rk.shape[0]),
+        ws.data_ptr(), _stream()), "build_stats")
+    return ws
+
+
+def equi_join_mult_count(lk, ln, lv, rk, rn, rv, outer: bool = False):
+    """Any build multiplicity, phase 1: (plan, total), ``total`` the
+    output size as an int64[1] tensor on the probe's device (no host
+    pull); :func:`equi_join_mult_expand` writes the pairs."""
     nl, nr, dev = _join_checks(lk, ln, lv, rk, rn, rv)
     if not _on_card(lk, "equi_join"):
-        return equi_join_mult_plain(lk, ln, lv, rk, rn, rv, outer)
+        return _mult_count_plain(lk, ln, lv, rk, rn, rv, outer)
     from . import _ext
     lib = _ext.lib("equi_join")
-    n_live = _build_stats(lib, rk, rn, rv, dev)[0]
+    ws = equi_join_header(rk, rn, rv)
     dead = (~(rv & ~rn)).to(I64)
     perm = lex_order([dead, rk ^ I64_MIN], nr) if nr else \
         torch.empty(0, dtype=I64, device=dev)
@@ -1140,25 +1189,43 @@ def equi_join_mult(lk, ln, lv, rk, rn, rv, outer: bool = False):
     btot = torch.empty(nb + 1, dtype=I64, device=dev)
     _ext.check(lib.hk3_mult_count(
         lk.data_ptr(), ln.data_ptr(), lv.data_ptr(), nl, rk.data_ptr(),
-        perm.data_ptr(), n_live, int(outer), lo.data_ptr(), cnt.data_ptr(),
-        incl.data_ptr(), btot.data_ptr(), btot[nb:].data_ptr(), _stream()),
-        "mult_count")
-    total = int(btot[nb].item())
+        perm.data_ptr(), ws.data_ptr(), int(outer), lo.data_ptr(),
+        cnt.data_ptr(), incl.data_ptr(), btot.data_ptr(),
+        btot[nb:].data_ptr(), _stream()), "mult_count")
+    _count(LAUNCHES, "equi_join")
+    return ("card", lv, lo, cnt, incl, perm, outer), btot[nb:]
+
+
+def equi_join_mult_expand(plan, total: int):
+    """Any build multiplicity, phase 2: (li, ri) of ``total`` pairs (the
+    host's pulled copy of phase 1's total)."""
+    if plan[0] == "plain":
+        return _mult_expand_plain(plan, total)
+    from . import _ext
+    _, lv, lo, cnt, incl, perm, outer = plan
+    nl, dev = int(lv.shape[0]), lv.device
     li = torch.empty(total, dtype=I64, device=dev)
     ri = torch.empty(total, dtype=I64, device=dev)
     if total:
-        _ext.check(lib.hk3_mult_expand(
+        _ext.check(_ext.lib("equi_join").hk3_mult_expand(
             lv.data_ptr(), nl, lo.data_ptr(), cnt.data_ptr(), incl.data_ptr(),
             perm.data_ptr(), int(outer), total, li.data_ptr(), ri.data_ptr(),
             _stream()), "mult_expand")
-    _count(LAUNCHES, "equi_join")
     return li, ri
 
 
-def equi_join_mult_plain(lk, ln, lv, rk, rn, rv, outer=False):
-    """Plain torch version of the any-multiplicity HK3 mode."""
+def equi_join_mult(lk, ln, lv, rk, rn, rv, outer: bool = False):
+    """Any build multiplicity: (li, ri) in probe-major order, build rows
+    of one probe row in ascending row order; outer joins emit each
+    unmatched valid probe row once with ri = -1.  One counted pull: the
+    output size between the two phases."""
+    plan, total = equi_join_mult_count(lk, ln, lv, rk, rn, rv, outer)
+    return equi_join_mult_expand(plan, _pull_scalar(total))
+
+
+def _mult_count_plain(lk, ln, lv, rk, rn, rv, outer):
+    """Plain torch version of phase 1 (counts one plain call)."""
     _count(PLAIN_CALLS, "equi_join")
-    dev = lk.device
     r_live = rv & ~rn
     bidx = torch.nonzero(r_live).reshape(-1)
     bk = rk[bidx]
@@ -1170,11 +1237,17 @@ def equi_join_mult_plain(lk, ln, lv, rk, rn, rv, outer=False):
     counts = torch.where(l_live, hi - lo, torch.zeros_like(lo))
     eff = torch.where(lv & (counts == 0), torch.ones_like(counts),
                       counts) if outer else counts
-    total = int(eff.sum())
+    return ("plain", lo, counts, eff, srow), eff.sum().reshape(1)
+
+
+def _mult_expand_plain(plan, total: int):
+    """Plain torch version of phase 2."""
+    _, lo, counts, eff, srow = plan
+    dev = lo.device
     if total == 0:
         z = torch.empty(0, dtype=I64, device=dev)
         return z, z
-    li = torch.repeat_interleave(torch.arange(len(lk), dtype=I64,
+    li = torch.repeat_interleave(torch.arange(len(lo), dtype=I64,
                                               device=dev), eff)
     starts = torch.cumsum(eff, 0) - eff
     pos = torch.arange(total, dtype=I64, device=dev) - starts[li]
@@ -1183,6 +1256,13 @@ def equi_join_mult_plain(lk, ln, lv, rk, rn, rv, outer=False):
     ri = torch.where(matched, srow[ridx] if srow.numel()
                      else torch.zeros_like(ridx), torch.full_like(li, -1))
     return li, ri
+
+
+def equi_join_mult_plain(lk, ln, lv, rk, rn, rv, outer=False):
+    """Plain torch version of the any-multiplicity HK3 mode (the two
+    phases, the output size read without a counted pull)."""
+    plan, total = _mult_count_plain(lk, ln, lv, rk, rn, rv, outer)
+    return _mult_expand_plain(plan, int(total))
 
 
 # =========================================================================
@@ -2729,16 +2809,25 @@ def unique_join_match(lkey, n_left: int, rkey, n_right: int,
     (K6 -> HK3).  Returns host (left_indices, right_indices); outer joins
     keep every valid left row with right index -1 when unmatched.  HK3's
     key table needs no sorted build side, so there is no ``build_sorted``
-    claim for a validity mask with holes to break (the reference's R3)."""
+    claim for a validity mask with holes to break (the reference's R3).
+
+    HK3 makes no host pull before its pairs: an outer join's output size
+    is the host's count of valid left rows (as in the reference), so one
+    pull brings exactly the pairs; an inner join's pull brings the count
+    and the first ``PRESENT_HEAD`` pairs, and a second the rest only when
+    there are more."""
     lk, ln, lv, rk, rn, rv = _join_inputs(lkey, n_left, rkey, n_right,
                                              lvalid, rvalid)
     stats_add("dispatches", 1)
-    li, ri = equi_join_unique(lk, ln, lv, rk, rn, rv, outer=outer)
-    if li.numel() == 0:
-        z = np.empty(0, dtype=np.int64)
-        return z, z
-    li, ri = d2h_many([li, ri])
-    return li, ri
+    out = equi_join_unique_packed(lk, ln, lv, rk, rn, rv, outer=outer)
+    if outer:
+        n = n_left if lvalid is None else \
+            int(np.count_nonzero(lvalid[:n_left]))
+        pairs = d2h(out[1:1 + 2 * n]) if n else \
+            np.empty(0, dtype=np.int64)
+    else:
+        pairs = _pull_kept(out, width=2)
+    return pairs[0::2].copy(), pairs[1::2].copy()
 
 
 def join_match(lkey: Tuple[np.ndarray, np.ndarray], n_left: int,
@@ -2748,7 +2837,7 @@ def join_match(lkey: Tuple[np.ndarray, np.ndarray], n_left: int,
     """Equi-join of any multiplicity (K7 -> HK3 + HK4 build sort).
     Returns host (left_indices, right_indices), probe-major, build rows in
     stable key order; outer joins emit unmatched valid left rows once with
-    right index -1."""
+    right index -1.  Two counted pulls: the output size, then the pairs."""
     lk, ln, lv, rk, rn, rv = _join_inputs(lkey, n_left, rkey, n_right,
                                              lvalid, rvalid)
     stats_add("dispatches", 1)
@@ -2779,14 +2868,18 @@ def semi_join_match(lkey, n_left: int, rkey, n_right: int,
     return _pull_kept(semi_pick(match, ln, lv, rn, rv, anti, null_aware))
 
 
-def _pull_kept(out: torch.Tensor) -> np.ndarray:
-    """Host int64 rows of :func:`semi_pick`'s output ([count, rows...])."""
-    head = min(PRESENT_HEAD, int(out.shape[0]) - 1)
-    got = d2h(out[:1 + head])
+def _pull_kept(out: torch.Tensor, width: int = 1) -> np.ndarray:
+    """Host int64 words of a device buffer [count, rows...] of ``width``
+    words a row (:func:`semi_pick`'s rows, HK3's packed pairs): one pull
+    of the count and the first ``PRESENT_HEAD`` rows, a second of the
+    rest only when there are more."""
+    head = min(PRESENT_HEAD, (int(out.shape[0]) - 1) // width)
+    got = d2h(out[:1 + width * head])
     n = int(got[0])
     if n <= head:
-        return got[1:1 + n]
-    return np.concatenate([got[1:], d2h(out[1 + head:1 + n])])
+        return got[1:1 + width * n]
+    return np.concatenate([got[1:], d2h(out[1 + width * head:
+                                            1 + width * n])])
 
 
 # =========================================================================
