@@ -31,7 +31,17 @@ result line):
    registers and 64 instructions; nested sums split into launches of 16
    registers; a bool lane; HK7b at B = 1, 3 and 16 against solo
    launches; [expr] lines); HK8 (csr_expand) runs Q13's join (150,000
-   customers LEFT JOIN 1.5M orders), HK9 (run_bounds) its two GROUP BYs,
+   customers LEFT JOIN 1.5M orders), HK9 (run_bounds) its two GROUP BYs
+   and the tile edges of tinysql_tpu_torch/bench/compactcases.py (runs
+   across tiles, a run at a tile's first position, all-invalid tiles,
+   n = 1, one past a tile; NaN and +-0.0 float keys, NULLs, two lanes)
+   against its plain version and the numpy tile model ([hk9] line);
+   HK2's present-segment compaction at Q3's table beside
+   table[:, table[0] > 0] (a partial call: no ids row, no padding) and
+   at the edge tables of compactcases (0, 1, PRESENT_HEAD, PRESENT_HEAD
+   + 1, most and all present, ns one past a tile: present_compact byte
+   for byte against its plain version, present_rows and the per-operator
+   extraction against numpy; [compact] line);
    HK6's composite mode a two-key probe of 2^21 rows; HK4 in each
    regime of the sort core (csrc/lex_sort.cuh: ties in 0..3 at 2^23,
    all keys equal at 2^20, n = 1,025 and 2^20 + 3, a float64 key with
@@ -585,6 +595,61 @@ def _host_lanes(lanes):
             for v, m, op in lanes]
 
 
+def compact_edge_cases(K, t) -> dict:
+    """HK2's one-pass compaction at the edge tables of
+    bench/compactcases.py (0, 1, PRESENT_HEAD, PRESENT_HEAD + 1, most and
+    all segments present, ns one past a tile): present_compact byte for
+    byte against its plain version and against a second launch, the
+    present columns the host pulls (present_rows, the per-operator
+    extraction's) against numpy."""
+    import numpy as np
+    import torch
+    from tinysql_tpu_torch.bench import compactcases as CC
+    for case in CC.COMPACT_CASES:
+        tab = CC.compact_table(case)
+        ns = tab.shape[1]
+        td = t(tab, torch.int64)
+        a, b = K.present_compact(td, ns), K.present_compact(td, ns)
+        p = K.present_compact_plain(td, ns)
+        what = f"present_compact {case}"
+        if not a[0] == b[0] == p[0]:
+            raise Mismatch(f"{what}: count {a[0]} / {b[0]} vs {p[0]}")
+        same_bytes(a[1], b[1], what)
+        if not torch.equal(a[1], p[1]):
+            raise Mismatch(f"{what}: differs from the plain version")
+        if not np.array_equal(K.present_rows(td, ns),
+                              CC.compact_plain(tab, 1, False)):
+            raise Mismatch(f"present_rows {case}: differs from numpy")
+        if not np.array_equal(K._pull_present(td, ns, 0, True),
+                              CC.compact_plain(tab)):
+            raise Mismatch(f"present extraction {case}: differs")
+    print(f"[compact] {len(CC.COMPACT_CASES)} edge tables equal to the "
+          f"plain version", flush=True)
+    return {"edge_cases": len(CC.COMPACT_CASES)}
+
+
+def hk9_edge_cases(K, t, hk9_case) -> int:
+    """HK9 at the tile edges of bench/compactcases.py (runs across tiles,
+    a run at a tile's first position, all-invalid tiles, n = 1, one past a
+    tile, NaN and +-0.0 float keys, NULLs, two lanes): equal to its plain
+    version and to the numpy tile model, two launches byte-equal."""
+    import numpy as np
+    from tinysql_tpu_torch.bench import compactcases as CC
+    for case in CC.HK9_CASES:
+        perm, valid, keys = CC.hk9_case(case)
+        tk = [(t(v), t(m)) for v, m in keys]
+        count = hk9_case(t(perm), t(valid), tk, f"run_bounds {case}")
+        model = CC.hk9_model(perm, valid, keys)
+        got = K.run_bounds(t(perm), t(valid), tk, want_gid=True)
+        if count != model[0] or not all(
+                np.array_equal(x.cpu().numpy(), m)
+                for x, m in zip(got[1:], model[1:])):
+            raise Mismatch(f"run_bounds {case}: differs from the tile model")
+    print(f"[hk9] {len(CC.HK9_CASES)} edge cases equal to the plain "
+          f"version and the tile model", flush=True)
+    return len(CC.HK9_CASES)
+
+
 def hk1_one_launch_cases(K, t, valid, q6, hk1_case) -> dict:
     """HK1 as one launch: n = 0, 1 and one past a block's range
     (4,097 rows) against the plain version and a second launch; at Q6's
@@ -799,19 +864,27 @@ def phase_kernels(K, dev):
         "skew90_plain_ms": cuda_ms(lambda: K.segment_reduce_plain(
             gid_sk, valid_sk, ns3, q3)),
         **sort_stage}
-    # present-segment compaction of the Q3 table (~1.43M of 2^21 present)
+    # present-segment compaction of the Q3 table (~1.43M of 2^21 present):
+    # the presence row read once, the other rows at the present ids, the
+    # bucket [1 + rows, ob] written once
     tab3 = K.segment_reduce(gid3, valid3, ns3, q3)
     np3, _ = K.present_compact(tab3, ns3)
     ob3 = min(K.bucket(max(np3, 1)), ns3)
+    rows3 = int(tab3.shape[0])
+    head3 = tab3.clone()
+    head3[0, torch.nonzero(head3[0] > 0)[K.PRESENT_HEAD:, 0]] = 0
     rec["present_compact"] = {
         "max_abs_err": 0.0,
         **timed(lambda: K.present_compact(tab3, ns3)),
         "plain_ms": cuda_ms(lambda: K.present_compact_plain(tab3, ns3)),
         "library_ms": None,
-        "bytes": 8 * ns3 + 8 * int(tab3.shape[0]) * np3
-        + 8 * (1 + int(tab3.shape[0])) * ob3, "ops": ns3,
-        "shape": f"2^21 segments, {np3} present, {int(tab3.shape[0])} rows"
-                 " (Q3)"}
+        "bytes": 8 * ns3 + 8 * (rows3 - 1) * np3 + 8 * (1 + rows3) * ob3,
+        "ops": ns3,
+        "shape": f"2^21 segments, {np3} present, {rows3} rows (Q3)",
+        "partial_mask_select_ms": cuda_ms(lambda: tab3[:, tab3[0] > 0]),
+        "present_rows_head_ms": cuda_ms(lambda: K.present_rows(head3, ns3)),
+        **compact_edge_cases(K, t)}
+    del head3
     # edge cases: all-NULL groups, empty input, int64 extremes, min/max
     for ns_e in (16, 64, 1024):
         gid_e = t(rng.integers(-1, ns_e + 1, ne), torch.int64)
@@ -1423,12 +1496,12 @@ def phase_q13_kernels(K, dev, t, rng) -> dict:
                 raise Mismatch(f"{what}: {nm} differs")
         return int(a[0][0])
 
-    def hk9_bytes(n, n_valid, n_groups, keys):
+    def hk9_bytes(n, n_valid, keys):
         """perm and validity read at every position, the key lanes (value
-        and NULL flag) over the valid rows; the count, the leaders of the
-        groups and the padded ends (HK5 reads all n) written once."""
-        return n * (8 + 1) + _lane_bytes(keys, n_valid) + 8 * n_groups \
-            + 8 * n + 8
+        and NULL flag) over the valid rows; the count, and lead and ends
+        at every position (past the count too: 0 and the last end, which
+        the pipeline reads) written once."""
+        return n * (8 + 1) + _lane_bytes(keys, n_valid) + 16 * n + 8
 
     n9 = 1 << 21
     valid9 = t(np.arange(n9) < n_o)
@@ -1452,15 +1525,18 @@ def phase_q13_kernels(K, dev, t, rng) -> dict:
         p2 = K.lex_order(K.sort_lanes(k2, [False, False], v2), n9)
         hk9_case(p2, v2, k2, f"run_bounds two keys valid={frac}")
         hk9_case(p2, v2, k2[:1], f"run_bounds one key valid={frac}")
+    edges9 = hk9_edge_cases(K, t, hk9_case)
     rec["run_bounds"] = {
         "max_abs_err": 0.0,
         **timed(lambda: K.run_bounds(perm9, valid9, k9)),
         "plain_ms": cuda_ms(lambda: K.run_bounds_plain(perm9, valid9, k9)),
         "library_ms": None,
-        "bytes": hk9_bytes(n9, n_o, runs9, k9), "ops": n9,
+        "bytes": hk9_bytes(n9, n_o, k9), "ops": n9, "edge_cases": edges9,
         "shape": f"2^21 sorted rows ({n_o} valid), 1 int64 key, {runs9} "
                  f"runs (Q13 GROUP BY c_custkey); c_count: {runsc} runs",
         "c_count_ms": cuda_ms(lambda: K.run_bounds(permc, validc, kc)),
+        "c_count_device_ms": device_ms(
+            lambda: K.run_bounds(permc, validc, kc)),
         "partial_unique_consecutive_ms": cuda_ms(
             lambda: torch.unique_consecutive(sorted9, return_counts=True))}
 

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tinysql_tpu_torch.bench import compactcases as CC
 from tinysql_tpu_torch.bench import rankcases as RC
 from tinysql_tpu_torch.ops import kernels as K
 
@@ -1113,3 +1114,49 @@ def test_equi_join_edges_match_plain(dev, case):
         lk += 1000
     for outer in (False, True):
         _check_unique(_join_args(rng, dev, lk, rk), outer)
+
+
+@pytest.mark.parametrize("case", sorted(CC.COMPACT_CASES))
+def test_present_compaction_edges_match_plain(dev, case):
+    """HK2's one-pass compaction at 0, 1, PRESENT_HEAD, PRESENT_HEAD + 1,
+    most and all segments present and at ns one past a tile:
+    present_compact byte for byte against present_compact_plain (two
+    launches byte-equal), the host layouts of present_rows and the
+    per-operator extraction against numpy, each one launch."""
+    tab = CC.compact_table(case)
+    ns = tab.shape[1]
+    t = _t(tab, dev)
+    a, b = K.present_compact(t, ns), K.present_compact(t, ns)
+    p = K.present_compact_plain(t, ns)
+    assert a[0] == b[0] == p[0]
+    assert torch.equal(a[1], p[1]) and torch.equal(a[1], b[1])
+    before = K.kernel_counts()["launches"]["present_compact"]
+    got = K.present_rows(t, ns)
+    assert K.kernel_counts()["launches"]["present_compact"] == before + 1
+    np.testing.assert_array_equal(got, CC.compact_plain(tab, 1, False))
+    cols = K._pull_present(t, ns, 0, True)
+    np.testing.assert_array_equal(cols, CC.compact_plain(tab))
+
+
+@pytest.mark.parametrize("case", sorted(CC.HK9_CASES))
+def test_run_bounds_edges_match_plain(dev, case):
+    """HK9's one pass at the tile edges (runs across them, a run at a
+    tile's first position, all-invalid tiles, n = 1, one past a tile),
+    with float keys (NaN, +-0.0), NULLs and two lanes: equal to the plain
+    version and to the tile model, two launches byte-equal, and no gid
+    written without want_gid."""
+    perm, valid, keys = CC.hk9_case(case)
+    args = (_t(perm, dev), _t(valid, dev),
+            [(_t(v, dev), _t(m, dev)) for v, m in keys])
+    a = K.run_bounds(*args, want_gid=True)
+    b = K.run_bounds(*args, want_gid=True)
+    p = K.run_bounds_plain(*args, want_gid=True)
+    for x, y, z in zip(a, b, p):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    model = CC.hk9_model(perm, valid, keys)
+    assert int(a[0][0]) == model[0]
+    for x, m in zip(a[1:], model[1:]):
+        np.testing.assert_array_equal(x.cpu().numpy(), m)
+    c = K.run_bounds(*args)
+    assert c[3] is None
+    assert all(torch.equal(x, y) for x, y in zip(c[:3], p[:3]))

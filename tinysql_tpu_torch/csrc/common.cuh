@@ -100,9 +100,11 @@ __device__ __forceinline__ Lanes member_lanes(const Lanes& L,
   return m;
 }
 
-// A decoupled look-back's status word (HK3's pick, the radix passes of
-// lex_sort.cuh): one 64-bit load / store through L2, so a flag and its
-// count are seen together.
+constexpr unsigned kFull = 0xffffffffu;  // every lane of a warp
+
+// A decoupled look-back's status word (HK3's pick, HK2's compaction,
+// HK9, the radix passes of lex_sort.cuh): one 64-bit load / store through
+// L2, so a flag and its count are seen together.
 __device__ __forceinline__ unsigned long long lb_load(
     const unsigned long long* p) {
   return *(const volatile unsigned long long*)p;
@@ -110,6 +112,51 @@ __device__ __forceinline__ unsigned long long lb_load(
 __device__ __forceinline__ void lb_store(unsigned long long* p,
                                          unsigned long long v) {
   *(volatile unsigned long long*)p = v;
+}
+
+// look_back's words: flag in the top two bits, the count below (0: not
+// yet published)
+constexpr unsigned long long kFlagA = 1ULL << 62;  // the tile's own count
+constexpr unsigned long long kFlagP = 2ULL << 62;  // inclusive prefix
+constexpr unsigned long long kValue = kFlagA - 1;
+
+// The single-pass exclusive scan of per-tile counts (HK3's ej_pick, HK2's
+// present_pass, HK9's rb_pass).  Tiles are numbered in the order blocks
+// claim them from an atomic counter, so every earlier tile belongs to a
+// block that already runs and the wait below cannot deadlock.  Warp 0 of
+// tile `tile`: publish the tile's count, walk back over the earlier
+// tiles 32 at a time until an inclusive prefix, publish this tile's.
+// Returns the tile's exclusive prefix to every lane.  `status` holds one
+// word a tile, zeroed before the launch.
+__device__ int64_t look_back(unsigned long long* status, int64_t tile,
+                             int64_t agg) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) lb_store(&status[0], kFlagP | (unsigned long long)agg);
+    return 0;
+  }
+  if (lane == 0) lb_store(&status[tile], kFlagA | (unsigned long long)agg);
+  int64_t prefix = 0;
+  for (int64_t idx = tile - 1;; idx -= 32) {
+    const int64_t p = idx - lane;  // lane 0: the nearest earlier tile
+    unsigned long long s = kFlagP;  // before tile 0: a prefix of 0
+    if (p >= 0) {
+      do {
+        s = lb_load(&status[p]);
+      } while ((s >> 62) == 0);
+    }
+    const unsigned pm = __ballot_sync(kFull, (s >> 62) == 2);
+    const int stop = pm ? __ffs(pm) - 1 : 31;  // the nearest prefix
+    int64_t x = lane <= stop ? (int64_t)(s & kValue) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      x += (int64_t)__shfl_xor_sync(kFull, (long long)x, o);
+    prefix += x;
+    if (pm) break;
+  }
+  if (lane == 0)
+    lb_store(&status[tile], kFlagP | (unsigned long long)(prefix + agg));
+  return prefix;
 }
 
 // int64 sum with two's-complement wrap (no signed-overflow UB).
@@ -220,12 +267,6 @@ void launch_scan(const S& sc, int64_t n, int64_t* btot, int64_t* total,
          (const int64_t*)btot);
 }
 
-__global__ void fill_i64(int64_t* p, int64_t n, int64_t v) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (; i < n; i += stride) p[i] = v;
-}
-
 inline int64_t align16(int64_t b) { return (b + 15) & ~(int64_t)15; }
 
 inline unsigned grid_for(int64_t n, int threads, int64_t cap = 65535) {
@@ -233,10 +274,6 @@ inline unsigned grid_for(int64_t n, int threads, int64_t cap = 65535) {
   if (g < 1) g = 1;
   if (g > cap) g = cap;
   return (unsigned)g;
-}
-
-inline void launch_fill(int64_t* p, int64_t n, int64_t v, cudaStream_t st) {
-  if (n > 0) LAUNCH(fill_i64, grid_for(n, 256, 4096), 256, 0, st, p, n, v);
 }
 
 }  // namespace

@@ -72,7 +72,6 @@ constexpr int kUnroll = 4;    // rows a grid-stride step loads at once
 constexpr int64_t kPickTile = (int64_t)kThreads * kPickRows;
 constexpr int64_t kDenseMin = 1LL << 22;  // dense_ok's floor
 constexpr int64_t kHashMin = 1024;
-constexpr unsigned kFull = 0xffffffffu;
 static_assert(kPickRows * kWarps == 32, "one warp scans a tile's counts");
 
 // The workspace, int64 words: the header, the stats partials, then the
@@ -82,11 +81,6 @@ constexpr int kHdrWords = 8;
 constexpr int64_t kPartOff = kHdrWords;
 constexpr int64_t kZeroOff = kPartOff + 3 * kStatBlocks;
 enum { H_LIVE = 0, H_KMIN = 1, H_KMAX = 2, H_DENSE = 3, H_TSIZE = 4 };
-
-// look-back words: flag in the top two bits, the count below
-constexpr unsigned long long kFlagA = 1ULL << 62;  // the tile's own count
-constexpr unsigned long long kFlagP = 2ULL << 62;  // inclusive prefix
-constexpr unsigned long long kValue = kFlagA - 1;
 
 // Row i's key, liveness (valid and not NULL) and validity, zero past n:
 // the three loads are issued together (no load waits on another's value).
@@ -288,40 +282,6 @@ __device__ __forceinline__ int64_t table_find(const Table& T,
     if (rk[r1 - 1] == x) return r1 - 1;
     s = (s + 1) & mask;
   }
-}
-
-// Warp 0 of tile `tile`: publish the tile's count, walk back over the
-// earlier tiles 32 at a time until an inclusive prefix, publish this
-// tile's.  Returns the tile's exclusive prefix to every lane.
-__device__ int64_t look_back(unsigned long long* status, int64_t tile,
-                             int64_t agg) {
-  const int lane = threadIdx.x & 31;
-  if (tile == 0) {
-    if (lane == 0) lb_store(&status[0], kFlagP | (unsigned long long)agg);
-    return 0;
-  }
-  if (lane == 0) lb_store(&status[tile], kFlagA | (unsigned long long)agg);
-  int64_t prefix = 0;
-  for (int64_t idx = tile - 1;; idx -= 32) {
-    const int64_t p = idx - lane;  // lane 0: the nearest earlier tile
-    unsigned long long s = kFlagP;  // before tile 0: a prefix of 0
-    if (p >= 0) {
-      do {
-        s = lb_load(&status[p]);
-      } while ((s >> 62) == 0);
-    }
-    const unsigned pm = __ballot_sync(kFull, (s >> 62) == 2);
-    const int stop = pm ? __ffs(pm) - 1 : 31;  // the nearest prefix
-    int64_t x = lane <= stop ? (int64_t)(s & kValue) : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      x += (int64_t)__shfl_xor_sync(kFull, (long long)x, o);
-    prefix += x;
-    if (pm) break;
-  }
-  if (lane == 0)
-    lb_store(&status[tile], kFlagP | (unsigned long long)(prefix + agg));
-  return prefix;
 }
 
 // Probe + compaction, one pass.  zero = [stats ticket, tile counter,

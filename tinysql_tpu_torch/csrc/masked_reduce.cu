@@ -60,7 +60,6 @@ constexpr int kWord = 16;  // rows a thread owns in a tile (one uint4)
 constexpr int64_t kTile = (int64_t)kThreads * kWord;
 constexpr int kMaxBlocks = 256;
 constexpr int kBatch = 4;  // tiles whose words a thread loads together
-constexpr unsigned kFull = 0xffffffffu;
 
 // a partial: value bits, live count, NaN flag (float min/max)
 struct Acc {

@@ -275,29 +275,147 @@ __global__ void mc_fold(int64_t n, int64_t ns, Lanes L, LaneStrides S,
 }
 
 // ---- present-segment compaction -----------------------------------------
+//
+// One pass over the presence row (row 0 of the table) in tiles of
+// kPcTile segments, taken in launch order from an atomic counter: each
+// thread loads its 2 * kPcRounds presence words with 16-byte loads (a
+// warp reads 512 contiguous bytes a round), warp ballots rank the present
+// segments of a round, one warp scans the tile's 32 (round, warp) counts,
+// and a decoupled look-back (common.cuh) gives the tile its first output
+// column.  In the same pass every present segment writes its column: its
+// id (when asked) and the table rows [lo, rows) gathered at that id, a
+// row at a time with every gather of the row in flight (four rows at a
+// time measured no faster: fewer blocks an SM).  A tile's present ids
+// ascend, so a warp's loads of one row fall into few sectors.  The last
+// tile writes the count.  Column k's word c lands at body[c * ns +
+// k] (the layout [w, ns]) and, for k < hb, also at head[c * hb + k]: the
+// count word sits just before the head, so a host pulls the count and
+// the first hb columns in one transfer, the rest from the body.
+constexpr int kPcThreads = 256;
+constexpr int kPcWarps = kPcThreads / 32;
+constexpr int kPcRounds = 4;  // 16-byte loads (2 segments) a thread a tile
+constexpr int64_t kPcTile = (int64_t)kPcThreads * 2 * kPcRounds;
+static_assert(kPcRounds * kPcWarps == 32, "one warp scans a tile's counts");
 
-struct PresentScan {
-  const int64_t* pres;
-  int64_t* ids;
-  int64_t ob;
-  __device__ int64_t count(int64_t g) const { return pres[g] > 0 ? 1 : 0; }
-  __device__ void write(int64_t g, int64_t excl, int64_t v) const {
-    if (v && excl < ob) ids[excl] = g;
+__global__ void __launch_bounds__(kPcThreads)
+    present_pass(const int64_t* __restrict__ table, int rows, int64_t ns,
+                 int lo, int ids, int64_t hb, int64_t* zero,
+                 int64_t* __restrict__ count, int64_t* __restrict__ head,
+                 int64_t* __restrict__ body) {
+  __shared__ int64_t s_tile;
+  __shared__ unsigned s_cnt[32];
+  __shared__ int64_t s_off[32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0)
+    s_tile = (int64_t)atomicAdd((unsigned long long*)&zero[0], 1ULL);
+  __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t base = tile * kPcTile;
+  // rows of a table whose base is 16-byte aligned and ns even take
+  // 16-byte loads; any other view two 8-byte loads
+  const bool vec =
+      (reinterpret_cast<uintptr_t>(table) & 15) == 0 && (ns & 1) == 0;
+  int64_t p[kPcRounds][2];
+#pragma unroll
+  for (int r = 0; r < kPcRounds; ++r) {
+    const int64_t g = base + (int64_t)r * 2 * kPcThreads + 2 * t;
+    if (vec && g + 1 < ns) {
+      const longlong2 w = *reinterpret_cast<const longlong2*>(table + g);
+      p[r][0] = w.x;
+      p[r][1] = w.y;
+    } else {
+      p[r][0] = g < ns ? table[g] : 0;
+      p[r][1] = g + 1 < ns ? table[g + 1] : 0;
+    }
   }
-};
+  unsigned b0[kPcRounds], b1[kPcRounds];
+#pragma unroll
+  for (int r = 0; r < kPcRounds; ++r) {
+    b0[r] = __ballot_sync(kFull, p[r][0] > 0);
+    b1[r] = __ballot_sync(kFull, p[r][1] > 0);
+    if (lane == 0) s_cnt[r * kPcWarps + warp] = __popc(b0[r]) + __popc(b1[r]);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the tile's segments in order: (round, warp, lane, pair element)
+    const unsigned c = s_cnt[lane];
+    unsigned incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int64_t agg = __shfl_sync(kFull, incl, 31);
+    const int64_t prefix =
+        look_back((unsigned long long*)(zero + 1), tile, agg);
+    s_off[lane] = prefix + (incl - c);
+    if (lane == 0 && tile == (int64_t)gridDim.x - 1) *count = prefix + agg;
+  }
+  __syncthreads();
+  // each segment's output column, -1 when it is absent
+  const unsigned lt = (1u << lane) - 1u;
+  int64_t col[kPcRounds][2];
+#pragma unroll
+  for (int r = 0; r < kPcRounds; ++r) {
+    const unsigned h0 = (b0[r] >> lane) & 1u, h1 = (b1[r] >> lane) & 1u;
+    const int64_t k0 = s_off[r * kPcWarps + warp] + __popc(b0[r] & lt) +
+                       __popc(b1[r] & lt);
+    col[r][0] = h0 ? k0 : -1;
+    col[r][1] = h1 ? k0 + h0 : -1;
+  }
+  if (ids) {
+#pragma unroll
+    for (int r = 0; r < kPcRounds; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int64_t k = col[r][e];
+        const int64_t g = base + (int64_t)r * 2 * kPcThreads + 2 * t + e;
+        if (k >= 0) body[k] = g;
+        if (k >= 0 && k < hb) head[k] = g;
+      }
+  }
+  // a row at a time: every gather of the row in flight, then the stores
+  for (int row = lo; row < rows; ++row) {
+    const int64_t c = ids + row - lo;
+    int64_t v[kPcRounds][2];
+#pragma unroll
+    for (int r = 0; r < kPcRounds; ++r) {
+      const int64_t g = base + (int64_t)r * 2 * kPcThreads + 2 * t;
+      const int64_t* src = table + row * ns + g;
+      if (row == 0) {
+        v[r][0] = p[r][0];
+        v[r][1] = p[r][1];
+      } else if (vec && col[r][0] >= 0 && col[r][1] >= 0) {
+        const longlong2 w = *reinterpret_cast<const longlong2*>(src);
+        v[r][0] = w.x;
+        v[r][1] = w.y;
+      } else {
+        v[r][0] = col[r][0] >= 0 ? src[0] : 0;
+        v[r][1] = col[r][1] >= 0 ? src[1] : 0;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kPcRounds; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int64_t k = col[r][e];
+        if (k >= 0) body[c * ns + k] = v[r][e];
+        if (k >= 0 && k < hb) head[c * hb + k] = v[r][e];
+      }
+  }
+}
 
-__global__ void present_gather(const int64_t* __restrict__ table, int rows,
-                               int64_t ns, int64_t ob,
-                               int64_t* __restrict__ packed) {
-  const int64_t total = (int64_t)rows * ob;
+// Columns [from, to) of the layout [1 + rows, ns] past the count: id ns,
+// every row gathered at ns - 1.
+__global__ void present_pad(const int64_t* __restrict__ table, int64_t ns,
+                            int64_t from, int64_t to,
+                            int64_t* __restrict__ out) {
+  const int c = blockIdx.y;
+  const int64_t v = c == 0 ? ns : table[(int64_t)(c - 1) * ns + ns - 1];
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const int64_t r = i / ob, j = i % ob;
-    int64_t id = packed[j];
-    int64_t safe = id < ns - 1 ? id : ns - 1;
-    packed[(1 + r) * ob + j] = table[r * ns + safe];
-  }
+  for (int64_t k = from + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       k < to; k += stride)
+    out[(int64_t)c * ns + k] = v;
 }
 
 }  // namespace
@@ -391,29 +509,34 @@ TS_API int hk2_segment_reduce(const int64_t* gid, const uint8_t* valid,
                              st);
 }
 
-// Phase 1 of the compaction: number of present segments -> *total.
-// btot: int64[ceil(ns / 1024)].
-TS_API int hk2_present_count(const int64_t* pres, int64_t ns, int64_t* btot,
-                             int64_t* total, cudaStream_t st) {
-  PresentScan sc{pres, nullptr, 0};
-  int64_t nb = scan_nblocks(ns);
-  LAUNCH(scan_block_totals<PresentScan>, (unsigned)nb, kScanThreads, 0, st,
-         sc, ns, btot);
-  LAUNCH(scan_totals, 1, kScanThreads, 0, st, btot, nb, total);
+// The present-segment compaction, one pass (present_pass above).  zero:
+// int64[1 + ceil(ns / kPcTile)] (the tile counter, a look-back word a
+// tile), zeroed here by one memset; *count: the number of present
+// segments; a column of w = ids + rows - lo words a present segment (its
+// id when ids != 0, then the table rows [lo, rows)), in body [w, ns] and,
+// for the first hb columns, in head [w, hb].
+TS_API int hk2_present_pass(const int64_t* table, int rows, int64_t ns,
+                            int lo, int ids, int64_t hb, int64_t* zero,
+                            int64_t* count, int64_t* head, int64_t* body,
+                            cudaStream_t st) {
+  if (rows < 1 || lo < 0 || lo > rows || ns < 1 || hb < 0 || hb > ns)
+    return -1;
+  const int64_t tiles = (ns + kPcTile - 1) / kPcTile;
+  cudaMemsetAsync(zero, 0, 8 * (1 + tiles), st);
+  LAUNCH(present_pass, (unsigned)tiles, kPcThreads, 0, st, table, rows, ns,
+         lo, ids, hb, zero, count, head, body);
   return (int)cudaGetLastError();
 }
 
-// Phase 2 (btot as phase 1 left it): packed int64[(1 + rows) * ob] =
-// present segment ids ascending (fill ns past the count), then each of the
-// table's `rows` rows gathered at min(id, ns - 1).
-TS_API int hk2_present_pack(const int64_t* table, int rows, int64_t ns,
-                            int64_t ob, const int64_t* btot, int64_t* packed,
-                            cudaStream_t st) {
-  launch_fill(packed, ob, ns, st);
-  PresentScan sc{table, packed, ob};  // row 0 of the table is presence
-  LAUNCH(scan_apply<PresentScan>, (unsigned)scan_nblocks(ns), kScanThreads, 0,
-         st, sc, ns, btot);
-  LAUNCH(present_gather, grid_for((int64_t)rows * ob, 256, 1 << 16), 256, 0,
-         st, table, rows, ns, ob, packed);
+// Columns [from, to) of the body [1 + rows, ns] past the count: the fill
+// of present_compact's bucket.
+TS_API int hk2_present_pad(const int64_t* table, int rows, int64_t ns,
+                           int64_t from, int64_t to, int64_t* out,
+                           cudaStream_t st) {
+  if (rows < 1 || from < 0 || to > ns) return -1;
+  if (to > from) {
+    dim3 g(grid_for(to - from, 256, 1024), (unsigned)(1 + rows));
+    LAUNCH(present_pad, g, 256, 0, st, table, ns, from, to, out);
+  }
   return (int)cudaGetLastError();
 }

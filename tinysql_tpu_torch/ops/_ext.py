@@ -55,8 +55,9 @@ _SIGNATURES = {
         "hk2_scratch_bytes": (_i64, [_i64, _i64, _int]),
         "hk2_segment_reduce": (_int, [_vp, _vp, _i64, _i64, _vp, _vp, _vp,
                                       _vp]),
-        "hk2_present_count": (_int, [_vp, _i64, _vp, _vp, _vp]),
-        "hk2_present_pack": (_int, [_vp, _int, _i64, _i64, _vp, _vp, _vp]),
+        "hk2_present_pass": (_int, [_vp, _int, _i64, _int, _int, _i64, _vp,
+                                    _vp, _vp, _vp, _vp]),
+        "hk2_present_pad": (_int, [_vp, _int, _i64, _i64, _i64, _vp, _vp]),
         "hk2b_scratch_bytes": (_i64, [_i64, _i64, _i64, _int]),
         "hk2b_segment_reduce": (_int, [_vp, _vp, _i64, _i64, _i64, _vp, _vp,
                                        _vp, _vp, _vp]),

@@ -906,59 +906,91 @@ def segment_reduce_batched_plain(gid: torch.Tensor, valid: torch.Tensor,
 PRESENT_HEAD = 1 << 12
 
 
-def _present_count(table: torch.Tensor, ns: int):
-    """The count pass of the compaction (HK2's scan on the card, the
-    present ids for a CPU table): (state for :func:`_present_pack_into`,
-    the count as an int64[1] tensor on the table's device)."""
-    if not _on_card(table, "present_compact"):
-        ids = torch.nonzero(table[0] > 0).reshape(-1)
-        return {"ids": ids}, torch.tensor([ids.shape[0]], dtype=I64)
-    from . import _ext
-    lib = _ext.lib("segment_reduce")
-    nblk = max((ns + 1023) // 1024, 1)
-    btot = torch.empty(nblk + 1, dtype=I64, device=table.device)
-    _ext.check(lib.hk2_present_count(table.data_ptr(), ns, btot.data_ptr(),
-                                     btot[nblk:].data_ptr(), _stream()),
-               "present_count")
-    return {"btot": btot}, btot[nblk:]
+#: csrc/segment_reduce.cu's compaction tile (kPcTile: 256 threads x 2
+#: segments x 4 rounds), mirrored so the wrapper sizes the tile counter
+#: and the look-back words (one a tile) without a call into the library
+_HK2_PRESENT_TILE = 256 * 2 * 4
 
 
-def _present_pack_into(table: torch.Tensor, ns: int, ob: int, state):
-    """HK2's compaction of the present columns into ob slots (the first
-    ob of them), reusing the count pass kept in ``state``; plain version
-    for a CPU table."""
+def present_pack(table: torch.Tensor, ns: int, lo: int = 0,
+                 ids: bool = True, head: int = 0):
+    """HK2's present-segment compaction (presence row > 0), one pass on
+    the card: returns (buffer, off).  ``buffer[off]`` is the count; each
+    present segment, ids ascending, has a column of w words, its id
+    (``ids``) and the table rows [lo, rows); the first ``head`` columns
+    follow the count as rows [w, head] (one contiguous range with it), and
+    every column lies in the body after them, rows [w, ns].  Words past
+    the count are not written.  The buffer is sized from ns, the row count
+    and ``head`` alone; no host sync."""
+    table = table.contiguous()
     rows = int(table.shape[0])
-    dev = table.device
+    if table.dtype != I64 or table.dim() != 2 or table.shape[1] != ns \
+            or not 0 <= lo <= rows or not 0 <= head <= ns:
+        raise ValueError(f"present_pack: table {table.dtype}"
+                         f"{tuple(table.shape)}, ns={ns}, lo={lo}, "
+                         f"head={head}")
+    w = int(ids) + rows - lo
+    off = 1 + -(-ns // _HK2_PRESENT_TILE)
+    buf = torch.empty(off + 1 + w * (head + ns), dtype=I64,
+                      device=table.device)
+    hd, body = buf[off + 1:off + 1 + w * head], buf[off + 1 + w * head:]
     if not _on_card(table, "present_compact"):
         _count(PLAIN_CALLS, "present_compact")
-        ids = state["ids"][:ob]
-        full = torch.full((ob,), ns, dtype=I64, device=dev)
-        full[:ids.shape[0]] = ids
-        return torch.cat([full[None, :],
-                          table[:, torch.clamp(full, max=ns - 1)]], dim=0)
+        present = torch.nonzero(table[0] > 0).reshape(-1)
+        cols = table[lo:, present]
+        if ids:
+            cols = torch.cat([present[None, :], cols])
+        n = int(present.shape[0])
+        buf[off] = n
+        body.view(w, ns)[:, :n] = cols
+        hd.view(w, head)[:, :min(n, head)] = cols[:, :head]
+        return buf, off
     from . import _ext
-    lib = _ext.lib("segment_reduce")
-    packed = torch.empty((1 + rows, ob), dtype=I64, device=dev)
-    _ext.check(lib.hk2_present_pack(table.data_ptr(), rows, ns, ob,
-                                    state["btot"].data_ptr(),
-                                    packed.data_ptr(), _stream()),
-               "present_pack")
+    _ext.check(_ext.lib("segment_reduce").hk2_present_pass(
+        table.data_ptr(), rows, ns, lo, int(ids), head, buf.data_ptr(),
+        buf[off:].data_ptr(), hd.data_ptr(), body.data_ptr(), _stream()),
+        "present_pass")
     _count(LAUNCHES, "present_compact")
-    return packed
+    return buf, off
+
+
+def _pull_present(table: torch.Tensor, ns: int, lo: int,
+                  ids: bool) -> np.ndarray:
+    """The present columns of :func:`present_pack` on the host, int64[w,
+    n], each row contiguous: one counted pull of the count and the first
+    ``PRESENT_HEAD`` columns, a second of all of them from the body only
+    when there are more."""
+    w = int(ids) + int(table.shape[0]) - lo
+    hb = min(PRESENT_HEAD, ns)
+    buf, off = present_pack(table, ns, lo, ids, hb)
+    got = d2h(buf[off:off + 1 + w * hb])
+    n = int(got[0])
+    if n <= hb:
+        return got[1:].reshape(w, hb)[:, :n]
+    return d2h(buf[off + 1 + w * hb:].view(w, ns)[:, :n])
 
 
 def present_compact(table: torch.Tensor, ns: int):
     """Present segments (presence row > 0) compacted to a static bucket:
     returns (n_present, packed int64[(1 + rows), ob]) — row 0 the
     ascending segment ids (fill ns past the count), then every table row
-    gathered at min(id, ns - 1).  One scalar sync for the count."""
+    gathered at min(id, ns - 1).  On the card the packed rows are views of
+    one buffer [1 + rows, ns] (each row contiguous); the count comes
+    through one counted pull, and the fill past it is one more launch."""
     table = table.contiguous()
     if not _on_card(table, "present_compact"):
         return present_compact_plain(table, ns)
-    state, total = _present_count(table, ns)
-    np_ = int(total.item())
+    rows = int(table.shape[0])
+    buf, off = present_pack(table, ns)
+    np_ = _pull_scalar(buf[off:off + 1])
     ob = min(bucket(max(np_, 1)), ns)
-    return np_, _present_pack_into(table, ns, ob, state)
+    packed = buf[off + 1:].view(1 + rows, ns)
+    if ob > np_:
+        from . import _ext
+        _ext.check(_ext.lib("segment_reduce").hk2_present_pad(
+            table.data_ptr(), rows, ns, np_, ob, packed.data_ptr(),
+            _stream()), "present_pad")
+    return np_, packed[:, :ob]
 
 
 def present_compact_plain(table: torch.Tensor, ns: int):
@@ -980,18 +1012,7 @@ def present_rows(table: torch.Tensor, ns: int) -> np.ndarray:
     ``PRESENT_HEAD`` present columns, so a small result costs one D2H and
     no count pull; a second transfer brings the rest only when there are
     more."""
-    table = table.contiguous()
-    rows = int(table.shape[0])
-    hb = max(min(PRESENT_HEAD, ns), 1)
-    state, total = _present_count(table, ns)
-    packed = _present_pack_into(table, ns, hb, state)
-    got = d2h(torch.cat([total, packed[2:].reshape(-1)]))
-    n = int(got[0])
-    lead = got[1:].reshape(rows - 1, hb)
-    if n <= hb:
-        return lead[:, :n]
-    packed = _present_pack_into(table, ns, min(bucket(n), ns), state)
-    return np.concatenate([lead, d2h(packed[2:, hb:n])], axis=1)
+    return _pull_present(table, ns, 1, False)
 
 
 # =========================================================================
@@ -1871,6 +1892,11 @@ class _CRunKeys(ctypes.Structure):
                 ("n", ctypes.c_int)]
 
 
+#: csrc/run_bounds.cu's tile (kRbTile: 256 threads x 4 sorted positions),
+#: mirrored so the wrapper sizes the tile counter and the look-back words
+_HK9_TILE = 256 * 4
+
+
 def run_bounds(perm, valid, keys, want_gid: bool = False):
     """Runs of equal keys in a sorted order (HK9): ``perm`` int64[n]
     (valid rows first), ``valid`` bool[n] and ``keys`` [(int64 or float64
@@ -1908,17 +1934,17 @@ def run_bounds(perm, valid, keys, want_gid: bool = False):
         ck.vals[j] = v.data_ptr()
         ck.nulls[j] = _ptr(m)
         ck.is_f64[j] = int(v.dtype == F64)
-    nblk = max((n + 1023) // 1024, 1)
-    btot = torch.empty(nblk + 1, dtype=I64, device=dev)
+    # [count, tile counter, a look-back word a tile]
+    buf = torch.empty(2 + -(-n // _HK9_TILE), dtype=I64, device=dev)
     lead = torch.empty(n, dtype=I64, device=dev)
     ends = torch.empty(n, dtype=I64, device=dev)
     gid = torch.empty(n, dtype=I64, device=dev) if want_gid else None
     _ext.check(lib.hk9_run_bounds(
         perm.data_ptr(), n, valid.data_ptr(), ctypes.byref(ck),
-        btot.data_ptr(), btot[nblk:].data_ptr(), lead.data_ptr(),
+        buf[1:].data_ptr(), buf.data_ptr(), lead.data_ptr(),
         ends.data_ptr(), _ptr(gid), _stream()), "run_bounds")
     _count(LAUNCHES, "run_bounds")
-    return btot[nblk:], lead, ends, gid
+    return buf[:1], lead, ends, gid
 
 
 def run_bounds_plain(perm, valid, keys, want_gid: bool = False):
@@ -2616,17 +2642,16 @@ def _fused_segment_raw(dev_cols, gid_dev, n_segments: int, agg_specs,
 
 def _present_extract(table, plan, ns: int, nb: int, limit: int = None):
     """Present segments -> (present_ids, out_aggs, first_orig) host arrays:
-    one pull of the whole table (small tables) or a device compaction and
-    one pull of the compacted rows (large)."""
+    one pull of the whole table (small tables) or HK2's compaction, whose
+    count, ids and rows come in one pull when at most ``PRESENT_HEAD``
+    segments are present, in two above (large)."""
     if ns <= SMALL_PACK:
         vals = d2h(table)
         present = np.nonzero(vals[0] > 0)[0]
         rows = vals[:, present]
     else:
-        np_, packed = present_compact(table, ns)
-        host = d2h(packed)
-        present = host[0][:np_]
-        rows = host[1:, :np_]
+        cols = _pull_present(table, ns, 0, True)
+        present, rows = cols[0], cols[1:]
     first = np.minimum(rows[1], nb - 1)
     outs = _lane_outputs(
         plan, lambda j, f: _np_value(np.ascontiguousarray(rows[2 + 2 * j]),
@@ -2769,8 +2794,9 @@ def group_aggregate(key_cols: List[Tuple[np.ndarray, np.ndarray]],
     present, out_aggs, _ = _present_extract(table, plan, nb, nb)
     # each group's representative is its FIRST row in sorted order (the
     # reference's first_orig), not its lowest row: under a NULL key rows
-    # sort by their hidden values
-    first = d2h(perm[lead[:int(count.item())]])
+    # sort by their hidden values.  [count, leader rows]: one counted pull
+    # of the count and the first PRESENT_HEAD rows, a second of the rest
+    first = _pull_kept(torch.cat([count, perm[lead]]))
     out_keys = [(np.asarray(v)[first], np.asarray(m)[first])
                 for v, m in key_cols] if len(first) else \
         [(np.asarray(v)[:0], np.asarray(m)[:0]) for v, m in key_cols]
