@@ -68,7 +68,16 @@ result line):
    semi, anti and NOT IN modes at NOT IN's SF=1 shape (1.5M orders
    probing ~3M lineitem keys), with an empty build side, one NULL build
    key and NULL probe keys, byte for byte against its plain version,
-   beside torch.nonzero over the same keep mask (a partial call);
+   beside torch.nonzero over the same keep mask (a partial call), then at
+   the tile edges of tinysql_tpu_torch/bench/probecases.py (n = 1, a
+   tile - 1, a tile, a tile + 1, three tiles + 5; kept runs across the
+   edges, none and all kept, PRESENT_HEAD and PRESENT_HEAD + 1 kept) in
+   every mode against its plain version and the numpy tile model ([hk10]
+   line); HK6 (dense_probe) at pipeline Q3's two joins, in every mode at
+   the edges of probecases (probe counts around a thread's rows, lanes
+   of 1, 2, 4 and 8 bytes, 17 lanes, keys at both ends of int64, the row
+   path and records each forced) against its plain version and the contract
+   in numpy ([hk6] line);
    HK1 as one launch also at n = 0, 1 and one past a block's range, and
    at Q6's shape bit-equal to the numpy model of its order
    (tinysql_tpu_torch/bench/hk1model.py), beside a masked torch.sum (a
@@ -392,7 +401,7 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10) -> float | None:
+def device_ms(fn, reps: int = 10, tries: int = 3) -> float | None:
     """Device-only time of one call of fn: the self device time of every
     kernel, copy and memset it enqueues, from a whole torch.profiler trace
     of reps calls (trace_tpch.device_trace).  Unlike cuda_ms it leaves
@@ -400,14 +409,15 @@ def device_ms(fn, reps: int = 10) -> float | None:
     was whole."""
     from tinysql_tpu_torch.bench.trace_tpch import device_trace
     fn()
-    evts, _wall, whole = device_trace(fn, reps, tries=3)
+    evts, _wall, whole = device_trace(fn, reps, tries=tries)
     return sum(us for _k, us, _c in evts) / 1e3 if whole else None
 
 
-def timed(fn) -> dict:
+def timed(fn, tries: int = 3) -> dict:
     """The kernel's median CUDA-event time (host work between its launches
-    included) and its device-only time."""
-    return {"ms": cuda_ms(fn), "device_ms": device_ms(fn)}
+    included) and its device-only time (None when none of ``tries``
+    traces was whole)."""
+    return {"ms": cuda_ms(fn), "device_ms": device_ms(fn, tries=tries)}
 
 
 def same_bytes(a, b, what: str) -> None:
@@ -648,6 +658,87 @@ def hk9_edge_cases(K, t, hk9_case) -> int:
     print(f"[hk9] {len(CC.HK9_CASES)} edge cases equal to the plain "
           f"version and the tile model", flush=True)
     return len(CC.HK9_CASES)
+
+
+def hk10_edge_cases(K, t) -> int:
+    """HK10 at the tile edges of bench/probecases.py (n = 1, a tile - 1, a
+    tile, a tile + 1, three tiles + 5; kept runs across the edges, a tile
+    keeping nothing or everything, PRESENT_HEAD and PRESENT_HEAD + 1
+    kept), in every mode, with the build side as drawn, empty and with
+    one NULL key: the count and kept rows equal to the plain version's
+    and to the numpy tile model's, two launches byte-equal."""
+    import numpy as np
+    import torch
+    from tinysql_tpu_torch.bench import probecases as PC
+    n = 0
+    for case in PC.HK10_CASES:
+        match, ln, lv, rn, rv = PC.hk10_case(case)
+        seven = np.arange(len(rn)) == 7
+        probe = [t(a) for a in (match, ln, lv)]
+        for bn, bv in ((rn, rv), (rn[:0], rv[:0]), (rn | seven, rv | seven)):
+            for mode, (anti, na) in PC.SEMI_MODES.items():
+                what = f"semi_pick {case} {mode} build {len(bv)}"
+                a = K.semi_pick(*probe, t(bn), t(bv), anti, na)
+                b = K.semi_pick(*probe, t(bn), t(bv), anti, na)
+                p = K.semi_pick_plain(*probe, t(bn), t(bv), anti, na)
+                k = int(a[0])
+                same_bytes(a[:1 + k], b[:1 + k], what)
+                if k != int(p[0]) or not torch.equal(a[:1 + k], p[:1 + k]):
+                    raise Mismatch(f"{what}: differs from the plain version")
+                count, rows = PC.hk10_model(match, ln, lv, bn, bv, anti, na)
+                if k != count or not np.array_equal(
+                        a[1:1 + k].cpu().numpy(), rows):
+                    raise Mismatch(f"{what}: differs from the tile model")
+                n += 1
+    print(f"[hk10] {n} edge cases (tile {PC.SP_TILE}) equal to the plain "
+          f"version and the tile model", flush=True)
+    return n
+
+
+def hk6_edge_cases(K, t) -> int:
+    """HK6 at probe counts around a thread's rows (bench/probecases.py),
+    with 5 lanes of 1, 2, 4, 8 and 1 bytes and with 17 (two launches),
+    probe keys at both ends of int64, NULL and outside the table's range,
+    in every mode, on the row path and on records (each forced): the
+    valid mask and
+    every gathered byte (unmatched slots included) equal to the plain
+    version's and to the contract in numpy."""
+    import numpy as np
+    import torch
+    from tinysql_tpu_torch.bench import probecases as PC
+    n = 0
+    for kind in PC.RECORD_KINDS:
+        with PC.records(K, kind):
+            for nb in PC.DP_SIZES:
+                for lanes in (5, 17):
+                    for lo in (-50, K.I64_MAX - 299, K.I64_MIN):
+                        args = PC.hk6_case(nb, lanes, lo)
+                        kp, kn, pv, lo_, hi, tb, bv, bl = args
+                        targs = (t(kp), t(kn), t(pv), lo_, hi, t(tb), t(bv),
+                                 [(t(v), None if m is None else t(m))
+                                  for v, m in bl])
+                        for mode in ("inner", "left", "semi", "anti"):
+                            what = (f"dense_probe nb={nb} {lanes} lanes "
+                                    f"lo={lo} {mode} {kind}")
+                            a = K.dense_probe(*targs, mode)
+                            p = K.dense_probe_plain(*targs, mode)
+                            want = PC.hk6_plain(*args, mode)
+                            ok = torch.equal(a[0], p[0]) and np.array_equal(
+                                a[0].cpu().numpy(), want[0])
+                            for (x, xn), (y, yn), (wv, wm) in zip(
+                                    a[1], p[1], want[1]):
+                                ok = ok and torch.equal(
+                                    x.view(torch.uint8), y.view(torch.uint8))
+                                ok = ok and torch.equal(xn, yn)
+                                ok = ok and np.array_equal(
+                                    x.cpu().numpy(), wv) and np.array_equal(
+                                    xn.cpu().numpy(), wm)
+                            if not ok or len(a[1]) != len(want[1]):
+                                raise Mismatch(f"{what}: differs")
+                            n += 1
+    print(f"[hk6] {n} edge cases ({PC.DP_ROWS} rows a thread) equal to "
+          f"the plain version and the contract", flush=True)
+    return n
 
 
 def hk1_one_launch_cases(K, t, valid, q6, hk1_case) -> dict:
@@ -1230,6 +1321,7 @@ def phase_kernels(K, dev):
                  hi, t(tb6), t(rng.random(nbb6) < 0.8), bl6)
         for mode in ("inner", "left", "semi", "anti"):
             hk6_case(args6, mode, f"dense_probe edges lo={lo} {mode}")
+    edges6 = hk6_edge_cases(K, t)
     def probe_bytes(args):
         """Bytes HK6 must move on this data: key, NULL flag and validity
         read and the valid mask written for every probe row; the table
@@ -1250,6 +1342,9 @@ def phase_kernels(K, dev):
         torch.full_like(kp1, -1)), 0, nbb1 - 1)
     rec["dense_probe"] = {
         "max_abs_err": 0.0,
+        "edge_cases": edges6,
+        "join1_record_words": K._probe_plan(
+            np1, nbb1, int(tbl1.shape[0]), bl1)[1][0],
         **timed(lambda: K.dense_probe(*args1, "inner")),
         "plain_ms": cuda_ms(lambda: K.dense_probe_plain(*args1, "inner")),
         "library_ms": None,
@@ -1341,11 +1436,16 @@ def phase_hk10(K, dev, t, rng) -> dict:
     ln1 = t(rng.random(nl) < 0.01)
     case(K.unique_match(lk, ln1, lv, rk, rn, rv), ln1, lv, rn, rv,
          "NULL probe keys")
+    edges = hk10_edge_cases(K, t)
     anti, na = SEMI_MODES["not in"]
     keep = lv & ~ln & ~match  # the NOT IN keep mask of this input
     return {
         "max_abs_err": 0.0,
-        **timed(lambda: K.semi_pick(match, ln, lv, rn, rv, anti, na)),
+        "edge_cases": edges,
+        # late in phase 2, three traces of its memset and two kernels in
+        # a row have come back with records lost on an H100
+        **timed(lambda: K.semi_pick(match, ln, lv, rn, rv, anti, na),
+                tries=8),
         "plain_ms": cuda_ms(lambda: K.semi_pick_plain(match, ln, lv, rn,
                                                       rv, anti, na)),
         "library_ms": None,

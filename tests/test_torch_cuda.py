@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from tinysql_tpu_torch.bench import compactcases as CC
+from tinysql_tpu_torch.bench import probecases as PC
 from tinysql_tpu_torch.bench import rankcases as RC
 from tinysql_tpu_torch.ops import kernels as K
 
@@ -1160,3 +1161,73 @@ def test_run_bounds_edges_match_plain(dev, case):
     c = K.run_bounds(*args)
     assert c[3] is None
     assert all(torch.equal(x, y) for x, y in zip(c[:3], p[:3]))
+
+
+@pytest.mark.parametrize("case", sorted(PC.HK10_CASES))
+def test_semi_pick_edges_match_plain_and_model(dev, case):
+    """HK10's one pass at its tile edges (n = 1, a tile - 1, a tile, a
+    tile + 1, three tiles + 5; kept runs across the edges, a tile keeping
+    nothing or everything, PRESENT_HEAD and PRESENT_HEAD + 1 kept) in
+    every mode, with the build side as drawn, empty and with one NULL
+    key: the count and kept rows equal semi_pick_plain's and the tile
+    model's, two launches byte-equal, one wrapper launch a call."""
+    match, ln, lv, rn, rv = PC.hk10_case(case)
+    builds = {"as drawn": (rn, rv), "empty": (rn[:0], rv[:0]),
+              "null key": (np.where(np.arange(len(rn)) == 7, True, rn),
+                           np.where(np.arange(len(rv)) == 7, True, rv))}
+    probe = [_t(a, dev) for a in (match, ln, lv)]
+    for build, (bn, bv) in builds.items():
+        b_t = [_t(bn, dev), _t(bv, dev)]
+        for mode, (anti, na) in PC.SEMI_MODES.items():
+            before = K.kernel_counts()["launches"]["semi_pick"]
+            a = K.semi_pick(*probe, *b_t, anti, na)
+            assert K.kernel_counts()["launches"]["semi_pick"] == before + 1
+            b = K.semi_pick(*probe, *b_t, anti, na)
+            p = K.semi_pick_plain(*probe, *b_t, anti, na)
+            n = int(a[0])
+            assert n == int(p[0]) == int(b[0]), (build, mode)
+            assert torch.equal(a[:1 + n], p[:1 + n])
+            assert torch.equal(a[:1 + n], b[:1 + n])
+            count, rows = PC.hk10_model(match, ln, lv, bn, bv, anti, na)
+            assert n == count
+            np.testing.assert_array_equal(a[1:1 + n].cpu().numpy(), rows)
+
+
+@pytest.mark.parametrize("kind", PC.RECORD_KINDS)
+@pytest.mark.parametrize("lanes", [5, 17])
+@pytest.mark.parametrize("nb", PC.DP_SIZES)
+def test_dense_probe_edges_match_plain(dev, nb, lanes, kind):
+    """HK6 at probe counts around a thread's rows, with 5 lanes (1, 2, 4,
+    8 and 1 bytes) and 17 (two launches), on the row path and on records
+    (each forced), keys at both ends of int64, in every mode: the valid
+    mask and every gathered byte
+    (unmatched slots included) equal the plain version's and the numpy
+    contract's; a launch for each 16 lanes."""
+    with PC.records(K, kind):
+        _dense_probe_edges(dev, nb, lanes)
+
+
+def _dense_probe_edges(dev, nb, lanes):
+    for lo in (-50, K.I64_MAX - 299, K.I64_MIN):
+        args = PC.hk6_case(nb, lanes, lo)
+        kp, kn, pv, lo_, hi, tb, bv, bl = args
+        targs = (_t(kp, dev), _t(kn, dev), _t(pv, dev), lo_, hi,
+                 _t(tb, dev), _t(bv, dev),
+                 [(_t(v, dev), None if m is None else _t(m, dev))
+                  for v, m in bl])
+        for mode in ("inner", "left", "semi", "anti"):
+            before = K.kernel_counts()["launches"]["dense_probe"]
+            a = K.dense_probe(*targs, mode)
+            gathers = mode in ("inner", "left")
+            assert K.kernel_counts()["launches"]["dense_probe"] == \
+                before + (-(-lanes // 16) if gathers else 1)
+            p = K.dense_probe_plain(*targs, mode)
+            want = PC.hk6_plain(*args, mode)
+            assert torch.equal(a[0], p[0])
+            np.testing.assert_array_equal(a[0].cpu().numpy(), want[0])
+            assert len(a[1]) == len(p[1]) == len(want[1])
+            for (x, xn), (y, yn), (wv, wm) in zip(a[1], p[1], want[1]):
+                assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                assert torch.equal(xn, yn)
+                np.testing.assert_array_equal(x.cpu().numpy(), wv)
+                np.testing.assert_array_equal(xn.cpu().numpy(), wm)

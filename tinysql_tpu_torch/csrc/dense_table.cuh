@@ -15,6 +15,8 @@
 // (R4: nothing relies on a wrap at the ends of int64).
 #pragma once
 
+#include <cstring>
+
 #include "common.cuh"
 
 constexpr int kMaxKeys = 8;
@@ -115,6 +117,117 @@ __device__ __forceinline__ void table_insert_min(int32_t* tbl, int64_t lo,
   const unsigned long long off =
       (unsigned long long)key - (unsigned long long)lo;
   atomicMin((unsigned int*)&tbl[off], (unsigned int)row);
+}
+
+// ---- a thread's R consecutive rows at once (HK6) ----------------------
+//
+// Rows [i0, i0 + nr) of a lane, nr <= R.  A full group whose address is
+// aligned to its size (16 bytes at most) moves in 16-, 8- or 4-byte
+// words; a short group (the last of a lane) or an unaligned view moves
+// element by element.  R * sizeof(T) is 4, 8 or a multiple of 16.
+
+template <int R, class T>
+__device__ __forceinline__ bool rows_vec(const T* p, int nr) {
+  constexpr int B = R * (int)sizeof(T);
+  constexpr int A = B < 16 ? B : 16;
+  static_assert(B == 4 || B == 8 || B % 16 == 0, "a group is whole words");
+  return nr == R && (reinterpret_cast<uintptr_t>(p) % A) == 0;
+}
+
+template <int R, class T>
+__device__ __forceinline__ void get_rows(const T* __restrict__ src,
+                                         int64_t i0, int nr, T (&v)[R]) {
+  const T* p = src + i0;
+  constexpr int B = R * (int)sizeof(T);
+  if (rows_vec<R>(p, nr)) {
+    if constexpr (B >= 16) {
+#pragma unroll
+      for (int q = 0; q < B / 16; ++q) {
+        const uint4 w = reinterpret_cast<const uint4*>(p)[q];
+        memcpy(reinterpret_cast<char*>(v) + 16 * q, &w, 16);
+      }
+    } else if constexpr (B == 8) {
+      const uint2 w = *reinterpret_cast<const uint2*>(p);
+      memcpy(v, &w, 8);
+    } else {
+      const unsigned w = *reinterpret_cast<const unsigned*>(p);
+      memcpy(v, &w, 4);
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = r < nr ? p[r] : T(0);
+}
+
+template <int R, class T>
+__device__ __forceinline__ void put_rows(T* __restrict__ dst, int64_t i0,
+                                         int nr, const T (&v)[R]) {
+  T* p = dst + i0;
+  constexpr int B = R * (int)sizeof(T);
+  if (rows_vec<R>(p, nr)) {
+    if constexpr (B >= 16) {
+#pragma unroll
+      for (int q = 0; q < B / 16; ++q) {
+        uint4 w;
+        memcpy(&w, reinterpret_cast<const char*>(v) + 16 * q, 16);
+        reinterpret_cast<uint4*>(p)[q] = w;
+      }
+    } else if constexpr (B == 8) {
+      uint2 w;
+      memcpy(&w, v, 8);
+      *reinterpret_cast<uint2*>(p) = w;
+    } else {
+      unsigned w;
+      memcpy(&w, v, 4);
+      *reinterpret_cast<unsigned*>(p) = w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (r < nr) p[r] = v[r];
+}
+
+// The probe keys of rows [i0, i0 + nr): probe_key's contract for each
+// row, every lane's loads issued for all R rows together.  The key lanes
+// are read through K's fields at indices known at compile time (the
+// composite loop is unrolled over kMaxKeys), so K stays in the parameter
+// space.
+template <int R>
+__device__ __forceinline__ void probe_rows(const KeySet& K, int64_t i0,
+                                           int nr, int64_t (&key)[R],
+                                           bool (&ok)[R]) {
+  uint8_t kn[R];
+  if (K.n == 1) {
+    get_rows<R>(K.vals[0], i0, nr, key);
+    if (K.nulls[0]) get_rows<R>(K.nulls[0], i0, nr, kn);
+#pragma unroll
+    for (int r = 0; r < R; ++r) ok[r] = r < nr && !(K.nulls[0] && kn[r]);
+    return;
+  }
+  unsigned long long comp[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    comp[r] = 0;
+    ok[r] = r < nr;
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxKeys; ++j) {
+    if (j >= K.n) break;
+    int64_t k[R];
+    get_rows<R>(K.vals[j], i0, nr, k);
+    if (K.nulls[j]) get_rows<R>(K.nulls[j], i0, nr, kn);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool part = !(K.nulls[j] && kn[r]) && k[r] >= K.lo[j] &&
+                        k[r] <= K.hi[j];
+      ok[r] = ok[r] && part;
+      comp[r] += ((unsigned long long)k[r] - (unsigned long long)K.lo[j]) *
+                 (unsigned long long)K.stride[j];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) key[r] = (int64_t)comp[r];
 }
 
 }  // namespace

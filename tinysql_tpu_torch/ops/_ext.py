@@ -84,7 +84,8 @@ _SIGNATURES = {
     },
     "dense_probe": {
         "hk6_dense_probe": (_int, [_vp, _vp, _i64, _i64, _i64, _vp, _i64,
-                                   _vp, _i64, _int, _vp, _vp, _vp]),
+                                   _vp, _i64, _int, _vp, _vp, _int, _vp,
+                                   _vp]),
     },
     "expr_eval": {
         "hk7_expr_eval": (_int, [_vp, _int, _int, _vp, _vp, _vp, _vp, _vp,
@@ -106,7 +107,7 @@ _SIGNATURES = {
     },
     "semi_pick": {
         "hk10_semi_pick": (_int, [_vp, _vp, _vp, _i64, _vp, _vp, _i64, _int,
-                                  _int, _vp, _vp, _vp, _vp, _vp]),
+                                  _int, _vp, _vp, _vp]),
     },
     "shard_merge": {
         "hk11_shard_merge": (_int, [_vp, _int, _int, _i64, _int, _int, _vp,

@@ -1664,19 +1664,94 @@ def _dense_probe(keys, spec, pvalid, lo, hi, tbl, bvalid, blanes, mode):
     from . import _ext
     lib = _ext.lib("dense_probe")
     ks = _key_set(keys, spec)
-    lanes = [(1, v, m) for v, m in blanes] if mode in ("inner", "left") \
-        else []
-    valid_out = torch.empty(nb, dtype=torch.bool, device=dev)
-    outs = []
-    for cg, got in _gathers(lanes, nb, dev):
+    lanes = blanes if mode in ("inner", "left") else []
+    nbb = int(bvalid.shape[0])
+    at, sws, rec_at, total = _probe_plan(nb, nbb, int(tbl.shape[0]), lanes)
+    buf = torch.empty(total, dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    outs = [(buf[ov:ov + nb * v.element_size()].view(v.dtype),
+             buf[on:on + nb].view(torch.bool))
+            for (v, _m), (ov, on) in zip(lanes, at)]
+    args = (ctypes.byref(ks), pvalid.data_ptr(), nb, int(lo), int(hi),
+            tbl.data_ptr(), int(tbl.shape[0]), bvalid.data_ptr(), nbb,
+            _PROBE_MODES[mode])
+    for k, sw in enumerate(sws):
+        chunk = lanes[k * _MAX_LANES:(k + 1) * _MAX_LANES]
+        cat = at[k * _MAX_LANES:(k + 1) * _MAX_LANES]
+        n = len(chunk)
+        cg = _CGather()
+        cg.n = n
+        cg.vals[:n] = [v.data_ptr() for v, _m in chunk]
+        cg.nulls[:n] = [_ptr(m) for _v, m in chunk]
+        cg.out_vals[:n] = [base + ov for ov, _on in cat]
+        cg.out_nulls[:n] = [base + on for _ov, on in cat]
+        cg.width[:n] = [v.element_size() for v, _m in chunk]
+        # a launch past the first kMaxLanes lanes leaves the mask alone
         _ext.check(lib.hk6_dense_probe(
-            ctypes.byref(ks), pvalid.data_ptr(), nb, int(lo), int(hi),
-            tbl.data_ptr(), int(tbl.shape[0]), bvalid.data_ptr(),
-            int(bvalid.shape[0]), _PROBE_MODES[mode], ctypes.byref(cg),
-            valid_out.data_ptr(), _stream()), "dense_probe")
+            *args, ctypes.byref(cg), base + rec_at if sw else None, sw,
+            base if k == 0 else None, _stream()), "dense_probe")
         _count(LAUNCHES, "dense_probe")
-        outs += [(v, m) for _s, v, m in got]
-    return valid_out, outs
+    return buf[:nb].view(torch.bool), outs
+
+
+def _probe_plan(nb: int, nbb: int, tbl_len: int, lanes):
+    """HK6's one buffer: the valid mask, then each lane's values and NULL
+    flags, every part at a 16-byte boundary (the kernel's packed stores
+    and 16-byte record loads), then the records of the launches that pack
+    them (kMaxLanes lanes a launch).  Returns ([(values offset, NULL
+    flags offset)] a lane, [record words] a launch, records offset, total
+    bytes)."""
+    at, total = [], _a16(nb)
+    for v, _m in lanes:
+        nv = _a16(nb * v.element_size())
+        at.append((total, total + nv))
+        total += nv + _a16(nb)
+    sws = [_dense_records(nb, nbb, tbl_len, lanes[c0:c0 + _MAX_LANES])
+           for c0 in range(0, max(len(lanes), 1), _MAX_LANES)]
+    return at, sws, total, max(total + 8 * (tbl_len + 1) * max(sws), 16)
+
+
+def _a16(nbytes: int) -> int:
+    return (nbytes + 15) & ~15
+
+
+def _dense_records(nb: int, nbb: int, tbl_len: int, lanes) -> int:
+    """Words of HK6's records for a launch gathering ``lanes`` [(values,
+    NULL mask or None)], or 0 for the row path.  A record a table slot
+    (and one for keys with no slot) holds a flag word (the named build
+    row's validity, each lane's NULL flag) and each lane's value in 8
+    bytes, padded to 16 bytes, read 16 bytes a load: words / 2 random
+    requests a probe row, where the row path makes 2 + a value and a NULL
+    flag a lane (table entry, validity, lanes).  The records pay when the
+    requests they save over the probe rows, at a 32-byte sector each,
+    exceed their pack (a sector a random read of the table's build rows,
+    and the records written) plus ``_RECORD_LAUNCH_BYTES``, and they stay
+    in L2: at most ``_RECORD_L2_BYTES``, or no larger than what the row
+    path reads at random.  Measured on an H100 (bench/probe_bench.py, each
+    path forced): records win at Q3's join 1 (150,001 slots: 0.054 device
+    ms against 0.098 with two lanes, 0.022 against 0.031 for semi / anti,
+    0.28 against 0.52 with 16 lanes) and lose at join 2 (a 6M-slot table,
+    192 MB of records: 0.26 against 0.114) and at the composite probe (2M
+    slots, 64 MB: 0.152 against 0.083), where their random reads miss
+    L2."""
+    sw = 2 * -(-(1 + len(lanes)) // 2)
+    nulls = sum(m is not None for _v, m in lanes)
+    rows = 2 + len(lanes) + nulls
+    records = (tbl_len + 1) * 8 * sw
+    arrays = 4 * tbl_len + nbb * (1 + nulls + sum(
+        v.element_size() for v, _m in lanes))
+    pack = (tbl_len + 1) * (4 + 32 * (rows - 1)) + records
+    saved = nb * 32 * (rows - sw // 2)
+    if records > max(_RECORD_L2_BYTES, arrays):
+        return 0
+    return sw if saved > pack + _RECORD_LAUNCH_BYTES else 0
+
+
+#: the cost of dp_pack's launch as bytes at the HBM rate (3 us at 3.35
+#: TB/s)
+_RECORD_LAUNCH_BYTES = 10 << 20
+#: records up to half the H100's 50 MB L2 stay there while the probe runs
+_RECORD_L2_BYTES = 25 << 20
 
 
 def dense_probe_plain(kp, knull, pvalid, lo: int, hi: int, tbl, bvalid,
@@ -2912,7 +2987,8 @@ def _pull_kept(out: torch.Tensor, width: int = 1) -> np.ndarray:
 # HK10 semi_pick
 # =========================================================================
 
-_SEMI_STAT_BLOCKS = 512
+#: rows of an HK10 tile (csrc/semi_pick.cu's kSpTile)
+_HK10_TILE = 8192
 
 
 def semi_pick(match, ln, lv, rn, rv, anti: bool,
@@ -2925,7 +3001,9 @@ def semi_pick(match, ln, lv, rn, rv, anti: bool,
     the live members; anti keeps every valid row when no build row is
     valid, else the valid non-members; ``null_aware`` anti (NOT IN) also
     drops NULL probe keys, and keeps nothing once a valid build key is
-    NULL."""
+    NULL.  On the card: a memset, the build side's two flags (anti only)
+    and one pass; the output is a view of one buffer that also holds the
+    pass's scratch."""
     nl, nr, dev = int(match.shape[0]), int(rn.shape[0]), match.device
     for t, n, w in ((match, nl, "match"), (ln, nl, "ln"), (lv, nl, "lv"),
                     (rn, nr, "rn"), (rv, nr, "rv")):
@@ -2933,17 +3011,15 @@ def semi_pick(match, ln, lv, rn, rv, anti: bool,
     if not _on_card(match, "semi_pick"):
         return semi_pick_plain(match, ln, lv, rn, rv, anti, null_aware)
     from . import _ext
-    part = torch.empty(2 * _SEMI_STAT_BLOCKS, dtype=I64, device=dev)
-    stats = torch.empty(2, dtype=I64, device=dev)
-    btot = torch.empty(max((nl + 1023) // 1024, 1), dtype=I64, device=dev)
-    out = torch.empty(1 + nl, dtype=I64, device=dev)
+    tiles = max(-(-nl // _HK10_TILE), 1)
+    buf = torch.empty(1 + nl + 3 + tiles, dtype=I64, device=dev)
     _ext.check(_ext.lib("semi_pick").hk10_semi_pick(
         match.data_ptr(), ln.data_ptr(), lv.data_ptr(), nl, rn.data_ptr(),
-        rv.data_ptr(), nr, int(anti), int(null_aware), part.data_ptr(),
-        stats.data_ptr(), btot.data_ptr(), out.data_ptr(), _stream()),
+        rv.data_ptr(), nr, int(anti), int(null_aware),
+        buf.data_ptr() + 8 * (1 + nl), buf.data_ptr(), _stream()),
         "semi_pick")
     _count(LAUNCHES, "semi_pick")
-    return out
+    return buf[:1 + nl]
 
 
 def semi_pick_plain(match, ln, lv, rn, rv, anti: bool,
