@@ -401,23 +401,31 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10, tries: int = 3) -> float | None:
+def device_of(fn, reps: int = 10, tries: int = 3) -> dict:
     """Device-only time of one call of fn: the self device time of every
     kernel, copy and memset it enqueues, from a whole torch.profiler trace
-    of reps calls (trace_tpch.device_trace).  Unlike cuda_ms it leaves
-    out the host work between the launches.  None when no trace of three
-    was whole."""
+    of reps calls (trace_tpch.device_trace), and that time and the
+    launches of one call by kernel name ({name: [device ms, launches]}).
+    Unlike cuda_ms it leaves out the host work between the launches.  None
+    and {} when none of ``tries`` traces was whole."""
     from tinysql_tpu_torch.bench.trace_tpch import device_trace
     fn()
     evts, _wall, whole = device_trace(fn, reps, tries=tries)
-    return sum(us for _k, us, _c in evts) / 1e3 if whole else None
+    if not whole:
+        return {"device_ms": None, "by_kernel": {}}
+    return {"device_ms": sum(us for _k, us, _c in evts) / 1e3,
+            "by_kernel": {k[:48]: [round(us / 1e3, 5), c]
+                          for k, us, c in evts}}
+
+
+def device_ms(fn, reps: int = 10, tries: int = 3) -> float | None:
+    return device_of(fn, reps, tries)["device_ms"]
 
 
 def timed(fn, tries: int = 3) -> dict:
     """The kernel's median CUDA-event time (host work between its launches
-    included) and its device-only time (None when none of ``tries``
-    traces was whole)."""
-    return {"ms": cuda_ms(fn), "device_ms": device_ms(fn, tries=tries)}
+    included) and device_of's device time and launches by kernel name."""
+    return {"ms": cuda_ms(fn), **device_of(fn, tries=tries)}
 
 
 def same_bytes(a, b, what: str) -> None:
@@ -1457,6 +1465,75 @@ def phase_hk10(K, dev, t, rng) -> dict:
 
 # -- HK8 csr_expand, HK9 run_bounds, HK6's composite mode: Q13's shapes -----
 
+def hk8_bytes(args, ob: int, total: int, plns, blns, shards: int = 1) -> int:
+    """Bytes HK8 must move on this data: the build's order and validity
+    over its rows, its group ends, the probe validity over its bucket,
+    then the keys, one table entry and each probe lane over the valid
+    probe rows, each build lane over the build rows, the bucket's valid
+    flags over all shards * ob slots and the gathered lanes over the
+    ``total`` live ones."""
+    (_order, _ends, ng, n_rows, _bv, _tbl, _lo, _hi, keys, _spec,
+     pvalid) = args
+    nbp, nvp = int(pvalid.shape[0]), int(pvalid.sum())
+    out = sum(v.element_size() + 1 for v, _m in plns + blns)
+    return (n_rows * 9 + 8 * ng + nbp + nvp * 4 + _lane_bytes(keys, nvp)
+            + _lane_bytes(plns, nvp) + _lane_bytes(blns, n_rows)
+            + ob * shards + total * out)
+
+
+def hk8_edge_cases(K, t) -> dict:
+    """HK8 at the edges of bench/meshjoincases.py (a probe row over
+    several fill tiles, unmatched rows on tile edges, no pairs, a full
+    bucket, LEFT with absent keys, a fill tile staging its rows twice, a
+    shard without pairs, groups ending on build tile edges; inner, LEFT
+    and shard mode): byte for byte against its plain version, a second
+    launch and the numpy model of its passes, each timed beside its bound
+    with its launches by kernel name ([hk8-edge] lines)."""
+    import numpy as np
+    import torch
+    from tinysql_tpu_torch.bench import meshjoincases as MJ
+    out = {}
+    for case in MJ.CSR_CASES:
+        (order, ends, ng, n_rows, bvalid, tbl, lo, hi, key, knull, pv,
+         outer, ob, plns, blns, shards) = MJ.csr_case(case)
+        args = (t(order), t(ends), ng, n_rows, t(bvalid), t(tbl), lo, hi,
+                [(t(key), t(knull))], None, t(pv))
+        pl = [(t(v), None if m is None else t(m)) for v, m in plns]
+        bl = [(t(v), None if m is None else t(m)) for v, m in blns]
+
+        def fn():
+            return K.csr_expand(*args, outer, ob, pl, bl, shards=shards)
+        what = f"csr_expand edge {case}"
+        a, b = fn(), fn()
+        p = K.csr_expand_plain(*args, outer, ob, pl, bl, shards=shards)
+        valid, prow, brow, matched, _chunked = MJ.csr_model(
+            order, ends, ng, n_rows, bvalid, tbl, lo, hi, key, ~knull, pv,
+            outer, ob, shards)
+        m = MJ.gather_model(valid, prow, brow, matched, plns, blns)
+        def flat(x):
+            return [u.cpu() if isinstance(u, torch.Tensor)
+                    else torch.as_tensor(np.asarray(u))
+                    for u in [x[0]] + [w for pr in x[1] + x[2] for w in pr]]
+        for x, what2 in ((b, f"{what} (two runs)"), (p, f"{what} vs plain"),
+                         (m, f"{what} vs the model")):
+            for y, z in zip(flat(a), flat(x)):
+                if y.shape != z.shape or not torch.equal(
+                        y.contiguous().view(torch.uint8),
+                        z.contiguous().view(torch.uint8)):
+                    raise Mismatch(f"{what2}: differs")
+        total = int(a[0].sum())
+        r = {"max_abs_err": 0.0, **timed(fn),
+             "bytes": hk8_bytes(args, ob, total, pl, bl, shards),
+             "ops": total,
+             "shape": f"{shards} shard(s), probe {len(pv)}, build "
+                      f"{len(order)} ({n_rows} rows, {ng} groups), ob {ob}"
+                      f" a shard, {total} slots, outer={outer}"}
+        print(f"[hk8-edge] {case}: {_bounded(r)}", flush=True)
+        out[case] = {k: r[k] for k in ("ms", "device_ms")}
+    return out
+
+
+
 def _lane_bytes(lanes, rows: int) -> int:
     return rows * sum(v.element_size() + (m is not None) for v, m in lanes)
 
@@ -1491,22 +1568,6 @@ def phase_q13_kernels(K, dev, t, rng) -> dict:
             raise Mismatch(f"{what}: valid slots differ")
         same_pairs(a[1] + a[2], c[1] + c[2], what)
         return int(a[0].sum())
-
-    def hk8_bytes(args, ob, total, plns, blns):
-        """Bytes HK8 must move on this data: the build's order and
-        validity over its rows, its group ends, the probe validity over
-        its bucket, then the keys, one table entry and each probe lane
-        over the valid probe rows, each build lane over the build rows,
-        the bucket's valid flags over all ob slots and the gathered lanes
-        over the ``total`` live ones."""
-        (order, ends, ng, n_rows, _bv, _tbl, _lo, _hi, keys, _spec,
-         pvalid) = args
-        nbp = int(pvalid.shape[0])
-        nvp = int(pvalid.sum())
-        out = sum(v.element_size() + 1 for v, _m in plns + blns)
-        return (n_rows * 9 + 8 * ng + nbp + nvp * 4 + _lane_bytes(keys, nvp)
-                + _lane_bytes(plns, nvp) + _lane_bytes(blns, n_rows)
-                + ob + total * out)
 
     # Q13: customer (150,000 rows, 2^18 bucket) LEFT JOIN orders (1.5M
     # rows, 2^21 bucket) on c_custkey = o_custkey, o_custkey uniform
@@ -1580,6 +1641,7 @@ def phase_q13_kernels(K, dev, t, rng) -> dict:
                  f"LEFT {pairs[True]} / inner {pairs[False]} pairs (Q13)",
         "inner_ms": cuda_ms(lambda: K.csr_expand(*args13, False, ob, plns,
                                                  blns)),
+        "edge_cases": hk8_edge_cases(K, t),
         "partial_repeat_interleave_ms": cuda_ms(
             lambda: torch.repeat_interleave(rows_p, per_p, output_size=n_o))}
 
@@ -2752,6 +2814,96 @@ def rank_edge_cases(K) -> dict:
     return out
 
 
+def hk12_bytes(npb: int, nbb: int, member: bool, hits: int) -> int:
+    """Bytes HK12's probe and member modes must move: each probe slot's
+    key and id read and its hit flag written (and brow, probe mode), the
+    build run's order keys and permutation read once, and bid read at the
+    hit slots, each once (probe mode; member mode needs it only for a key
+    at the sentinel, not counted)."""
+    if member:
+        return npb * (8 + 8 + 1) + nbb * 16
+    return npb * (8 + 8 + 1 + 8) + nbb * 16 + min(hits, nbb) * 8
+
+
+def shard_edge_cases(K) -> dict:
+    """HK12 at the edges of bench/meshjoincases.py: its staged search (the
+    whole run and sampled runs, an index at its cap, equal keys across
+    sample points, a shard without a live slot, int64 ends, -0.0 / +0.0 /
+    +inf, NaN keys, padding slots) in probe and member modes, and its
+    count mode's gallop (absent keys, one key over 10^5 slots, a run
+    inside the index, an empty run): each byte for byte against its plain
+    version, a second launch and the numpy model, timed beside its bound
+    with its launches by kernel name ([mesh-kernel] lines)."""
+    import torch
+    from tinysql_tpu_torch.bench import meshjoincases as MJ
+    from tinysql_tpu_torch.ops import shardops
+    dev = K.device()
+    out = {"shard_probe": {}, "shard_member": {}, "shard_count": {}}
+
+    def check(got, want, what):
+        for x, y in zip(got, want):
+            y = torch.as_tensor(y).to(x.device)
+            if x.shape != y.shape or not torch.equal(x, y.to(x.dtype)):
+                raise Mismatch(f"{what}: differs")
+    for case in MJ.PROBE_CASES:
+        n, pk, pid, bk, bid = MJ.probe_case(case)
+        tp = [torch.as_tensor(x).to(dev) for x in (pk, pid, bk, bid)]
+        bord, perm = shardops._build_order(n, tp[2], tp[3])
+        model = {m: MJ.staged_probe_model(pk, pid, bord.cpu().numpy(), bid,
+                                          perm.cpu().numpy(), n, m)
+                 for m in (False, True)}
+        npb, nbb = len(pk), len(bk)
+        for member in (False, True):
+            mode = "shard_member" if member else "shard_probe"
+            what = f"{mode} edge {case}"
+
+            def fn():
+                return K.shard_probe(tp[0], tp[1], bord, tp[3], perm, n,
+                                     member=member)
+
+            def flat(x):
+                return [x] if member else list(x)
+            a = flat(fn())
+            check(a, flat(fn()), f"{what} (two runs)")
+            check(a, flat(K.shard_probe_plain(tp[0], tp[1], bord, tp[3],
+                                              perm, n, member)),
+                  f"{what} vs plain")
+            check(a, flat(model[member]), f"{what} vs the model")
+            hits = int(a[0].sum())
+            r = {"max_abs_err": 0.0, **timed(fn),
+                 "bytes": hk12_bytes(npb, nbb, member, hits),
+                 "ops": npb * max(1, (nbb // n - 1).bit_length()),
+                 "hits": hits,
+                 "shape": f"{n} shards, probe {npb} (cap {npb // n}), "
+                          f"build {nbb} (cap {nbb // n}), {pk.dtype}, "
+                          f"stride {MJ.index_stride(nbb // n, npb // n, n)}"}
+            print(f"[mesh-kernel] {what}: {_bounded(r)}", flush=True)
+            out[mode][case] = {k: r[k] for k in ("ms", "device_ms")}
+    for case in MJ.COUNT_CASES:
+        n, lk, lv, rs = MJ.count_case(case)
+        tl = [torch.as_tensor(x).to(dev) for x in (lk, lv, rs)]
+        what = f"shard_count edge {case}"
+
+        def fn():
+            return K.shard_count(tl[0], tl[1], tl[2], n)
+        a = list(fn())
+        check(a, list(fn()), f"{what} (two runs)")
+        check(a, list(K.shard_count_plain(tl[0], tl[1], tl[2], n)),
+              f"{what} vs plain")
+        counts, partial, _loads = MJ.gallop_count_model(lk, lv, rs, n)
+        check(a, [counts, partial], f"{what} vs the model")
+        nl, nr = len(lk), len(rs)
+        r = {"max_abs_err": 0.0, **timed(fn),
+             "bytes": nl * 17 + nr * 8 + n * 8,
+             "ops": nl * 2 * max(1, (nr - 1).bit_length()),
+             "matches": int(a[0].sum()),
+             "shape": f"{n} shards x {nl // n} probe rows, {nr} sorted "
+                      f"build keys"}
+        print(f"[mesh-kernel] {what}: {_bounded(r)}", flush=True)
+        out["shard_count"][case] = {k: r[k] for k in ("ms", "device_ms")}
+    return out
+
+
 def mesh_kernel_checks(K, cap: dict) -> dict:
     """The mesh kernels on the tensors the mesh run handed them (captured
     at their calls, per query): each byte for byte against its plain
@@ -2819,16 +2971,16 @@ def mesh_kernel_checks(K, cap: dict) -> dict:
                 sk = (bord ^ K.I64_MIN)[run]
                 pv = K._probe_order(pk).reshape(n, npb // n).contiguous()
                 steps = max(1, (nbb // n - 1).bit_length())
+                hits = int(k1[0].sum())
                 r = {"max_abs_err": 0.0, **timed(probe),
                      "plain_ms": cuda_ms(lambda: K.shard_probe_plain(
                          pk, pid, bord, bid, perm, n, member)),
                      "library_ms": None,
                      "partial_batched_searchsorted_ms": cuda_ms(
                          lambda: torch.searchsorted(sk, pv)),
-                     "bytes": npb * (8 + 8 + 1 + (0 if member else 8))
-                     + nbb * 3 * 8,
+                     "bytes": hk12_bytes(npb, nbb, member, hits),
                      "ops": npb * steps,
-                     "hits": int(k1[0].sum()),
+                     "hits": hits,
                      "shape": f"{n} shards, probe {npb} slots (cap "
                               f"{npb // n}), build {nbb} (cap {nbb // n}),"
                               f" {pk.dtype} keys ({label} join {j + 1})"}
@@ -2900,20 +3052,16 @@ def mesh_kernel_checks(K, cap: dict) -> dict:
             same_bytes(k1[0], x[0], what2)
             _same_lanes([v for pr in k1[1] + k1[2] for v in pr],
                         [v for pr in x[1] + x[2] for v in pr], what2)
-        (order, ends, ng, n_rows, _bv, _tbl, _lo, _hi, keys, _spec,
-         pvalid, _outer, ob, plns, blns) = a
-        nbp, nvp = int(pvalid.shape[0]), int(pvalid.sum())
+        order, pvalid, ob, plns, blns = a[0], a[10], a[12], a[13], a[14]
+        nbp = int(pvalid.shape[0])
         total = int(k1[0].sum())
-        out = sum(v.element_size() + 1 for v, _m in plns + blns)
         r = {"max_abs_err": 0.0,
              **timed(lambda: K.csr_expand(*a, **kw)),
              "plain_ms": cuda_ms(lambda: K.csr_expand_plain(*a, **kw),
                                  reps=3, warm=1),
              "library_ms": None,
-             "bytes": (n_rows * 9 + 8 * ng + nbp + nvp * 4
-                       + _lane_bytes(keys, nvp) + _lane_bytes(plns, nvp)
-                       + _lane_bytes(blns, n_rows) + ob * kw["shards"]
-                       + total * out),
+             "bytes": hk8_bytes(a[:11], ob, total, plns, blns,
+                                kw["shards"]),
              "ops": total,
              "shape": f"{kw['shards']} shards, probe {nbp}, build "
                       f"{int(order.shape[0])}, ob {ob} a shard, {total} "
@@ -2944,6 +3092,8 @@ def mesh_kernel_checks(K, cap: dict) -> dict:
                   f"{nr} sorted build keys (K26 step)"}
     print(f"[mesh-kernel] {what}: {_bounded(r)}", flush=True)
     best["shard_count"] = (nl, r)
+    for mode, edges in shard_edge_cases(K).items():
+        best[mode][1]["edge_cases"] = edges
     rec = {}
     for name in K.MESH_LAUNCHES:
         if name not in best:

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from tinysql_tpu_torch.bench import compactcases as CC
+from tinysql_tpu_torch.bench import meshjoincases as MJ
 from tinysql_tpu_torch.bench import probecases as PC
 from tinysql_tpu_torch.bench import rankcases as RC
 from tinysql_tpu_torch.ops import kernels as K
@@ -685,6 +686,62 @@ def test_shard_probe_matches_plain(dev):
                                      n)
         assert torch.equal(hit, ph) and torch.equal(brow, pb)
         assert bool(hit.any())
+
+
+@pytest.mark.parametrize("case", list(MJ.PROBE_CASES))
+def test_shard_probe_edge_cases_match_plain(dev, case):
+    """HK12's staged search at its edges (bench/meshjoincases.py): the
+    whole run and sampled runs, equal keys across sample points, a shard
+    without a live slot, int64 ends, -0.0 / +0.0 / +inf, NaN keys,
+    padding slots; probe and member modes, each byte for byte against
+    the plain version and a second launch."""
+    from tinysql_tpu_torch.ops import shardops
+    n, pk, pid, bk, bid = (a if isinstance(a, int) else _t(a, dev)
+                           for a in MJ.probe_case(case))
+    bord, perm = shardops._build_order(n, bk, bid)
+    for member in (False, True):
+        want = K.shard_probe_plain(pk, pid, bord, bid, perm, n, member)
+        want = [want] if member else list(want)
+        for _ in range(2):
+            got = K.shard_probe(pk, pid, bord, bid, perm, n, member)
+            got = [got] if member else list(got)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                (case, member)
+
+
+@pytest.mark.parametrize("case", list(MJ.COUNT_CASES))
+def test_shard_count_edge_cases_match_plain(dev, case):
+    """HK12's count mode: absent keys, one key over 10^5 slots, a run
+    inside the index, an empty run."""
+    n, lk, lv, rs = MJ.count_case(case)
+    lk, lv, rs = _t(lk, dev), _t(lv, dev), _t(rs, dev)
+    want = K.shard_count_plain(lk, lv, rs, n)
+    for _ in range(2):
+        got = K.shard_count(lk, lv, rs, n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("case", list(MJ.CSR_CASES))
+def test_csr_expand_edge_cases_match_plain(dev, case):
+    """HK8's tiled fill at its edges: a probe row over several fill
+    tiles, unmatched rows on tile edges, no pairs, a full bucket, LEFT
+    with absent keys, a tile staging its rows twice, a shard without
+    pairs, groups ending on build tile edges; and 17 build lanes (two
+    fill launches)."""
+    (order, ends, ng, n_rows, bvalid, tbl, lo, hi, key, knull, pv, outer,
+     ob, plns, blns, shards) = MJ.csr_case(case)
+    args = (_t(order, dev), _t(ends, dev), ng, n_rows, _t(bvalid, dev),
+            _t(tbl, dev), lo, hi, [(_t(key, dev), _t(knull, dev))], None,
+            _t(pv, dev))
+    pl = [(_t(v, dev), None if m is None else _t(m, dev)) for v, m in plns]
+    bl = [(_t(v, dev), None if m is None else _t(m, dev)) for v, m in blns]
+    for lanes in (bl, (bl * 6)[:17]):
+        want = K.csr_expand_plain(*args, outer, ob, pl, lanes, shards=shards)
+        for _ in range(2):
+            got = K.csr_expand(*args, outer, ob, pl, lanes, shards=shards)
+            assert torch.equal(got[0], want[0]), case
+            _same_pairs(got[1], want[1], case)
+            _same_pairs(got[2], want[2], case)
 
 
 def test_shard_exchange_matches_plain(dev):

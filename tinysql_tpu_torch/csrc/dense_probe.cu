@@ -61,34 +61,6 @@ enum ProbeMode { MODE_INNER = 0, MODE_LEFT = 1, MODE_SEMI = 2, MODE_ANTI = 3 };
 constexpr int kDpThreads = 256;
 constexpr int kDpRows = 4;  // probe rows a thread, their loads in flight
 
-template <int W> struct Elem;
-template <> struct Elem<1> { using T = unsigned char; };
-template <> struct Elem<2> { using T = unsigned short; };
-template <> struct Elem<4> { using T = unsigned int; };
-template <> struct Elem<8> { using T = unsigned long long; };
-
-// The lanes of a launch, as a block keeps them in shared memory.
-struct BlockLanes {
-  const void* vals[kMaxLanes];
-  const uint8_t* nulls[kMaxLanes];
-  void* out_vals[kMaxLanes];
-  uint8_t* out_nulls[kMaxLanes];
-  int width[kMaxLanes];
-};
-
-__device__ __forceinline__ void load_lanes(BlockLanes& L,
-                                           const GatherLanes& G) {
-  const int l = threadIdx.x;
-  if (l < G.n) {
-    L.vals[l] = G.vals[l];
-    L.nulls[l] = G.nulls[l];
-    L.out_vals[l] = G.out_vals[l];
-    L.out_nulls[l] = G.out_nulls[l];
-    L.width[l] = G.width[l];
-  }
-  __syncthreads();
-}
-
 // One build lane of W-byte values gathered at ps for rows [i0, i0 + nr):
 // the values, then the NULL flags (or-ed with "unmatched"), each level's
 // loads issued for every row before the stores.

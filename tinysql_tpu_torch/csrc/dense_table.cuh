@@ -119,6 +119,38 @@ __device__ __forceinline__ void table_insert_min(int32_t* tbl, int64_t lo,
   atomicMin((unsigned int*)&tbl[off], (unsigned int)row);
 }
 
+// ---- a launch's lanes in shared memory (HK6, HK8) ---------------------
+
+template <int W> struct Elem;
+template <> struct Elem<1> { using T = unsigned char; };
+template <> struct Elem<2> { using T = unsigned short; };
+template <> struct Elem<4> { using T = unsigned int; };
+template <> struct Elem<8> { using T = unsigned long long; };
+
+// The lanes of a launch, as a block keeps them in shared memory.
+struct BlockLanes {
+  const void* vals[kMaxLanes];
+  const uint8_t* nulls[kMaxLanes];
+  void* out_vals[kMaxLanes];
+  uint8_t* out_nulls[kMaxLanes];
+  int width[kMaxLanes];
+  int side[kMaxLanes];
+};
+
+__device__ __forceinline__ void load_lanes(BlockLanes& L,
+                                           const GatherLanes& G) {
+  const int l = threadIdx.x;
+  if (l < G.n) {
+    L.vals[l] = G.vals[l];
+    L.nulls[l] = G.nulls[l];
+    L.out_vals[l] = G.out_vals[l];
+    L.out_nulls[l] = G.out_nulls[l];
+    L.width[l] = G.width[l];
+    L.side[l] = G.side[l];
+  }
+  __syncthreads();
+}
+
 // ---- a thread's R consecutive rows at once (HK6) ----------------------
 //
 // Rows [i0, i0 + nr) of a lane, nr <= R.  A full group whose address is

@@ -1,5 +1,6 @@
-// Expansion of per-row output counts into consecutive output slots, shared
-// by HK3's multiplicity mode and HK8 csr_expand: an inclusive scan of the
+// Expansion of per-row output counts into consecutive output slots, for
+// HK3's multiplicity mode (HK8 csr_expand fills its bucket by tiles of
+// slots instead: csr_expand.cu): an inclusive scan of the
 // counts (common.cuh's three-launch scan), then one thread per output slot
 // finds the row that owns it by a binary search over the inclusive ends.
 // Every slot costs O(log n) whatever the skew, so one probe row with a

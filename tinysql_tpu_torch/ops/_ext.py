@@ -95,11 +95,10 @@ _SIGNATURES = {
                                   _i64, _vp]),
     },
     "csr_expand": {
-        "hk8_scratch_words": (_i64, [_i64, _i64]),
+        "hk8_scratch_words": (_i64, [_i64, _i64, _i64, _int]),
         "hk8_csr_expand": (_int, [_vp, _i64, _i64, _vp, _i64, _vp, _vp, _i64,
                                   _i64, _i64, _vp, _vp, _i64, _int, _i64,
-                                  _int, _vp, _vp, _vp, _vp, _vp, _vp]),
-        "hk8_gather": (_int, [_vp, _vp, _vp, _i64, _vp, _vp]),
+                                  _int, _vp, _vp, _int, _vp, _vp]),
     },
     "run_bounds": {
         "hk9_run_bounds": (_int, [_vp, _i64, _vp, _vp, _vp, _vp, _vp, _vp,

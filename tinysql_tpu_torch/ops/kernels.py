@@ -1854,27 +1854,20 @@ def csr_expand(order, ends, ng: int, n_rows: int, bvalid, tbl, lo: int,
                                 shards=shards)
     from . import _ext
     lib = _ext.lib("csr_expand")
-    scratch = torch.empty(lib.hk8_scratch_words(nbb, nb), dtype=I64,
-                          device=dev)
+    scratch = torch.empty(lib.hk8_scratch_words(n_rows, ng, nb, shards),
+                          dtype=I64, device=dev)
     n_out = ob * shards
-    prow = torch.empty(n_out, dtype=I64, device=dev)
-    brow = torch.empty(n_out, dtype=I64, device=dev)
-    matched = torch.empty(n_out, dtype=torch.bool, device=dev)
     valid_out = torch.empty(n_out, dtype=torch.bool, device=dev)
     ks = _key_set(keys, spec)
+    groups = list(_gathers(lanes, n_out, dev))
+    tables = (_CGather * len(groups))(*[cg for cg, _got in groups])
     _ext.check(lib.hk8_csr_expand(
         order.data_ptr(), nbb, n_rows, ends.data_ptr(), ng,
         bvalid.data_ptr(), tbl.data_ptr(), int(tbl.shape[0]), int(lo),
         int(hi), ctypes.byref(ks), pvalid.data_ptr(), nb, int(outer), ob,
-        shards, scratch.data_ptr(), prow.data_ptr(), brow.data_ptr(),
-        matched.data_ptr(), valid_out.data_ptr(), _stream()), "csr_expand")
-    outs = []
-    for cg, got in _gathers(lanes, n_out, dev):
-        _ext.check(lib.hk8_gather(prow.data_ptr(), brow.data_ptr(),
-                                  matched.data_ptr(), n_out,
-                                  ctypes.byref(cg), _stream()),
-                   "csr_expand gather")
-        outs += got
+        shards, scratch.data_ptr(), tables, len(groups),
+        valid_out.data_ptr(), _stream()), "csr_expand")
+    outs = [o for _cg, got in groups for o in got]
     _count(LAUNCHES, "csr_expand" if shards == 1 else "csr_expand_shard")
     return (valid_out, [(v, m) for s_, v, m in outs if s_ == 0],
             [(v, m) for s_, v, m in outs if s_ == 1])
@@ -3209,7 +3202,8 @@ def shard_probe(pk: torch.Tensor, pid: torch.Tensor, bord: torch.Tensor,
                 bid: torch.Tensor, perm: torch.Tensor, n_shards: int,
                 member: bool = False):
     """HK12: per probe slot of shard s (slot i, s = i // cap_p), the
-    binary search of its key in shard s's sorted build run.  ``pk``,
+    first slot of shard s's sorted build run whose key is at or above
+    its key (a staged search: csrc/shard_join.cu).  ``pk``,
     ``pid``: int64 or float64 keys and int64 global ids (-1 = padding) of
     the probe blocks [n * cap_p]; ``bord``: the build blocks' uint64
     order keys (dead slots at the sentinel), ``bid`` their ids, ``perm``
