@@ -134,7 +134,8 @@ result line):
    shard_probe after HK4 for K25's unique join, HK4 twice for K21 mesh,
    HK6 for the broadcast joins, HK13 shard_exchange for Q10's shuffle
    join, HK8's shard mode for Q13, HK12's member mode for K25 member
-   under Q18, NOT IN, Q22 and NOT EXISTS, HK14 shard_rank after HK4 for
+   under Q18, NOT IN, Q22 and NOT EXISTS, HK13's partition mode for
+   every K25 join and member round, HK14 shard_rank after HK4 for
    K25 sort and top-k), no plain version; pipeline Q10 runs again under
    tidb_broadcast_build_max_rows = 0 only when the default budget does
    not shuffle it (the [mesh] line says which); [mesh] lines print mesh
@@ -178,6 +179,9 @@ OPS_PS = 67e12      # H100 SXM non-tensor-core float32 peak
 SF = 1.0
 SEED = 7
 FLOAT_RTOL = 1e-6   # the reference's own bound (executor/devpipe.py)
+#: sources whose kernels' registers, stack and spills (ptxas -v) the run
+#: prints after the build
+PTXAS_SOURCES = ("shard_exchange",)
 
 KERNELS = {
     "masked_reduce": ("tinysql_tpu_torch/csrc/masked_reduce.cu",
@@ -230,6 +234,9 @@ KERNELS = {
                          "tinysql_tpu/executor/devpipe.py:1539"),
     "shard_exchange": ("tinysql_tpu_torch/csrc/shard_exchange.cu",
                        "tinysql_tpu/parallel/dist.py:270"),
+    # HK13's partition mode: K25's host partition scatter (_Partitioned)
+    "shard_partition": ("tinysql_tpu_torch/csrc/shard_exchange.cu",
+                        "tinysql_tpu/ops/shardops.py:204"),
     "shard_rank": ("tinysql_tpu_torch/csrc/shard_rank.cu",
                    "tinysql_tpu/ops/shardops.py:618"),
 }
@@ -347,16 +354,20 @@ MESH_USES = {
                  "Q10_SHUFFLE": {"shard_exchange": (2,),
                                  "shard_probe": (1,)},
                  "Q13": {"csr_expand_shard": 1},
-                 "Q18": {"shard_probe": (1,)}},
+                 "Q18": {"shard_probe": (1,), "shard_partition": (4,)}},
     "per_op": {"Q1": {"segment_reduce": 8, "shard_merge": 1},
                "Q3": {"shard_probe": 2, "lex_order": (3,),
-                      "segment_reduce": 8, "shard_merge": 1},
+                      "segment_reduce": 8, "shard_merge": 1,
+                      "shard_partition": 8},
                "Q6": {"masked_reduce": 8, "shard_merge": 1},
-               "Q18": {"shard_member": (1,)}},
+               "Q18": {"shard_member": (1,), "shard_partition": (4,)}},
 }
+# a K25 join or member round: HK13's count call and scatter call for
+# each side (shard_partition counts both)
 for _tier in MESH_USES:
     for _q in ("NOT_IN", "Q22", "NOT_EXISTS"):
-        MESH_USES[_tier][_q] = {"shard_member": (1,)}
+        MESH_USES[_tier][_q] = {"shard_member": (1,),
+                                "shard_partition": (4,)}
     for _q in MESH_SORTS:
         MESH_USES[_tier][_q] = {"shard_rank": (1,)}
 MESH_KINDS = {"Q3": {"leaf", "join", "aggindex", "order_mesh"}}
@@ -3013,6 +3024,33 @@ def mesh_kernel_checks(K, cap: dict) -> dict:
                           f"({label} side {j + 1})"}
             print(f"[mesh-kernel] {what}: {_bounded(r)}", flush=True)
             _keep_largest(best, "shard_exchange", nb * len(lanes), r)
+    for label, per in cap["partitions"].items():
+        for j, (keys, live, n, c) in enumerate(per):
+            what = f"shard_partition {label} side {j + 1}"
+
+            def partition():
+                return K.shard_partition_scatter(
+                    K.shard_partition(keys, live, n), c)
+            part = K.shard_partition(keys, live, n)
+            plain = K.shard_partition_plain(keys, live, n)
+            same_bytes(part.counts, plain.counts, f"{what} counts vs plain")
+            k1 = K.shard_partition_scatter(part, c)
+            _same_lanes(k1, partition(), what)
+            _same_lanes(k1, K.shard_partition_scatter_plain(plain, c),
+                        f"{what} vs plain")
+            n_in = int(keys.shape[0])
+            r = {"max_abs_err": 0.0, **timed(partition),
+                 "plain_ms": cuda_ms(lambda: K.shard_partition_scatter_plain(
+                     K.shard_partition_plain(keys, live, n), c), reps=3,
+                     warm=1),
+                 "library_ms": None,
+                 "bytes": n_in * (8 + 1) + n * c * 16,
+                 "ops": n_in,
+                 "shape": f"{n} shards, {n_in} rows ({int(live.sum())} "
+                          f"live), {keys.dtype} keys, cap {c} ({label} "
+                          f"side {j + 1}: the count and scatter calls)"}
+            print(f"[mesh-kernel] {what}: {_bounded(r)}", flush=True)
+            _keep_largest(best, "shard_partition", n_in, r)
     for label, per in cap["ranks"].items():
         for j, (ordl, ids, stride, run, n, k_out) in enumerate(per):
             what = f"shard_rank {label} call {j + 1}"
@@ -3267,11 +3305,12 @@ def phase_mesh(K, storage, kinfo, device=None) -> None:
     old_env = os.environ.get("TINYSQL_MESH_SHARDS")
     os.environ["TINYSQL_MESH_SHARDS"] = str(MESH_SHARDS)
     cap = {"merges": {}, "probes": {}, "members": {}, "sorts": [],
-           "exchanges": {}, "ranks": {}, "expands": {}}
+           "exchanges": {}, "partitions": {}, "ranks": {}, "expands": {}}
     state = {"label": None}
     orig = {"shard_merge": K.shard_merge, "lex_order": K.lex_order,
             "shard_exchange": K.shard_exchange, "shard_rank": K.shard_rank,
-            "csr_expand": K.csr_expand}
+            "csr_expand": K.csr_expand,
+            "shard_partition_scatter": K.shard_partition_scatter}
     orig_join, orig_member = (shardops._local_unique_join,
                               shardops._local_member)
 
@@ -3304,6 +3343,12 @@ def phase_mesh(K, storage, kinfo, device=None) -> None:
                 (keys, n_rows, list(lanes), c, n))
         return orig["shard_exchange"](keys, n_rows, lanes, c, n)
 
+    def cap_partition(part, c):
+        if state["label"] is not None:
+            cap["partitions"].setdefault(state["label"], []).append(
+                (part.keys, part.live, part.n, c))
+        return orig["shard_partition_scatter"](part, c)
+
     def cap_rank(ordl, ids, stride, run, n, k_out):
         if state["label"] is not None:
             cap["ranks"].setdefault(state["label"], []).append(
@@ -3318,6 +3363,7 @@ def phase_mesh(K, storage, kinfo, device=None) -> None:
     K.shard_merge, K.lex_order = cap_merge, cap_order
     K.shard_exchange, K.shard_rank, K.csr_expand = (cap_exchange, cap_rank,
                                                      cap_expand)
+    K.shard_partition_scatter = cap_partition
     shardops._local_unique_join, shardops._local_member = (cap_join,
                                                            cap_member)
     launches = {}
@@ -3375,6 +3421,7 @@ def phase_mesh(K, storage, kinfo, device=None) -> None:
         K.shard_merge, K.lex_order = orig["shard_merge"], orig["lex_order"]
         K.shard_exchange, K.shard_rank, K.csr_expand = (
             orig["shard_exchange"], orig["shard_rank"], orig["csr_expand"])
+        K.shard_partition_scatter = orig["shard_partition_scatter"]
         shardops._local_unique_join, shardops._local_member = (orig_join,
                                                                orig_member)
         if old_env is None:
@@ -3685,6 +3732,9 @@ def main() -> int:
     print(f"[build] {len(_ext.SOURCES)} kernels in "
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           f"{' '.join(_ext.NVCC_FLAGS)})", flush=True)
+    from tinysql_tpu_torch.bench.expr_bench import ptxas
+    ptxas(ROOT, lambda rec: print(f"[ptxas] {json.dumps(rec)}", flush=True),
+          PTXAS_SOURCES)
     dev = torch.device("cuda", torch.cuda.current_device())
 
     # phase 2

@@ -745,23 +745,26 @@ def test_csr_expand_edge_cases_match_plain(dev, case):
 
 
 def test_shard_exchange_matches_plain(dev):
-    """HK13 byte for byte against its plain version: n = 2, 4, 8 and 64
-    shards, shards of fewer rows than a tile and of several tiles,
-    padding rows, 1- and 8-byte lanes, more lanes than one launch takes;
-    and an overflowing pair raises."""
+    """HK13's exchange mode byte for byte against its plain version: n =
+    2, 4, 8, 64 (the look-back) and 128 (the separate count and scan)
+    shards, shards of fewer rows than a tile, of one tile exactly and of
+    several, padding rows, 1-, 2- and 8-byte lanes, more lanes than one
+    launch takes; and an overflowing pair raises."""
+    from tinysql_tpu_torch.parallel import dist
     rng = np.random.default_rng(13)
-    for n, m in ((2, 16), (4, 3000), (8, 1 << 14), (64, 256)):
+    for n, m in ((2, 16), (4, 3000), (8, 2048), (8, 1 << 14), (64, 256),
+                 (128, 40)):
         nb = n * m
         n_rows = nb - 7
         keys = rng.integers(-1000, 1000, nb)
         keys[:2] = [K.I64_MIN, K.I64_MAX]
         kt = _t(keys, dev, torch.int64)
-        from tinysql_tpu_torch.parallel import dist
         cap = dist.shuffle_cap(keys.astype(np.int64), n, n_rows)
         lanes = []
         for j in range(9):
             lanes += [(_t(rng.normal(size=nb), dev), 0.0),
                       (_t(rng.random(nb) < 0.3, dev), True)]
+        lanes.append((_t(rng.integers(-9, 9, nb), dev, torch.int16), 300))
         a = K.shard_exchange(kt, n_rows, lanes, cap, n)
         b = K.shard_exchange_plain(kt, n_rows, lanes, cap, n)
         for x, y in zip(a, b):
@@ -772,6 +775,65 @@ def test_shard_exchange_matches_plain(dev):
     with pytest.raises(RuntimeError, match="capacity"):
         K.shard_exchange(_t(np.zeros(64), dev, torch.int64), 64,
                          [(_t(np.zeros(64), dev, torch.int64), 0)], 4, 4)
+
+
+@pytest.mark.parametrize("n", [2, 8, 64, 128, 1024])
+def test_shard_partition_matches_plain(dev, n):
+    """HK13's partition mode byte for byte against its plain version:
+    the counts, then the key and id blocks, at sides of 0, 1, a tile less
+    one, a tile, a tile and one and many rows, int64 extremes, float64
+    signed zeros, infinities and NaNs, and an all-dead side; twice, the
+    same bytes."""
+    rng = np.random.default_rng(16 + n)
+    for nin in (0, 1, 2047, 2048, 2049, 50_000):
+        for kind in ("i", "f", "dead"):
+            if kind == "f":
+                keys = rng.normal(size=nin) * 100
+                keys[:min(nin, 6)] = [0.0, -0.0, np.inf, -np.inf, np.nan,
+                                      -np.nan][:min(nin, 6)]
+            else:
+                keys = rng.integers(-(1 << 62), 1 << 62, nin)
+                keys[:min(nin, 2)] = [K.I64_MIN, K.I64_MAX][:min(nin, 2)]
+            live = rng.random(nin) < (0.0 if kind == "dead" else 0.8)
+            kt = _t(keys, dev, torch.float64 if kind == "f" else torch.int64)
+            lt = _t(live, dev)
+            pa = K.shard_partition(kt, lt, n)
+            pb = K.shard_partition_plain(kt, lt, n)
+            assert torch.equal(pa.counts, pb.counts), (n, nin, kind)
+            cap = K.bucket(max(int(pa.counts.max()), 1))
+            a = K.shard_partition_scatter(pa, cap)
+            b = K.shard_partition_scatter_plain(pb, cap)
+            c = K.shard_partition_scatter(K.shard_partition(kt, lt, n), cap)
+            for x, y, z in zip(a, b, c):
+                assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                assert torch.equal(x.view(torch.uint8), z.view(torch.uint8))
+
+
+def test_k25_on_the_card_equals_the_cpu(dev):
+    """K25's join (inner, outer) and member mode (semi, NOT IN) through
+    HK13's partition mode on the card: the CPU tier's answers."""
+    from tinysql_tpu_torch.ops import shardops
+    from tinysql_tpu_torch.parallel import dist
+    rng = np.random.default_rng(25)
+    lk = rng.integers(0, 5000, 20_000)
+    ln = rng.random(20_000) < 0.05
+    rk = rng.permutation(5000)[:3000].astype(np.int64)
+    rn = np.zeros(3000, dtype=bool)
+    args = ((lk, ln), 20_000, (rk, rn), 3000)
+    calls = [(shardops.unique_join_match_sharded, {"outer": False}),
+             (shardops.unique_join_match_sharded, {"outer": True}),
+             (shardops.semi_join_match_sharded, {}),
+             (shardops.semi_join_match_sharded,
+              {"anti": True, "null_aware": True})]
+    for fn, kw in calls:
+        K.reset_kernel_counts()
+        got = fn(dist.Mesh(8, dev), *args, **kw)
+        assert K.kernel_counts()["launches"]["shard_partition"] == 4
+        with K.use_device("cpu"):
+            want = fn(dist.Mesh(8, torch.device("cpu")), *args, **kw)
+        for g, w in zip(got if isinstance(got, tuple) else [got],
+                        want if isinstance(want, tuple) else [want]):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_shard_rank_matches_plain(dev):

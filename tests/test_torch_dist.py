@@ -94,6 +94,37 @@ def test_exchange_equals_reference_slot_for_slot(n, pad):
                                       w.view(np.uint8))
 
 
+@pytest.mark.parametrize("n", [2, 8])
+def test_exchange_two_chunks_and_narrow_lanes_equal_reference(n):
+    """More lanes than one launch takes (19: two chunks of HK13's
+    kMaxLanes) with 1-, 2-, 4- and 8-byte lanes and fills that are not
+    byte-uniform: slot for slot the reference's received lanes."""
+    rng = np.random.default_rng(71 * n)
+    nb = n * 96
+    n_rows = nb - 11
+    keys = rng.integers(-40, 40, nb).astype(np.int64)
+    lanes = []
+    for j in range(19):
+        kind = j % 4
+        if kind == 0:
+            lanes.append((rng.integers(-99, 99, nb).astype(np.int8), -7))
+        elif kind == 1:
+            lanes.append((rng.integers(-999, 999, nb).astype(np.int16), 300))
+        elif kind == 2:
+            lanes.append((rng.integers(-9, 9, nb).astype(np.int32), -2))
+        else:
+            lanes.append((rng.normal(size=nb), -1.5))
+    cap = ref_dist.shuffle_cap(keys, n, n_rows)
+    want = _ref_exchange(n, keys, n_rows, lanes, cap)
+    got = dist.exchange_lanes(t(keys), n_rows, [(t(a), f) for a, f in lanes],
+                              cap, n)
+    assert len(got) == 19
+    for g, w in zip(got, want):
+        assert g.numpy().dtype == w.dtype and g.shape == (n * n * cap,)
+        np.testing.assert_array_equal(g.numpy().view(np.uint8),
+                                      w.view(np.uint8))
+
+
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_hash_dest_is_the_host_twin_and_the_exchange_destination(n):
     """dist.hash_dest equals dist.hash_dest_np, and every row lands in

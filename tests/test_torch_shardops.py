@@ -151,22 +151,40 @@ def test_unique_join_duplicate_build_keys_take_the_lowest_row():
         np.testing.assert_array_equal(got[1], [2, 1, 2])
 
 
+def _partition(keys, live, n):
+    """One side through HK13's partition mode (its plain version on the
+    CPU): the counts, then the blocks at the reference's cap."""
+    part = kernels.shard_partition(torch.from_numpy(keys),
+                                   torch.from_numpy(live), n)
+    counts = part.counts.numpy()
+    cap = kernels.bucket(max(int(counts.max()), 1))
+    ko, io = kernels.shard_partition_scatter(part, cap)
+    return counts, cap, ko.numpy(), io.numpy()
+
+
 @pytest.mark.parametrize("n_shards", [2, 4, 8])
 def test_shard_is_spill_partition(n_shards):
-    """The shard of a row is the reference's spill partition at depth 0,
-    and equal keys colocate."""
+    """The shard of a row is the reference's spill partition at depth 0
+    (on the device: kernels.partition_dest), and equal keys colocate."""
     rng = _rng(229 + n_shards)
     keys = rng.integers(-10_000, 10_000, 2000).astype(np.int64)
     live = rng.random(2000) < 0.85
-    part = shardops._Partitioned(keys, live, n_shards)
     want = ref_spill.hash_partition(
         np.ascontiguousarray(keys[np.nonzero(live)[0]]), 0, n_shards)
-    np.testing.assert_array_equal(part.dest, want)
+    np.testing.assert_array_equal(
+        kernels.partition_dest(torch.from_numpy(keys), n_shards).numpy()[
+            live], want)
     fk = keys.astype(np.float64) * 0.25
     fk[:7] = -0.0
     np.testing.assert_array_equal(shardops.hash_partition(fk, 3, n_shards),
                                   ref_spill.hash_partition(fk, 3, n_shards))
-    blocks = part.scatter_ids()
+    np.testing.assert_array_equal(
+        kernels.partition_dest(torch.from_numpy(fk), n_shards).numpy(),
+        ref_spill.hash_partition(fk, 0, n_shards))
+    counts, cap, _, ids = _partition(keys, live, n_shards)
+    np.testing.assert_array_equal(counts,
+                                  np.bincount(want, minlength=n_shards))
+    blocks = ids.reshape(n_shards, cap)
     for s in range(n_shards):
         rows = blocks[s][blocks[s] >= 0]
         np.testing.assert_array_equal(
@@ -178,17 +196,144 @@ def test_shard_is_spill_partition(n_shards):
 def test_scatter_reassembles_in_input_order():
     keys = _rng(250).integers(0, 64, 500).astype(np.int64)
     live = np.ones(500, dtype=bool)
-    part = shardops._Partitioned(keys, live, 4)
+    _, cap, ko, ids = _partition(keys, live, 4)
     ref = ref_shardops._Partitioned(keys, live, 4)
-    lane = np.arange(500, dtype=np.int64) * 3
-    blocks = part.scatter(lane, -1)
-    ids = part.scatter_ids()
-    np.testing.assert_array_equal(blocks, ref.scatter(lane, -1))
-    np.testing.assert_array_equal(ids, ref.scatter_ids())
-    sel = ids.reshape(-1) >= 0
+    assert cap == ref.cap
+    np.testing.assert_array_equal(ko, ref.scatter(keys, 0).reshape(-1))
+    np.testing.assert_array_equal(ids, ref.scatter_ids().reshape(-1))
+    sel = ids >= 0
     out = np.empty(500, dtype=np.int64)
-    out[ids.reshape(-1)[sel]] = blocks.reshape(-1)[sel]
-    np.testing.assert_array_equal(out, lane)
+    out[ids[sel]] = ko[sel]
+    np.testing.assert_array_equal(out, keys)
+
+
+def _edge_keys(rng, kind, n):
+    """Key lanes with the partition's edge values: int64 extremes;
+    float64 signed zeros, infinities and NaNs (two NaN bit patterns);
+    an int64 side coerced to float64 against a float64 side."""
+    if kind == "int64":
+        k = rng.integers(-(1 << 62), 1 << 62, n).astype(np.int64)
+        k[:4] = [kernels.I64_MIN, kernels.I64_MAX, 0, -1]
+        return k, k[::-1].copy()
+    f = rng.normal(size=n) * 1e3
+    f[:6] = [0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan]
+    if kind == "float64":
+        return f, f[::-1].copy()
+    i = rng.integers(-50, 50, n).astype(np.int64)
+    i[:2] = [0, 5]
+    f[6:8] = [5.0, -0.0]
+    return shardops._common_key_dtype(i, f)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8, 1024])
+@pytest.mark.parametrize("kind", ["int64", "float64", "mixed"])
+def test_partition_equals_reference_slot_for_slot(n, kind):
+    """HK13's partition mode (its plain version) against the reference's
+    _Partitioned for each side: the counts and cap, every slot of the key
+    and id lanes, and the destinations (5 and 5.0 colocate once the
+    mixed pair is coerced; -0.0 lands with 0.0; a NaN by its bits)."""
+    rng = _rng(31 * n + len(kind))
+    for keys in _edge_keys(rng, kind, 3000):
+        live = rng.random(len(keys)) < 0.8
+        live[:8] = True
+        counts, cap, ko, ids = _partition(keys, live, n)
+        ref = ref_shardops._Partitioned(keys, live, n)
+        assert cap == ref.cap, (cap, ref.cap)
+        np.testing.assert_array_equal(
+            counts, np.bincount(ref.dest, minlength=n))
+        np.testing.assert_array_equal(
+            ko.view(np.uint64),
+            ref.scatter(keys, 0).reshape(-1).view(np.uint64))
+        np.testing.assert_array_equal(ids, ref.scatter_ids().reshape(-1))
+        np.testing.assert_array_equal(
+            kernels.partition_dest(torch.from_numpy(keys), n).numpy()[live],
+            ref.dest)
+    if kind == "mixed":
+        i, f = _edge_keys(rng, kind, 3000)
+        d = [kernels.partition_dest(torch.from_numpy(x), n).numpy()
+             for x in (i, f)]
+        assert d[0][1] == d[1][6] and d[0][0] == d[1][7] == d[1][1]
+
+
+@pytest.mark.parametrize("side", ["all_dead", "one_live", "skewed"])
+def test_partition_edge_sides(side):
+    """A side with no live row (every slot at its fill, cap 16), one live
+    row, and a skewed side: the reference's skew gate, counted as a skew
+    retry, returns None before any scatter."""
+    n = 8
+    keys = _rng(7).integers(-100, 100, 1024).astype(np.int64)
+    live = np.zeros(1024, dtype=bool)
+    if side == "one_live":
+        live[517] = True
+    elif side == "skewed":
+        keys[:] = 42
+        live[:] = True
+    ref = ref_shardops._Partitioned(keys, live, n)
+    if side == "skewed":
+        assert ref.skewed(kernels.bucket(1024))
+        st0 = shardops.stats_snapshot()
+        kernels.reset_kernel_counts()
+        got = shardops.partition_sides(
+            n, ((keys, live, 1024), (keys[:64], live[:64], 64)))
+        assert got is None
+        st = shardops.stats_snapshot()
+        assert st["shard_skew_retries"] == st0["shard_skew_retries"] + 1
+        assert st["shard_rounds"] == st0["shard_rounds"]
+        # the two count calls ran, no scatter
+        assert kernels.kernel_counts()["plain_calls"]["shard_partition"] == 2
+        return
+    counts, cap, ko, ids = _partition(keys, live, n)
+    assert cap == ref.cap == 16 and int(counts.sum()) == int(live.sum())
+    np.testing.assert_array_equal(ko, ref.scatter(keys, 0).reshape(-1))
+    np.testing.assert_array_equal(ids, ref.scatter_ids().reshape(-1))
+
+
+K25_MODES = ["inner", "outer", "semi", "anti", "not_in_probe_nulls",
+             "not_in_build_nulls"]
+
+
+@pytest.mark.parametrize("mode", K25_MODES)
+def test_k25_runs_the_partition_mode(mode):
+    """K25's join (inner, outer) and member mode (semi, anti, NOT IN with
+    NULL keys on the probe or the build side) through HK13's partition
+    mode: the reference's answers and shard counters, two count and two
+    scatter calls a partitioned round."""
+    rng = _rng(500 + K25_MODES.index(mode))
+    lk, ln = _keys(rng, 1500, 0, 700, null_frac=0.1)
+    if mode in ("inner", "outer"):
+        rk = rng.permutation(700)[:450].astype(np.int64)
+        rn = np.zeros(450, dtype=bool)
+    else:
+        rk, rn = _keys(rng, 900, 100, 900,
+                       null_frac=0.05 if mode == "not_in_build_nulls"
+                       else 0.0)
+    lvalid = rng.random(1500) < 0.9
+    args = ((lk, ln), 1500, (rk, rn), len(rk))
+    shardops.reset_stats()
+    ref_shardops.reset_stats()
+    kernels.reset_kernel_counts()
+    if mode in ("inner", "outer"):
+        kw = dict(outer=mode == "outer", lvalid=lvalid)
+        got = shardops.unique_join_match_sharded(dist.sized_mesh(8), *args,
+                                                 **kw)
+        want = ref_shardops.unique_join_match_sharded(ref_dist.sized_mesh(8),
+                                                      *args, **kw)
+    else:
+        kw = dict(anti=mode != "semi", null_aware=mode.startswith("not_in"),
+                  lvalid=lvalid)
+        got = [shardops.semi_join_match_sharded(dist.sized_mesh(8), *args,
+                                                **kw)]
+        want = [ref_shardops.semi_join_match_sharded(ref_dist.sized_mesh(8),
+                                                     *args, **kw)]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.int64
+        np.testing.assert_array_equal(g, w)
+    st, rst = shardops.stats_snapshot(), ref_shardops.stats_snapshot()
+    for k in ("shard_rounds", "shard_rows_hwm", "shard_exchange_bytes",
+              "shard_skew_retries"):
+        assert st[k] == rst[k], (k, st, rst)
+    calls = kernels.kernel_counts()["plain_calls"]["shard_partition"]
+    assert calls == (0 if mode == "not_in_build_nulls" else 4), calls
 
 
 def test_skewed_keys_fall_back_single_device():

@@ -13,7 +13,7 @@ copies one call enqueues by name (``by_kernel``, ``launches``: their
 count a call), the synchronizing CUDA calls of one call (``syncs``) and
 the bound: the larger of the bytes the call must move at 3.35 TB/s and
 its compares at 67 T/s, as chip_smoke.py counts them.  Shapes (8 shards,
-the host partition scatter of ops/shardops.py over the keys):
+K25's partition of ops/shardops.py over the keys):
 
 - HK12 at per-op mesh Q3's joins (join 1: ~727,000 order keys probing
   ~30,000 unique customer keys; join 2: ~147,000 keys probing ~727,000
@@ -95,12 +95,19 @@ def run(root: str, out, with_ptxas: bool) -> None:
         def blocks(lk, rk):
             """Both sides scattered as the mesh tier does: flat [n * cap]
             key and id lanes on the card."""
-            pp = shardops._Partitioned(lk, np.ones(len(lk), bool), SHARDS)
-            pb = shardops._Partitioned(rk, np.ones(len(rk), bool), SHARDS)
-            return (t(pp.scatter(lk, 0).reshape(-1)),
-                    t(pp.scatter_ids().reshape(-1)),
-                    t(pb.scatter(rk, 0).reshape(-1)),
-                    t(pb.scatter_ids().reshape(-1)))
+            if not hasattr(shardops, "partition_sides"):  # the host scatter
+                pp = shardops._Partitioned(lk, np.ones(len(lk), bool),
+                                           SHARDS)
+                pb = shardops._Partitioned(rk, np.ones(len(rk), bool),
+                                           SHARDS)
+                return (t(pp.scatter(lk, 0).reshape(-1)),
+                        t(pp.scatter_ids().reshape(-1)),
+                        t(pb.scatter(rk, 0).reshape(-1)),
+                        t(pb.scatter_ids().reshape(-1)))
+            (p, b), _ = shardops.partition_sides(
+                SHARDS, ((lk, np.ones(len(lk), bool), len(lk)),
+                         (rk, np.ones(len(rk), bool), len(rk))))
+            return p + b
 
         def exchanged(keys, cap):
             """One side as the shuffle join's exchange leaves it: flat

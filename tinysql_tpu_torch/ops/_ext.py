@@ -119,10 +119,13 @@ _SIGNATURES = {
                                     _vp, _vp]),
     },
     "shard_exchange": {
-        "hk13_scratch_words": (_i64, [_i64, _int]),
-        "hk13_exchange_plan": (_int, [_vp, _i64, _i64, _int, _i64, _vp,
-                                      _vp]),
-        "hk13_exchange_lanes": (_int, [_vp, _i64, _int, _i64, _vp, _vp]),
+        "hk13_scratch_words": (_i64, [_i64, _int, _int]),
+        "hk13_exchange": (_int, [_vp, _i64, _i64, _int, _i64, _vp, _vp,
+                                 _int, _vp]),
+        "hk13_partition_count": (_int, [_vp, _vp, _i64, _int, _int, _vp,
+                                        _vp]),
+        "hk13_partition_scatter": (_int, [_vp, _vp, _i64, _int, _int, _i64,
+                                          _vp, _vp, _vp, _vp]),
     },
     "shard_rank": {
         "hk14_shard_rank": (_int, [_vp, _vp, _i64, _i64, _int, _i64, _vp,

@@ -44,7 +44,9 @@ present-row extraction) runs as plain torch tensor operations:
   blocks; its member mode is K25's partitioned semi / anti join, its
   count mode (:func:`shard_count`) K26's broadcast join counts;
 - HK13 :func:`shard_exchange` (csrc/shard_exchange.cu) — the mesh tier's
-  all-to-all of rows by key hash (K18 shuffle, K26);
+  all-to-all of rows by key hash (K18 shuffle, K26); its partition mode
+  (:func:`shard_partition`, :func:`shard_partition_scatter`) K25's hash
+  partition of a join side into per-shard blocks;
 - HK14 :func:`shard_rank` (csrc/shard_rank.cu) — the exact merge of
   per-shard sorted runs (K25 sort and top-k).
 
@@ -67,6 +69,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import ctypes
+import struct
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -174,10 +177,12 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "segment_reduce": 0,
                             "semi_pick": 0, "shard_merge": 0,
                             "shard_probe": 0, "shard_member": 0,
                             "shard_count": 0, "csr_expand_shard": 0,
-                            "shard_exchange": 0, "shard_rank": 0}
+                            "shard_exchange": 0, "shard_partition": 0,
+                            "shard_rank": 0}
 #: the entry points only the mesh tier (tidb_mesh_parallel) launches
 MESH_LAUNCHES = ("shard_merge", "shard_probe", "shard_member", "shard_count",
-                 "csr_expand_shard", "shard_exchange", "shard_rank")
+                 "csr_expand_shard", "shard_exchange", "shard_partition",
+                 "shard_rank")
 #: plain-version calls per wrapper (CPU tensors)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
@@ -3335,18 +3340,36 @@ def hash_dest(keys: torch.Tensor, n_shards: int, n_rows: int) -> torch.Tensor:
     return torch.where(g < n_rows, d, g & (n_shards - 1))
 
 
-class _CExchange(ctypes.Structure):
-    _fields_ = [("vals", ctypes.c_void_p * _MAX_LANES),
-                ("outs", ctypes.c_void_p * _MAX_LANES),
-                ("fill", ctypes.c_int64 * _MAX_LANES),
-                ("width", ctypes.c_int * _MAX_LANES),
-                ("n", ctypes.c_int)]
+#: csrc/shard_exchange.cu's ExchangeLanes, packed: vals, outs (pointers),
+#: fill (int64), width (int) per lane, then n and the struct's padding
+_C_EXCHANGE = struct.Struct(f"<{_MAX_LANES}Q{_MAX_LANES}Q{_MAX_LANES}q"
+                            f"{_MAX_LANES}ii4x")
 
 
-def _le_int(one: torch.Tensor) -> int:
-    """One element's bytes as a little-endian int64 (a lane's fill)."""
-    b = bytes(one.view(torch.uint8).tolist())
-    return int.from_bytes(b, "little", signed=True)
+_FILL_FORMAT = {torch.float64: ("<d", "<q"), torch.float32: ("<f", "<i"),
+                torch.float16: ("<e", "<h")}
+
+
+_FILL_BITS: Dict[tuple, int] = {}
+
+
+def _fill_bits(dtype: torch.dtype, fill) -> int:
+    """A lane's fill as the int64 whose low bytes are its element's
+    (plain ints: no tensor and no pull; memoized)."""
+    key = (dtype, fill)
+    got = _FILL_BITS.get(key)
+    if got is None:
+        got = _FILL_BITS[key] = _fill_int(dtype, fill)
+    return got
+
+
+def _fill_int(dtype: torch.dtype, fill) -> int:
+    if dtype in _FILL_FORMAT:
+        fmt, as_int = _FILL_FORMAT[dtype]
+        return struct.unpack(as_int, struct.pack(fmt, float(fill)))[0]
+    if dtype.is_floating_point or dtype.is_complex:
+        raise ValueError(f"shard_exchange: lane dtype {dtype}")
+    return int(bool(fill)) if dtype == torch.bool else int(fill)
 
 
 def _exchange_checks(keys, n_rows: int, lanes, cap: int, n: int):
@@ -3361,9 +3384,11 @@ def _exchange_checks(keys, n_rows: int, lanes, cap: int, n: int):
     out = []
     for v, fill in lanes:
         v = v.contiguous()
-        _need(v, v.dtype, nb, dev, "shard_exchange lane")
-        if v.element_size() not in (1, 2, 4, 8):
-            raise ValueError(f"shard_exchange: lane dtype {v.dtype}")
+        if v.shape != keys.shape or v.device != dev \
+                or v.dtype.itemsize not in (1, 2, 4, 8):
+            raise ValueError(f"shard_exchange: a lane of {v.dtype}"
+                             f"{tuple(v.shape)} on {v.device} for {nb} rows"
+                             f" on {dev}")
         out.append((v, fill))
     return keys, out
 
@@ -3374,6 +3399,33 @@ def _overflow(n: int, cap: int):
                         f"{cap}")
 
 
+def _lane_buffer(dtypes, n_slots: int, dev):
+    """The outputs of a call: one [k, n_slots] tensor per dtype for its k
+    lanes, unbound into per-lane views in lane order.  Returns (outputs,
+    their data pointers), the pointers computed, not read per view."""
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, dt in enumerate(dtypes):
+        groups.setdefault(dt, []).append(i)
+    outs: List[Optional[torch.Tensor]] = [None] * len(dtypes)
+    ptrs = [0] * len(dtypes)
+    for dt, idx in groups.items():
+        buf = torch.empty((len(idx), n_slots), dtype=dt, device=dev)
+        base, row = buf.data_ptr(), n_slots * dt.itemsize
+        for j, (i, v) in enumerate(zip(idx, buf.unbind(0))):
+            outs[i], ptrs[i] = v, base + j * row
+    return outs, ptrs
+
+
+def _exchange_chunk(lanes, ptrs) -> bytes:
+    """One launch's lanes (and their outputs' pointers) as the C struct's
+    bytes."""
+    pad = [0] * (_MAX_LANES - len(lanes))
+    return _C_EXCHANGE.pack(
+        *[v.data_ptr() for v, _ in lanes], *pad, *ptrs, *pad,
+        *[_fill_bits(v.dtype, f) for v, f in lanes], *pad,
+        *[v.dtype.itemsize for v, _ in lanes], *pad, len(lanes))
+
+
 def shard_exchange(keys: torch.Tensor, n_rows: int, lanes, cap: int,
                    n_shards: int) -> List[torch.Tensor]:
     """HK13: the all-to-all of ``lanes`` ([(tensor [nb], fill)]) over
@@ -3381,39 +3433,28 @@ def shard_exchange(keys: torch.Tensor, n_rows: int, lanes, cap: int,
     source shard s owns rows [s * nb / n, (s + 1) * nb / n), row g goes to
     shard :func:`hash_dest` at its stable rank among the rows of s with
     that destination.  Returns per lane the received [n * n * cap] lane,
-    flat [destination][source][cap], every unreached slot at the fill.
-    Raises when a (source, destination) pair holds more than ``cap``
-    rows (the host bounds ``cap`` exactly: no row is dropped)."""
+    flat [destination][source][cap], every unreached slot at the fill
+    (views of one buffer per dtype).  Raises when a (source, destination) pair
+    holds more than ``cap`` rows (the host bounds ``cap`` exactly: no row
+    is dropped); the error word is the call's one read."""
     n, cap = int(n_shards), int(cap)
     keys, lanes = _exchange_checks(keys, n_rows, lanes, cap, n)
     if not _on_card(keys, "shard_exchange"):
         return shard_exchange_plain(keys, n_rows, lanes, cap, n)
     from . import _ext
     lib = _ext.lib("shard_exchange")
-    dev = keys.device
     nb = int(keys.shape[0])
-    scratch = torch.empty(lib.hk13_scratch_words(nb, n), dtype=I64,
-                          device=dev)
-    _ext.check(lib.hk13_exchange_plan(keys.data_ptr(), nb, int(n_rows), n,
-                                      cap, scratch.data_ptr(), _stream()),
-               "shard_exchange")
-    outs = []
-    for c0 in range(0, len(lanes), _MAX_LANES):
-        cl = _CExchange()
-        chunk = lanes[c0:c0 + _MAX_LANES]
-        cl.n = len(chunk)
-        for j, (v, fill) in enumerate(chunk):
-            o = torch.empty(n * n * cap, dtype=v.dtype, device=dev)
-            cl.vals[j] = v.data_ptr()
-            cl.outs[j] = o.data_ptr()
-            cl.fill[j] = _le_int(torch.full((1,), fill, dtype=v.dtype))
-            cl.width[j] = v.element_size()
-            outs.append(o)
-        _ext.check(lib.hk13_exchange_lanes(scratch.data_ptr(), nb, n, cap,
-                                           ctypes.byref(cl), _stream()),
-                   "shard_exchange lanes")
+    words = lib.hk13_scratch_words(nb, n, n)
+    scratch = torch.empty(words, dtype=I64, device=keys.device)
+    outs, ptrs = _lane_buffer([v.dtype for v, _ in lanes], n * n * cap,
+                              keys.device)
+    chunks = [_exchange_chunk(lanes[c:c + _MAX_LANES], ptrs[c:c + _MAX_LANES])
+              for c in range(0, len(lanes), _MAX_LANES)]
+    _ext.check(lib.hk13_exchange(keys.data_ptr(), nb, int(n_rows), n, cap,
+                                 scratch.data_ptr(), b"".join(chunks),
+                                 len(chunks), _stream()), "shard_exchange")
     _count(LAUNCHES, "shard_exchange")
-    if int(scratch[-1]):  # the plan's error word (a status read)
+    if int(scratch[words - 2]):  # the error word (the call's one read)
         raise _overflow(n, cap)
     return outs
 
@@ -3445,6 +3486,139 @@ def shard_exchange_plain(keys, n_rows: int, lanes, cap: int,
         o[slot] = v[src]
         outs.append(o)
     return outs
+
+
+# ---- HK13's partition mode (K25's join and member sides) -------------------
+
+#: splitmix64 of ops/shardops.hash_partition at depth 0, as int64 words
+_SPLIT_SEED = 0x9E3779B97F4A7C15 - (1 << 64)
+_SPLIT_MIX = (0xBF58476D1CE4E5B9 - (1 << 64), 0x94D049BB133111EB - (1 << 64))
+
+
+def _srl(u: torch.Tensor, k: int) -> torch.Tensor:
+    """A logical right shift of int64 words (torch's >> is arithmetic)."""
+    return (u >> k) & ((1 << (64 - k)) - 1)
+
+
+def partition_dest(keys: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """The partition of every key (int64, or float64 by its raw bits with
+    -0.0 as +0.0): splitmix64 from the depth-0 seed, & (n - 1) — the
+    numpy ``shardops.hash_partition(keys, 0, n)`` in int64 torch ops."""
+    u = keys
+    if keys.dtype == F64:
+        u = keys.view(I64)
+        u = torch.where(u == I64_MIN, torch.zeros_like(u), u)
+    u = u + _SPLIT_SEED
+    u = u ^ _srl(u, 30)
+    u = u * _SPLIT_MIX[0]
+    u = u ^ _srl(u, 27)
+    u = u * _SPLIT_MIX[1]
+    u = u ^ _srl(u, 31)
+    return u & (int(n_shards) - 1)
+
+
+class Partition:
+    """One side's partition after its count call: its inputs, the live
+    rows' count per destination (int64 [n], on the side's device) and the
+    count call's scratch (None for the plain version)."""
+
+    __slots__ = ("keys", "live", "n", "counts", "scratch")
+
+    def __init__(self, keys, live, n, counts, scratch):
+        self.keys, self.live, self.n = keys, live, n
+        self.counts, self.scratch = counts, scratch
+
+
+def _partition_checks(keys, live, n: int):
+    nb = int(keys.shape[0])
+    if n < 2 or n > MAX_EXCHANGE_SHARDS or n & (n - 1):
+        raise ValueError(f"shard_partition: {nb} rows, {n} shards")
+    if keys.dtype not in (I64, F64):
+        raise ValueError(f"shard_partition: key dtype {keys.dtype}")
+    keys, live = keys.contiguous(), live.contiguous()
+    _need(keys, keys.dtype, nb, keys.device, "shard_partition keys")
+    _need(live, torch.bool, nb, keys.device, "shard_partition live")
+    return keys, live
+
+
+def shard_partition(keys: torch.Tensor, live: torch.Tensor,
+                    n_shards: int) -> Partition:
+    """HK13's partition mode, its count call: the live rows of ``keys``
+    (int64 or float64 [nb], ``live`` bool [nb]) per destination
+    :func:`partition_dest` (``Partition.counts``, int64 [n]).  The caller
+    pulls the counts, sets cap, then calls
+    :func:`shard_partition_scatter`."""
+    n = int(n_shards)
+    keys, live = _partition_checks(keys, live, n)
+    if not _on_card(keys, "shard_partition"):
+        return shard_partition_plain(keys, live, n)
+    from . import _ext
+    lib = _ext.lib("shard_exchange")
+    nb = int(keys.shape[0])
+    words = lib.hk13_scratch_words(nb, n, 1)
+    scratch = torch.empty(words, dtype=I64, device=keys.device)
+    _ext.check(lib.hk13_partition_count(
+        keys.data_ptr(), live.data_ptr(), nb, n, int(keys.dtype == F64),
+        scratch.data_ptr(), _stream()), "shard_partition")
+    _count(LAUNCHES, "shard_partition")
+    return Partition(keys, live, n, scratch[words - 2 - n:words - 2],
+                     scratch)
+
+
+def shard_partition_plain(keys, live, n_shards: int) -> Partition:
+    """Plain torch version of the count call: a bincount of the live rows'
+    destinations."""
+    _count(PLAIN_CALLS, "shard_partition")
+    n = int(n_shards)
+    dest = partition_dest(keys, n)[live]
+    return Partition(keys, live, n, torch.bincount(dest, minlength=n),
+                     None)
+
+
+def shard_partition_scatter(part: Partition, cap: int):
+    """HK13's partition mode, its scatter call: the live rows into flat
+    [n * cap] blocks, each at its stable rank among the live rows of its
+    destination, in row order (the reference's ``_Partitioned.scatter``
+    of the keys and ``scatter_ids``, slot for slot).  Returns (keys [n * cap] in the keys' dtype, fill 0; row ids
+    int64 [n * cap], fill -1); ``cap`` must hold every count."""
+    n, cap = part.n, int(cap)
+    if cap < 1:
+        raise ValueError(f"shard_partition: cap {cap}")
+    if part.scratch is None or not _on_card(part.keys, "shard_partition"):
+        return shard_partition_scatter_plain(part, cap)
+    from . import _ext
+    nb = int(part.keys.shape[0])
+    (ko, io), _ = _lane_buffer([part.keys.dtype, I64], n * cap,
+                               part.keys.device)
+    _ext.check(_ext.lib("shard_exchange").hk13_partition_scatter(
+        part.keys.data_ptr(), part.live.data_ptr(), nb, n,
+        int(part.keys.dtype == F64), cap, part.scratch.data_ptr(),
+        ko.data_ptr(), io.data_ptr(), _stream()), "shard_partition scatter")
+    _count(LAUNCHES, "shard_partition")
+    return ko, io
+
+
+def shard_partition_scatter_plain(part: Partition, cap: int):
+    """Plain torch version of the scatter call: a stable argsort of the
+    live rows' destinations, each row's rank by a searchsorted, and an
+    index_put into [n * cap]."""
+    _count(PLAIN_CALLS, "shard_partition")
+    n, keys = part.n, part.keys
+    dev = keys.device
+    rows = torch.nonzero(part.live).reshape(-1)
+    dest = partition_dest(keys[rows], n)
+    order = torch.argsort(dest, stable=True)
+    ds = dest[order]
+    rank = torch.arange(int(ds.shape[0]), dtype=I64, device=dev) \
+        - torch.searchsorted(ds, ds)
+    if int(ds.shape[0]) and int(rank.max()) >= cap:
+        raise _overflow(n, cap)
+    slot = ds * cap + rank
+    ko = torch.zeros(n * cap, dtype=keys.dtype, device=dev)
+    io = torch.full((n * cap,), -1, dtype=I64, device=dev)
+    ko[slot] = keys[rows[order]]
+    io[slot] = rows[order]
+    return ko, io
 
 
 #: csrc/shard_rank.cu's kSmall: n * run elements merged by one block

@@ -12,16 +12,17 @@ states is HK11 (:func:`kernels.shard_merge`).
   HK1 reduces each shard's rows (one launch per shard), HK11 merges.
   Stacked batch rounds over a sharded program are not ported (ROADMAP
   item 7): this entry point is not batchable, so a member runs solo.
-- ``unique_join_match_sharded`` (K25) — partitioned build/probe: the host
-  scatters both sides' LIVE rows into per-shard hash-partition blocks
-  (:func:`hash_partition`, the spill partitioner at depth 0), HK4 sorts
-  every build block by (shard, key, liveness) in one launch, HK12
-  (:func:`kernels.shard_probe`) probes each shard's block, and the host
-  re-assembles the results in probe order — byte-identical to the
-  unsharded join.
+- ``unique_join_match_sharded`` (K25) — partitioned build/probe: HK13's
+  partition mode (:func:`kernels.shard_partition`, the spill
+  partitioner's depth-0 hash of :func:`hash_partition` on the card)
+  scatters both sides' LIVE rows into per-shard blocks, HK4 sorts every
+  build block by (shard, key, liveness) in one launch, HK12
+  (:func:`kernels.shard_probe`) probes each shard's block, the results go
+  back to probe order on the card through the id lane, and one pull
+  brings them to the host — byte-identical to the unsharded join.
 - ``semi_join_match_sharded`` (K25 member) — the same partition blocks
   and build sort, HK12's member mode probes them, and the host applies
-  the semi / anti / NOT IN ladder over the re-assembled bits.
+  the semi / anti / NOT IN ladder over the pulled membership bits.
 - ``sort_permutation_sharded`` / ``top_k_sharded`` (K25 sort, top-k) —
   single-key orders over the total-order score: HK4 sorts each shard's
   rows (the shard id as the leading lane; per shard only its top kb for
@@ -137,11 +138,12 @@ def _shards_tag(mesh) -> tuple:
     return ("shards", dist.mesh_shards(mesh))
 
 
-# ---- host-side hash partitioning -------------------------------------------
+# ---- hash partitioning -------------------------------------------------------
 # The reference's spill partitioner (tinysql_tpu/ops/spill.py:122-144).  The
 # port has no ops/spill.py yet (ROADMAP item 6): when it lands it imports
 # hash_partition from here, so one partitioner drives device placement and
-# the spill ladder.
+# the spill ladder.  The mesh tier's partition runs the same hash on the
+# card (HK13's partition mode; kernels.partition_dest is its torch twin).
 
 #: per-depth seeds: recursion at depth d rehashes with a different mix
 _SEEDS = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB,
@@ -174,49 +176,45 @@ def hash_partition(keys: np.ndarray, depth: int, n_parts: int) -> np.ndarray:
 SKEW_CAP_FACTOR = 2
 
 
-class _Partitioned:
-    """Host-side hash-partition scatter of one input side: LIVE rows land
-    in per-shard blocks [n_shards, cap] (cap = bucketed max partition
-    size), each row remembering its global index so results re-assemble
-    in input order."""
+def _skewed(n_shards: int, cap: int, n_input_bucket: int) -> bool:
+    """The reference's skew gate of one side's partition blocks."""
+    return n_shards * cap > max(SKEW_CAP_FACTOR * n_input_bucket,
+                                16 * n_shards)
 
-    __slots__ = ("n_shards", "cap", "dest", "order", "slot", "live_idx",
-                 "nbytes")
 
-    def __init__(self, keys: np.ndarray, live: np.ndarray, n_shards: int):
-        live_idx = np.nonzero(live)[0].astype(np.int64)
-        k = np.ascontiguousarray(keys[live_idx])
-        dest = hash_partition(k, 0, n_shards) if len(k) \
-            else np.empty(0, dtype=np.int64)
-        counts = np.bincount(dest, minlength=n_shards)
-        self.cap = kernels.bucket(max(int(counts.max()) if len(k) else 1, 1))
-        self.n_shards = n_shards
-        self.dest = dest
-        self.live_idx = live_idx
-        order = np.argsort(dest, kind="stable")
-        starts = np.zeros(n_shards, dtype=np.int64)
-        np.cumsum(counts[:-1], out=starts[1:])
-        rank = np.arange(len(dest), dtype=np.int64) - starts[dest[order]]
-        self.order = order
-        self.slot = dest[order] * self.cap + rank
-        self.nbytes = 0
+def partition_sides(n: int, sides):
+    """Both sides of a partitioned join on the device: each side's key
+    lane and live mask ((keys, live, n_input) host arrays) uploaded once,
+    HK13's count calls, both sides' per-shard counts in one pull, cap =
+    the bucketed largest count (at least 1), the reference's skew gate;
+    then HK13's scatter calls.  Returns ([(key blocks, id blocks)] flat
+    [n * cap] on the device, [cap]), or None for a skewed side (counted
+    as a skew retry)."""
+    parts = [kernels.shard_partition(kernels.h2d(k), kernels.h2d(live), n)
+             for k, live, _ in sides]
+    counts = kernels.d2h_many([p.counts for p in parts])
+    caps = [kernels.bucket(max(int(c.max()), 1)) for c in counts]
+    if any(_skewed(n, cap, kernels.bucket(max(n_in, 1)))
+           for cap, (_, _, n_in) in zip(caps, sides)):
+        record_skew_retry()
+        return None
+    blocks = [kernels.shard_partition_scatter(p, cap)
+              for p, cap in zip(parts, caps)]
+    # the reference counts each side's key blocks (n * cap keys)
+    record_exchange(sum(n * cap * k.dtype.itemsize
+                        for cap, (k, _, _) in zip(caps, sides)))
+    note_round(max(caps))
+    return blocks, caps
 
-    def skewed(self, n_input_bucket: int) -> bool:
-        return self.n_shards * self.cap > max(
-            SKEW_CAP_FACTOR * n_input_bucket, 16 * self.n_shards)
 
-    def scatter(self, lane: np.ndarray, fill) -> np.ndarray:
-        """One lane -> [n_shards, cap] blocks (live rows only)."""
-        out = np.full(self.n_shards * self.cap, fill, dtype=lane.dtype)
-        out[self.slot] = lane[self.live_idx][self.order]
-        self.nbytes += out.nbytes
-        return out.reshape(self.n_shards, self.cap)
-
-    def scatter_ids(self) -> np.ndarray:
-        """Global row-index lane (fill -1 marks padding slots)."""
-        out = np.full(self.n_shards * self.cap, -1, dtype=np.int64)
-        out[self.slot] = self.live_idx[self.order]
-        return out.reshape(self.n_shards, self.cap)
+def _input_order(pid: torch.Tensor, vals: torch.Tensor, n_rows: int, fill):
+    """Per-slot results back in input order on the device: slot i's value
+    at row pid[i], ``fill`` where no slot lands (padding slots write a
+    spare row past the end, dropped)."""
+    out = torch.full((n_rows + 1,), fill, dtype=vals.dtype,
+                     device=vals.device)
+    idx = torch.where(pid >= 0, pid, torch.full_like(pid, n_rows))
+    return out.scatter_(0, idx, vals)[:n_rows]
 
 
 def _live_masks(n_left, n_right, lnull, rnull, lvalid, rvalid):
@@ -301,34 +299,21 @@ def unique_join_match_sharded(mesh, lkey, n_left: int, rkey, n_right: int,
         z = np.empty(0, dtype=np.int64)
         return z, z
     fail.inject("shardExchangeStall")
-    pp = _Partitioned(lk, l_live, n)
-    pb = _Partitioned(rk, r_live, n)
-    nlb = kernels.bucket(max(n_left, 1))
-    nrb = kernels.bucket(max(n_right, 1))
-    if pp.skewed(nlb) or pb.skewed(nrb):
-        record_skew_retry()
+    got = partition_sides(n, ((lk, l_live, n_left), (rk, r_live, n_right)))
+    if got is None:
         return None
-    key = ("join_sharded", _shards_tag(mesh), pp.cap, pb.cap, str(lk.dtype))
+    ((pk, pid), (bk, bid)), (cap_p, cap_b) = got
+    key = ("join_sharded", _shards_tag(mesh), cap_p, cap_b, str(lk.dtype))
     fn = progcache.get(key, lambda: kernels.counted_launch(
         lambda *a: _local_unique_join(n, *a)))
-    pk_h, pi_h = pp.scatter(lk, 0), pp.scatter_ids()
-    bk_h, bi_h = pb.scatter(rk, 0), pb.scatter_ids()
-    record_exchange(pp.nbytes + pb.nbytes)
-    note_round(max(pp.cap, pb.cap))
-    pkb, pib = kernels.h2d(pk_h.reshape(-1)), kernels.h2d(pi_h.reshape(-1))
-    bkb, bib = kernels.h2d(bk_h.reshape(-1)), kernels.h2d(bi_h.reshape(-1))
-    hit, brow = kernels.d2h_many(fn(pkb, pib, bkb, bib))
-    flat_ids = pi_h.reshape(-1)
-    sel = flat_ids >= 0
-    match = np.zeros(n_left, dtype=bool)
-    cand = np.full(n_left, -1, dtype=np.int64)
-    match[flat_ids[sel]] = hit[sel]
-    cand[flat_ids[sel]] = brow[sel]
+    hit, brow = fn(pk, pid, bk, bid)
+    cand = _input_order(pid, brow, n_left, -1)  # -1: no live match
     if outer:
         li = np.nonzero(lv)[0].astype(np.int64)
-        return li, np.where(match[li], cand[li], -1).astype(np.int64)
-    li = np.nonzero(match)[0].astype(np.int64)
-    return li, cand[li]
+        return li, kernels.d2h(cand)[li]
+    li = torch.nonzero(cand >= 0).reshape(-1)
+    li, ri = kernels.d2h_many([li, cand[li]])
+    return li.astype(np.int64), ri
 
 
 # ---- partitioned semi / anti join ------------------------------------------
@@ -363,26 +348,16 @@ def semi_join_match_sharded(mesh, lkey, n_left: int, rkey, n_right: int,
     if anti and null_aware and bool((rv & rn).any()):
         return np.empty(0, dtype=np.int64)
     fail.inject("shardExchangeStall")
-    pp = _Partitioned(lk, lv & ~ln, n)
-    pb = _Partitioned(rk, rv & ~rn, n)
-    if pp.skewed(kernels.bucket(max(n_left, 1))) \
-            or pb.skewed(kernels.bucket(max(n_right, 1))):
-        record_skew_retry()
+    got = partition_sides(n, ((lk, lv & ~ln, n_left),
+                              (rk, rv & ~rn, n_right)))
+    if got is None:
         return None
-    key = ("semi_sharded", _shards_tag(mesh), pp.cap, pb.cap, str(lk.dtype))
+    ((pk, pid), (bk, bid)), (cap_p, cap_b) = got
+    key = ("semi_sharded", _shards_tag(mesh), cap_p, cap_b, str(lk.dtype))
     fn = progcache.get(key, lambda: kernels.counted_launch(
         lambda *a: _local_member(n, *a)))
-    pk_h, pi_h = pp.scatter(lk, 0), pp.scatter_ids()
-    bk_h, bi_h = pb.scatter(rk, 0), pb.scatter_ids()
-    record_exchange(pp.nbytes + pb.nbytes)
-    note_round(max(pp.cap, pb.cap))
-    pkb, pib = kernels.h2d(pk_h.reshape(-1)), kernels.h2d(pi_h.reshape(-1))
-    bkb, bib = kernels.h2d(bk_h.reshape(-1)), kernels.h2d(bi_h.reshape(-1))
-    mem_flat = kernels.d2h(fn(pkb, pib, bkb, bib))
-    flat_ids = pi_h.reshape(-1)
-    sel = flat_ids >= 0
-    member = np.zeros(n_left, dtype=bool)
-    member[flat_ids[sel]] = mem_flat[sel]
+    member = kernels.d2h(_input_order(pid, fn(pk, pid, bk, bid), n_left,
+                                      False))
     if anti:
         keep = lv & ~member
         if null_aware:
